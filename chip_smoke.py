@@ -1,0 +1,570 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
+its plain PyTorch version on the card, times them at the shapes the serving
+path gives them, and serves qwen3-1.7b at full width and depth through the
+continuous-batching engine, counting the kernels' launches on that path.
+Every phase prints JSON lines; any failure ends the run with a non-zero
+exit code. Without a CUDA device the script fails: nothing runs on the CPU.
+
+The last three lines of its standard output are the ``kernels`` record, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs.registry import get_config, tiny_config  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serve import Engine, EngineConfig  # noqa: E402
+
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the reference's own
+BF = torch.bfloat16
+F32 = torch.float32
+DEV = "cuda"
+
+
+def emit(**record) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def run_text(cmd) -> str:
+    exe = shutil.which(cmd[0])
+    if exe is None:
+        return f"{cmd[0]}: not found"
+    out = subprocess.run([exe, *cmd[1:]], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, timeout=60)
+    return out.stdout.strip()
+
+
+def ptxas_summary() -> dict:
+    """What ``-Xptxas -v`` said of the build: kernels compiled, and those
+    that spill registers, with the bytes."""
+    log = Path(f"{_build.library_path()}.log").read_text().splitlines()
+    entry, n, spills = "", 0, {}
+    for ln in log:
+        if "Compiling entry function" in ln:
+            entry, n = ln.split("'")[1], n + 1
+        elif "bytes spill stores" in ln and " 0 bytes spill stores" not in ln:
+            spills[entry] = ln.split("ptxas info")[-1].strip(" :")
+    return {"kernels_compiled": n, "kernels_with_spills": spills}
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the three wrappers to their plain PyTorch versions: what the
+    kernels are held against. Only this script does so."""
+    saved = (rms_mod.rmsnorm, fa_mod.flash_attention, dec_mod.flash_decode)
+    rms_mod.rmsnorm = rms_mod.rmsnorm_plain
+    fa_mod.flash_attention = fa_mod.flash_attention_plain
+    dec_mod.flash_decode = dec_mod.flash_decode_plain
+    try:
+        yield
+    finally:
+        rms_mod.rmsnorm, fa_mod.flash_attention, dec_mod.flash_decode = saved
+
+
+def reset_counts() -> None:
+    for fn in (rms_mod.rmsnorm, fa_mod.flash_attention, dec_mod.flash_decode):
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {"rmsnorm": rms_mod.rmsnorm.launches,
+            "flash_attention": fa_mod.flash_attention.launches,
+            "flash_decode": dec_mod.flash_decode.launches}
+
+
+def randn(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(DEV).to(dtype)
+
+
+def check_close(name, got, want, dtype) -> float:
+    """Fail unless |got - want| <= tol + tol * |want| everywhere and all of
+    ``got`` is finite; returns the largest absolute difference. ``dtype`` is
+    the narrowest type on the way: over a bf16 cache the softmax weights are
+    rounded to bf16 (by the kernel before, by the plain version after they
+    are normalised), so f32 queries there are held to the bf16 tolerance."""
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)} "
+                             "or values not finite")
+    err = (g - w).abs()
+    if not (err <= tol + tol * w.abs()).all():
+        raise AssertionError(f"{name}: max abs err {err.max().item():.3e} "
+                             f"beyond tolerance {tol}")
+    return err.max().item()
+
+
+def time_ms(fn, n_variants: int = 1, iters: int = 20, reps: int = 7) -> dict:
+    """Time ``fn(i)`` two ways, each the median over ``reps`` of the mean of
+    ``iters`` calls between CUDA events. ``ms``: the calls replayed from a
+    CUDA graph, so the device runs them back to back and the time is the
+    device's own. ``eager_ms``: the calls as the port makes them, from
+    Python, where a small kernel waits for the host to enqueue it. ``fn`` is
+    given a running index so that it can walk over ``n_variants`` copies of
+    its inputs and find the L2 cache cold where the real caller would."""
+    def run(k0):
+        for k in range(k0, k0 + iters):
+            fn(k % n_variants)
+
+    def timed(launch):
+        times = []
+        for r in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(r * iters)
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop) / iters)
+        return statistics.median(times)
+
+    run(0)                                           # warm up, build, allocate
+    torch.cuda.synchronize()
+    eager = timed(run)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run(0)
+    graph.replay()
+    torch.cuda.synchronize()
+    return {"ms": timed(lambda _: graph.replay()), "eager_ms": eager}
+
+
+def bound(bytes_moved: float, operations: float, dtype) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = operations / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------- #
+#  phase 3: kernels                                                      #
+# --------------------------------------------------------------------- #
+def bhsd_views(rng, BKV, g, S, T, D, dtype):
+    """The reference's kernel-test layout q (BKV*g, S, D), k/v (BKV, T, D),
+    handed over as strided model-layout views with one KV head."""
+    q = randn(rng, (BKV * g, S, D), dtype)
+    k = randn(rng, (BKV, T, D), dtype)
+    v = randn(rng, (BKV, T, D), dtype)
+    return (q.view(BKV, g, S, D).permute(0, 2, 1, 3), k[:, :, None, :],
+            v[:, :, None, :])
+
+
+def check_rmsnorm(rng) -> float:
+    worst = 0.0
+    cases = [((64, 256), F32), ((100, 512), BF), ((1024, 128), F32),
+             ((8, 1, 2048), BF), ((1, 128, 2048), BF), ((8, 1, 64), F32)]
+    for shape, dtype in cases:
+        x = randn(rng, shape, dtype)
+        s = randn(rng, (shape[-1],), F32)
+        worst = max(worst, check_close(f"rmsnorm{shape}", rms_mod.rmsnorm(x, s),
+                                       rms_mod.rmsnorm_plain(x, s), dtype))
+    # the last position of every sequence: a strided view, as in prefill
+    x = randn(rng, (4, 96, 2048), BF)[:, -1:]
+    s = randn(rng, (2048,), F32)
+    worst = max(worst, check_close("rmsnorm strided", rms_mod.rmsnorm(x, s),
+                                   rms_mod.rmsnorm_plain(x, s), BF))
+    return worst
+
+
+def path_cache(rng, L, B, T, KVH, D, dtype):
+    return randn(rng, (L, B, T, KVH, D), dtype), randn(rng, (L, B, T, KVH, D), dtype)
+
+
+def check_flash_decode(rng) -> float:
+    worst = 0.0
+    for T, G, D in [(512, 4, 64), (384, 1, 128), (1024, 8, 64)]:
+        q = randn(rng, (3, 1, G, D), F32)
+        k, v = randn(rng, (3, T, 1, D), F32), randn(rng, (3, T, 1, D), F32)
+        lens = torch.tensor([T, T // 2, 7], device=DEV)
+        worst = max(worst, check_close(
+            f"flash_decode T{T} G{G} D{D}", dec_mod.flash_decode(q, k, v, lens),
+            dec_mod.flash_decode_plain(q, k, v, lens), F32))
+    cases = [  # B, H, KVH, D, T, kv_len, q dtype, cache dtype
+        (2, 8, 2, 64, 256, [200, 64], F32, F32),
+        (8, 16, 8, 128, 1025, [1025, 1, 64, 65, 333, 800, 1024, 1025], BF, BF),
+        (2, 4, 2, 16, 97, [97, 5], F32, BF),
+        (2, 4, 2, 16, 97, [33, 96], BF, BF),
+    ]
+    for B, H, KVH, D, T, lens, qd, kd in cases:
+        q = randn(rng, (B, 1, H, D), qd)
+        ck, cv = path_cache(rng, 2, B, T, KVH, D, kd)
+        lens = torch.tensor(lens, device=DEV)
+        worst = max(worst, check_close(
+            f"flash_decode B{B} H{H} D{D} T{T}",
+            dec_mod.flash_decode(q, ck[1], cv[1], lens),
+            dec_mod.flash_decode_plain(q, ck[1], cv[1], lens), kd))
+    return worst
+
+
+def check_flash_attention(rng) -> float:
+    worst = 0.0
+    grid = [(128, 128, 64, 1, "causal", F32), (256, 256, 128, 4, "causal", BF),
+            (128, 384, 64, 2, "bidirectional", F32), (200, 200, 64, 2, "causal", F32),
+            (256, 256, 64, 1, "local", F32)]
+    for S, T, D, g, kind, dtype in grid:
+        q, k, v = bhsd_views(rng, 2, g, S, T, D, dtype)
+        worst = max(worst, check_close(
+            f"flash_attention {kind} S{S} T{T} D{D} g{g}",
+            fa_mod.flash_attention(q, k, v, kind, 64),
+            fa_mod.flash_attention_plain(q, k, v, kind, 64), dtype))
+    cases = [  # B, S, H, KVH, D, pos0, q dtype, cache dtype
+        (2, 128, 8, 2, 64, 0, F32, F32),
+        (1, 128, 16, 8, 128, 0, BF, BF),        # the path's chunk, pos0 = 0
+        (1, 128, 16, 8, 128, 512, BF, BF),      # ... and deep in a prompt
+        (1, 37, 16, 8, 128, 211, BF, BF),       # a ragged last chunk
+        (1, 768, 16, 8, 128, 0, BF, BF),        # a whole prompt (serial mode)
+        (1, 23, 4, 2, 16, 9, F32, BF),          # the small model, f32 over a bf16 cache
+        (2, 40, 4, 2, 16, 0, F32, F32),
+    ]
+    for B, S, H, KVH, D, pos0, qd, kd in cases:
+        q = randn(rng, (B, S, H, D), qd)
+        ck, cv = path_cache(rng, 2, B + 1, pos0 + S + 5, KVH, D, kd)
+        k, v = ck[1, 1:B + 1, :pos0 + S], cv[1, 1:B + 1, :pos0 + S]   # cache views
+        worst = max(worst, check_close(
+            f"flash_attention S{S} H{H} D{D} pos0={pos0}",
+            fa_mod.flash_attention(q, k, v, "causal", 0, pos0),
+            fa_mod.flash_attention_plain(q, k, v, "causal", 0, pos0), kd))
+    return worst
+
+
+def time_rmsnorm(rng, shape) -> dict:
+    x = randn(rng, shape, BF)
+    s = randn(rng, (shape[-1],), F32)
+    sb = s.to(BF)
+    n = x.numel()
+    b_ms, by = bound(2 * n * 2 + s.numel() * 4, 4 * n, F32)
+    return {"shape": list(shape), "dtype": "bfloat16",
+            **time_ms(lambda i: rms_mod.rmsnorm(x, s)),
+            "plain_ms": time_ms(lambda i: rms_mod.rmsnorm_plain(x, s))["ms"],
+            "library_ms": time_ms(lambda i: F.rms_norm(x, (shape[-1],), sb, 1e-6))["ms"],
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def time_flash_decode(rng, kv_len, label) -> dict:
+    B, H, KVH, D, T, L = 8, 16, 8, 128, 1025, 6       # 6 layers of cache: 200 MB,
+    ck, cv = path_cache(rng, L, B, T, KVH, D, BF)      # so the L2 cache is cold
+    q = randn(rng, (B, 1, H, D), BF)
+    lens = torch.tensor(kv_len, device=DEV)
+    valid = (torch.arange(T, device=DEV)[None] < lens[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)                             # (B, H, 1, D)
+
+    def library(i):
+        return F.scaled_dot_product_attention(
+            qt, ck[i].transpose(1, 2), cv[i].transpose(1, 2), attn_mask=valid,
+            enable_gqa=True)
+
+    n_keys = int(sum(kv_len))
+    b_ms, by = bound(2 * n_keys * KVH * D * 2 + 2 * q.numel() * 2 + B * 4,
+                     4 * n_keys * H * D, BF)
+    return {"shape": label, "dtype": "bfloat16", "kv_len": list(kv_len),
+            **time_ms(lambda i: dec_mod.flash_decode(q, ck[i], cv[i], lens), L),
+            "plain_ms": time_ms(lambda i: dec_mod.flash_decode_plain(q, ck[i], cv[i], lens), L)["ms"],
+            "library_ms": time_ms(library, L)["ms"],
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def time_flash_attention(rng, S, pos0) -> dict:
+    B, H, KVH, D, L = 1, 16, 8, 128, 4
+    ck, cv = path_cache(rng, L, 8, 1025, KVH, D, BF)
+    q = randn(rng, (B, S, H, D), BF)
+    T = pos0 + S
+    views = [(ck[i, 3:4, :T], cv[i, 3:4, :T]) for i in range(L)]
+    mask = (torch.arange(T, device=DEV)[None, :]
+            <= torch.arange(S, device=DEV)[:, None] + pos0)
+    qt = q.transpose(1, 2)
+
+    def library(i):
+        k, v = views[i]
+        return F.scaled_dot_product_attention(
+            qt, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+    pairs = sum(min(T, s + pos0 + 1) for s in range(S))      # unmasked (q, k) pairs
+    b_ms, by = bound((2 * q.numel() + 2 * B * T * KVH * D) * 2, 4 * pairs * B * H * D, BF)
+    return {"shape": f"S={S} T={T} pos0={pos0} H={H} KVH={KVH} D={D}", "dtype": "bfloat16",
+            **time_ms(lambda i: fa_mod.flash_attention(q, *views[i], "causal", 0, pos0), L),
+            "plain_ms": time_ms(lambda i: fa_mod.flash_attention_plain(q, *views[i], "causal", 0, pos0), L)["ms"],
+            "library_ms": time_ms(library, L)["ms"],
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def phase_kernels() -> dict:
+    rng = np.random.default_rng(0)
+    errs = {"rmsnorm": check_rmsnorm(rng), "flash_decode": check_flash_decode(rng),
+            "flash_attention": check_flash_attention(rng)}
+    emit(phase="kernels_checked", max_abs_err=errs,
+         tolerance={"float32": TOL[F32], "bfloat16": TOL[BF]})
+    mixed = [1025, 1025, 64, 200, 333, 512, 800, 1000]    # two idle slots read it all
+    times = {
+        "rmsnorm": [time_rmsnorm(rng, (1, 128, 2048)), time_rmsnorm(rng, (8, 1, 2048))],
+        "flash_decode": [time_flash_decode(rng, mixed, "B=8 H=16 KVH=8 D=128 T=1025 mixed"),
+                         time_flash_decode(rng, [1025] * 8, "B=8 H=16 KVH=8 D=128 T=1025 full")],
+        "flash_attention": [time_flash_attention(rng, 128, 512),
+                            time_flash_attention(rng, 128, 0),
+                            time_flash_attention(rng, 768, 0)],
+    }
+    emit(phase="kernel_times", times=times)
+    sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:27"),
+               "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                                "src/repro/kernels/decode_attention.py:67"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:90")}
+    records = {}
+    for name, (source, replaces) in sources.items():
+        first = times[name][0]                 # the main path's first shape
+        records[name] = {"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": 0,
+                         "max_abs_err": errs[name], "shape": first["shape"],
+                         **{k: first[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms")}}
+    return records
+
+
+# --------------------------------------------------------------------- #
+#  phase 4: serve, small and exact                                       #
+# --------------------------------------------------------------------- #
+def phase_serve_small() -> None:
+    """tiny_config(qwen3-1.7b) itself (head_dim 16, d_model 64) in f32: the
+    engine on the kernels gives the tokens of greedy full-forward
+    generation on the plain versions."""
+    cfg = tiny_config(get_config("qwen3-1.7b")).with_overrides(param_dtype="float32")
+    reset_counts()
+    eng = Engine(cfg, ecfg=EngineConfig(max_slots=2, max_len=96, prefill_chunk=16,
+                                        mode="interference_aware"), device=DEV)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (9, 23, 40)]
+    ids = [eng.submit(p, max_new=6) for p in prompts]
+    metrics = eng.run_until_done()
+    used = counts()
+    if not all(used.values()):
+        raise AssertionError(f"small serve skipped a kernel: {used}")
+    with plain_versions(), torch.no_grad():
+        for i, prompt in zip(ids, prompts):
+            toks = list(prompt)
+            for _ in range(6):
+                logits = eng.model.forward(
+                    eng.params, {"tokens": torch.tensor([toks], device=DEV)})
+                toks.append(int(torch.argmax(logits[0, -1])))
+            if metrics[i]["output"] != toks[len(prompt):]:
+                raise AssertionError(f"small serve: request {i} gave "
+                                     f"{metrics[i]['output']}, plain greedy "
+                                     f"{toks[len(prompt):]}")
+    emit(phase="serve_small", config=cfg.name, dtype="float32", head_dim=cfg.attn.head_dim,
+         requests=len(prompts), tokens_equal=True, launches=used)
+
+
+# --------------------------------------------------------------------- #
+#  phase 5: serve, full width                                            #
+# --------------------------------------------------------------------- #
+def serve_stats(eng, metrics, seconds, max_new) -> dict:
+    if len(metrics) != 8 or any(m["new_tokens"] != max_new for m in metrics.values()):
+        raise AssertionError(f"serve: not every request finished with {max_new} tokens")
+    for m in metrics.values():
+        if not all(0 <= t < eng.cfg.vocab_size for t in m["output"]):
+            raise AssertionError("serve: token id out of range")
+    decode_t = [e.t for e in eng.events if e.kind == "decode"]
+    gaps = np.diff(decode_t) * 1e3
+    chunks = [e.detail["chunk"] for e in eng.events if e.kind == "prefill_chunk"]
+    new = sum(m["new_tokens"] for m in metrics.values())
+    return {"mode": eng.ecfg.mode, "seconds": seconds, "new_tokens": new,
+            "tokens_per_s": new / seconds,
+            "prompt_tokens": sum(m["prompt_len"] for m in metrics.values()),
+            "decode_steps": len(decode_t), "prefill_chunks": len(chunks),
+            "chunk_sizes": chunks,
+            "worst_decode_gap_ms": float(gaps.max()) if len(gaps) else 0.0,
+            "median_decode_gap_ms": float(np.median(gaps)) if len(gaps) else 0.0,
+            "mean_ttft_s": float(np.mean([m["ttft_s"] for m in metrics.values()]))}
+
+
+def logits_close(name, got, want) -> float:
+    """The reference's tolerance for bf16 logits (rtol 0.15, atol 0.3)."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: logits not finite")
+    err = (got - want).abs()
+    if not (err <= 0.3 + 0.15 * want.abs()).all():
+        raise AssertionError(f"{name}: logits differ by {err.max().item():.3f}")
+    return err.max().item()
+
+
+def phase_serve_full(records: dict) -> None:
+    cfg = get_config("qwen3-1.7b")
+    L, max_new = cfg.n_layers, 32
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = build_model(cfg, device=DEV).init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    emit(phase="weights", config=cfg.name, n_params=n_params, dtype=cfg.param_dtype,
+         seconds=time.perf_counter() - t0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(64, 769, size=8)]
+    # one short unmeasured serve first: the kernels' first launches and the
+    # library's first products of each shape load code, which is set-up
+    serve(cfg, EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128),
+          [p[:200] for p in prompts[:3]], 4, device=DEV, params=params)
+    runs = {}
+    for mode in ("interference_aware", "serial"):
+        ecfg = EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128, mode=mode)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                     # counts of the main path only
+        eng, metrics, seconds = serve(cfg, ecfg, prompts, max_new, device=DEV,
+                                      params=params)
+        used = counts()
+        stats = serve_stats(eng, metrics, seconds, max_new)
+        stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        stats["launches"] = used
+        n_dec, n_ext = stats["decode_steps"], stats["prefill_chunks"]
+        want = {"rmsnorm": (2 * L + 1) * (n_dec + n_ext),
+                "flash_attention": L * n_ext, "flash_decode": L * n_dec}
+        if used != want or not all(used.values()):
+            raise AssertionError(f"serve {mode}: launches {used}, the steps imply {want}")
+        runs[mode] = stats
+        emit(phase="serve_full", config=cfg.name, **stats)
+        if mode == "interference_aware":
+            for name, n in used.items():
+                records[name]["launches"] = n
+            records["rmsnorm"]["launches_per_step"] = 2 * L + 1
+            records["flash_attention"]["launches_per_prefill_chunk"] = L
+            records["flash_decode"]["launches_per_decode_step"] = L
+            del eng
+    # one extend and one decode step, kernels against plain versions
+    eng = Engine(cfg, params=params, ecfg=EngineConfig(max_slots=8, max_len=1024),
+                 device=DEV)
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, 256))).to(DEV)
+    errs = {}
+    for pos0 in (0, 128):
+        chunk = tok[:, pos0:pos0 + 128]
+        got = eng._extend(chunk, 3, pos0)
+        with plain_versions():
+            want = eng._extend(chunk, 3, pos0)
+        errs[f"extend_pos0_{pos0}"] = logits_close(f"extend pos0={pos0}", got, want)
+    dtok = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(8, 1))).to(DEV)
+    pos = torch.full((8,), 1024, device=DEV)
+    pos[3] = 256
+    got = eng._decode(dtok, pos)
+    with plain_versions():
+        want = eng._decode(dtok, pos)
+    errs["decode"] = logits_close("decode", got[3], want[3])
+    emit(phase="serve_full_logits", max_abs_err=errs,
+         tolerance={"rtol": 0.15, "atol": 0.3})
+    emit(phase="step_profile", decode=profile_step(lambda: eng._decode(dtok, pos).argmax(-1).tolist()),
+         extend_128=profile_step(lambda: eng._extend(tok[:, 128:256], 3, 128).argmax(-1).tolist()))
+
+
+def profile_step(step, n: int = 4) -> dict:
+    """Where one engine step's time goes: its wall time (host clock, ending
+    when the sampled ids are on the host, no profiler attached) beside the
+    time the device was busy in it (kernel times summed from a
+    torch.profiler trace of the same steps), and the kernels that took most."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA":
+            t, c = kernels.get(ev.name, (0.0, 0))
+            kernels[ev.name] = (t + ev.device_time, c + 1)
+    busy_ms = sum(t for t, _ in kernels.values()) / 1e3 / n
+    if not busy_ms:
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "kernels_per_step": sum(c for _, c in kernels.values()) / n,
+            "top_kernels_ms_per_step": {name[:60]: round(t / 1e3 / n, 4) for name, (t, _) in top}}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# --------------------------------------------------------------------- #
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device: this script measures the GPU path "
+              "and does not run on the CPU", file=sys.stderr)
+        return 1
+    t_all = time.perf_counter()
+    smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"])
+    nvcc = run_text([_build._nvcc(), "--version"]).splitlines()[-2:]
+    emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, nvcc=nvcc, python=sys.version.split()[0])
+
+    t0 = time.perf_counter()
+    _build.load()
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         sources=[s.name for s in _build.sources()], **ptxas_summary())
+
+    t0 = time.perf_counter()
+    records = phase_kernels()
+    emit(phase="kernels", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_serve_small()
+    emit(phase="serve_small_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_serve_full(records)
+    emit(phase="serve_full_done", seconds=time.perf_counter() - t0)
+
+    emit(phase="total", seconds=time.perf_counter() - t_all)
+    emit(kernels=list(records.values()))
+    print(smi, flush=True)
+    emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()})
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        code = main()
+    except Exception as exc:          # the boundary: report, then fail
+        import traceback
+        traceback.print_exc()
+        emit(ok=False, error=f"{type(exc).__name__}: {exc}"[:2000])
+        code = 1
+    sys.exit(code)

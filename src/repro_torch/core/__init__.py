@@ -1,0 +1,13 @@
+"""Multi-resource interference estimator: the NumPy solver that the serve
+engine prices prefill chunks with."""
+from repro_torch.core.resources import (DEVICES, H100, RTX3090, TPU_V5E,  # noqa: F401
+                                        TPU_V5P, DeviceModel)
+from repro_torch.core.profile import KernelProfile, ProfileMatrix, WorkloadProfile  # noqa: F401
+from repro_torch.core.scenario import (CompiledScenarios, Scenario,  # noqa: F401
+                                       compile_scenarios,
+                                       group_victim_scenarios)
+from repro_torch.core.estimator import (FRACTION_FLOOR, BatchResult,  # noqa: F401
+                                        ColocationResult, colocation_speedup,
+                                        estimate, estimate_batch,
+                                        pairwise_slowdown, solve_batch,
+                                        solve_scenarios, workload_slowdown)

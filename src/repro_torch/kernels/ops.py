@@ -1,0 +1,33 @@
+"""Model-layout entry points of the three kernels, the twins of
+``src/repro/kernels/ops.py``. On a CUDA tensor each launches its kernel; on
+a CPU tensor each computes the same function with the kernel's plain
+version (there is no switch between the two)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rmsnorm as _rms
+
+
+def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
+                    softcap: float = 0.0, q_offset: int = 0):
+    """q (B,S,H,D); k/v (B,T,KVH,D) -> (B,S,H,D). The mask compares
+    ``k_pos`` with ``q_pos + q_offset``. (softcap is not in the kernel and
+    is refused.)"""
+    if softcap:
+        raise NotImplementedError("softcap is not implemented in the kernel")
+    return _fa.flash_attention(q, k, v, kind, window, q_offset)
+
+
+def flash_decode(q, k, v, kv_len):
+    """q (B,1,H,D); k/v (B,T,KVH,D); kv_len an int, () or (B,) -> (B,1,H,D)."""
+    B = q.shape[0]
+    kv_len = torch.as_tensor(kv_len, device=q.device).to(torch.int32)
+    return _dec.flash_decode(q, k, v, kv_len.reshape(-1).expand(B))
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """x (..., d); scale (d,)."""
+    return _rms.rmsnorm(x, scale, eps)

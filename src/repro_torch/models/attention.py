@@ -1,0 +1,184 @@
+"""GQA/MQA attention for the global/causal path: reference oracle, the
+kernel-backed prefill, chunked-prefill and decode attention over a KV
+cache.
+
+Shape conventions:
+  x        (B, S, d_model)
+  q        (B, S, H, D)
+  k, v     (B, T, KVH, D)
+
+On a CUDA tensor ``run_attention`` and ``chunk_attention`` run on the
+flash-attention kernel and ``decode_attention`` on the flash-decode
+kernel (``repro_torch.kernels.ops``); on a CPU tensor the same entry
+points compute the same functions with the kernels' plain versions. The
+caches are updated in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import AttentionConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import (Params, dense_init, l2norm, rope_tables,
+                                       rotate)
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------- #
+#  Parameters                                                            #
+# --------------------------------------------------------------------- #
+def attn_init(gen: torch.Generator, a: AttentionConfig, d_model: int,
+              dtype=torch.bfloat16) -> Params:
+    p = {
+        "wq": dense_init(gen, d_model, a.n_heads * a.head_dim, dtype),
+        "wk": dense_init(gen, d_model, a.n_kv_heads * a.head_dim, dtype),
+        "wv": dense_init(gen, d_model, a.n_kv_heads * a.head_dim, dtype),
+        "wo": dense_init(gen, a.n_heads * a.head_dim, d_model, dtype),
+    }
+    if a.qk_norm:
+        p["q_norm"] = torch.ones((a.head_dim,), dtype=torch.float32, device=gen.device)
+        p["k_norm"] = torch.ones((a.head_dim,), dtype=torch.float32, device=gen.device)
+    return p
+
+
+def project_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None, rope: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, a.n_heads, a.head_dim)
+    k = (x @ p["wk"]).reshape(B, S, a.n_kv_heads, a.head_dim)
+    v = (x @ p["wv"]).reshape(B, S, a.n_kv_heads, a.head_dim)
+    if a.qk_norm:
+        q = l2norm(q) * p["q_norm"].to(q.dtype)
+        k = l2norm(k) * p["k_norm"].to(k.dtype)
+    if rope:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        # q and k share positions and head size: one table serves both
+        cos, sin = rope_tables(positions, a.head_dim, a.rope_theta)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+    return q, k, v
+
+
+# --------------------------------------------------------------------- #
+#  Reference (oracle) attention                                          #
+# --------------------------------------------------------------------- #
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """GQA: repeat KV heads to the full head count."""
+    KVH = k.shape[2]
+    if KVH == n_heads:
+        return k
+    idx = torch.arange(n_heads, device=k.device) // (n_heads // KVH)
+    return k[:, :, idx]
+
+
+def reference_attention(q, k, v, kind: str = "causal", window: int = 0
+                        ) -> torch.Tensor:
+    """Plain attention over expanded KV heads: the oracle that the tests
+    and the greedy full-forward generation use. No kernel on any device."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(D)
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    if kind == "bidirectional":
+        ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    elif kind == "causal":
+        ok = k_pos <= q_pos
+    elif kind == "local":
+        ok = (k_pos <= q_pos) & (k_pos > q_pos - window)
+    else:
+        raise ValueError(kind)
+    s = s + torch.where(ok, 0.0, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(v.dtype).float()
+    o = torch.einsum("bhst,bthd->bshd", w, v.float())
+    return o.to(q.dtype)
+
+
+# --------------------------------------------------------------------- #
+#  Kernel-backed attention                                               #
+# --------------------------------------------------------------------- #
+def run_attention(q, k, v, *, kind: str = "causal", window: int = 0,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """Full-sequence attention (prefill / forward) on the flash-attention
+    kernel."""
+    return ops.flash_attention(q, k, v, kind=kind, window=window,
+                               softcap=softcap)
+
+
+def decode_attention(q, cache_k, cache_v, kv_len) -> torch.Tensor:
+    """q: (B, 1, H, D); cache_{k,v}: (B, Smax, KVH, D); kv_len: () or (B,).
+    One new token against the first ``kv_len[b]`` rows of each sequence's
+    cache, on the flash-decode kernel."""
+    return ops.flash_decode(q, cache_k, cache_v, kv_len)
+
+
+def chunk_attention(q, cache_k, cache_v, pos0: int, softcap: float = 0.0
+                    ) -> torch.Tensor:
+    """Chunked-prefill attention: C new queries (absolute positions
+    pos0..pos0+C-1) over a cache whose first pos0+C rows are valid, on the
+    flash-attention kernel with ``q_offset = pos0``. The rows beyond
+    pos0+C-1 are masked for every query, so only the valid prefix is handed
+    over (a strided view, not a copy).
+    q: (B, C, H, D); cache_{k,v}: (B, Smax, KVH, D); pos0: int."""
+    n = pos0 + q.shape[1]
+    return ops.flash_attention(q, cache_k[:, :n], cache_v[:, :n],
+                               kind="causal", softcap=softcap, q_offset=pos0)
+
+
+def self_attention_block(p: Params, a: AttentionConfig, x: torch.Tensor, *,
+                         kind: str,
+                         positions: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full self-attn block (proj -> attn -> out proj). Returns (out, (k, v))
+    so prefill can populate the cache."""
+    q, k, v = project_qkv(p, a, x, positions=positions)
+    o = run_attention(q, k, v, kind=kind, window=a.local_window,
+                      softcap=a.softcap)
+    B, S = x.shape[:2]
+    return o.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def extend_self_attention(p: Params, a: AttentionConfig, x: torch.Tensor,
+                          cache_k, cache_v, pos0: int) -> torch.Tensor:
+    """Chunked-prefill step for one self-attn block: project C tokens,
+    write their k/v into the caches at [pos0:pos0+C] in place, attend over
+    the whole prefix. cache_{k,v}: (B, Smax, KVH, D) views of the cache."""
+    B, C = x.shape[:2]
+    positions = (pos0 + torch.arange(C, device=x.device))[None, :].expand(B, C)
+    q, k, v = project_qkv(p, a, x, positions=positions)
+    cache_k[:, pos0:pos0 + C] = k.to(cache_k.dtype)
+    cache_v[:, pos0:pos0 + C] = v.to(cache_v.dtype)
+    o = chunk_attention(q, cache_k, cache_v, pos0, softcap=a.softcap)
+    return o.reshape(B, C, -1) @ p["wo"]
+
+
+def write_kv(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None:
+    """Write (B,1,KVH,D) into (B,Smax,KVH,D) at position `idx` ((B,) tensor),
+    in place."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, idx] = new[:, 0].to(cache.dtype)
+
+
+def decode_self_attention(p: Params, a: AttentionConfig, x: torch.Tensor,
+                          cache_k, cache_v, pos) -> torch.Tensor:
+    """One-token decode step for a self-attention block.
+
+    x: (B, 1, d); cache_{k,v}: (B, Smax, KVH, D), updated in place; pos: int,
+    () or (B,) — absolute position of the new token. Returns the block's
+    output."""
+    B = x.shape[0]
+    smax = cache_k.shape[1]
+    pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
+    q, k, v = project_qkv(p, a, x, positions=pos[:, None])
+    write_kv(cache_k, k, pos)
+    write_kv(cache_v, v, pos)
+    kv_len = torch.clamp(pos + 1, max=smax)
+    o = decode_attention(q, cache_k, cache_v, kv_len)
+    return o.reshape(B, 1, -1) @ p["wo"]
