@@ -4,9 +4,17 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
-its plain PyTorch version on the card, times them at the shapes the serving
-path gives them, and serves qwen3-1.7b at full width and depth through the
-continuous-batching engine, counting the kernels' launches on that path.
+its plain PyTorch version on the card, times them at the shapes their paths
+give them, and drives two paths, counting the kernels' launches on each:
+
+  * serving: qwen3-1.7b at full width and depth through the
+    continuous-batching engine (rmsnorm, flash_attention, flash_decode);
+  * interference: the paper's §4 measure → fit → validate loop, the four
+    stressor kernels on their own CUDA streams beside two full-width
+    attention victims replayed from CUDA graphs
+    (``repro_torch.launch.gpu_native.interference_sweep``), each colocated
+    run bracketed by its background's events.
+
 Every phase prints JSON lines; any failure ends the run with a non-zero
 exit code. Without a CUDA device the script fails: nothing runs on the CPU.
 
@@ -30,11 +38,16 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.calib import FIT_LAMBDAS, StressorSpec, median_iqr_time  # noqa: E402
+from repro_torch.calib.measure import _stressor_call  # noqa: E402
 from repro_torch.configs.registry import get_config, tiny_config  # noqa: E402
+from repro_torch.core.resources import H100  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
+from repro_torch.kernels import stressors as st_mod  # noqa: E402
+from repro_torch.launch import gpu_native  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig  # noqa: E402
@@ -42,6 +55,14 @@ from repro_torch.serve import Engine, EngineConfig  # noqa: E402
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# shared memory: 32 banks of 4 bytes a clock on each of 132 SMs, at the
+# H100 SXM's highest SM clock (1,980 MHz, data sheet); the device phase
+# prints the card's own clocks.max.sm beside it
+SM_CLOCK_HZ = 1.98e9
+SMEM_BYTES_PER_S = 132 * 128 * SM_CLOCK_HZ
+# the data sheet's rate of each stressor's axis
+SHEET_RATE = {"mxu": 989e12, "vpu": 67e12, "hbm": HBM_BYTES_PER_S,
+              "smem": SMEM_BYTES_PER_S}
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the reference's own
 BF = torch.bfloat16
@@ -75,43 +96,51 @@ def ptxas_summary() -> dict:
     return {"kernels_compiled": n, "kernels_with_spills": spills}
 
 
+# every wrapper of the port: (module, name); the plain version is name + "_plain"
+WRAPPERS = [(rms_mod, "rmsnorm"), (fa_mod, "flash_attention"),
+            (dec_mod, "flash_decode"), (st_mod, "stress_mxu"),
+            (st_mod, "stress_vpu"), (st_mod, "stress_hbm"), (st_mod, "stress_vmem")]
+SERVING = ("rmsnorm", "flash_attention", "flash_decode")
+STRESSORS = ("stress_mxu", "stress_vpu", "stress_hbm", "stress_vmem")
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route the three wrappers to their plain PyTorch versions: what the
-    kernels are held against. Only this script does so."""
-    saved = (rms_mod.rmsnorm, fa_mod.flash_attention, dec_mod.flash_decode)
-    rms_mod.rmsnorm = rms_mod.rmsnorm_plain
-    fa_mod.flash_attention = fa_mod.flash_attention_plain
-    dec_mod.flash_decode = dec_mod.flash_decode_plain
+    """Route the wrappers to their plain PyTorch versions: what the kernels
+    are held against. Only this script does so."""
+    saved = [getattr(mod, name) for mod, name in WRAPPERS]
+    for mod, name in WRAPPERS:
+        setattr(mod, name, getattr(mod, name + "_plain"))
     try:
         yield
     finally:
-        rms_mod.rmsnorm, fa_mod.flash_attention, dec_mod.flash_decode = saved
+        for (mod, name), fn in zip(WRAPPERS, saved):
+            setattr(mod, name, fn)
 
 
 def reset_counts() -> None:
-    for fn in (rms_mod.rmsnorm, fa_mod.flash_attention, dec_mod.flash_decode):
-        fn.launches = 0
+    for mod, name in WRAPPERS:
+        getattr(mod, name).launches = 0
 
 
-def counts() -> dict:
-    return {"rmsnorm": rms_mod.rmsnorm.launches,
-            "flash_attention": fa_mod.flash_attention.launches,
-            "flash_decode": dec_mod.flash_decode.launches}
+def counts(names=None) -> dict:
+    return {name: getattr(mod, name).launches for mod, name in WRAPPERS
+            if names is None or name in names}
 
 
 def randn(rng, shape, dtype):
     return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(DEV).to(dtype)
 
 
-def check_close(name, got, want, dtype) -> float:
+def check_close(name, got, want, dtype, tol=None) -> float:
     """Fail unless |got - want| <= tol + tol * |want| everywhere and all of
     ``got`` is finite; returns the largest absolute difference. ``dtype`` is
     the narrowest type on the way: over a bf16 cache the softmax weights are
     rounded to bf16 (by the kernel before, by the plain version after they
-    are normalised), so f32 queries there are held to the bf16 tolerance."""
+    are normalised), so f32 queries there are held to the bf16 tolerance.
+    ``tol`` overrides the tolerance of ``dtype``."""
     torch.cuda.synchronize()
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     g, w = got.float(), want.float()
     if g.shape != w.shape or not torch.isfinite(g).all():
         raise AssertionError(f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)} "
@@ -348,6 +377,184 @@ def phase_kernels() -> dict:
 
 
 # --------------------------------------------------------------------- #
+#  phase 3b: the four stressors                                          #
+# --------------------------------------------------------------------- #
+# the reference's tolerances (tests/test_kernels.py), bf16 mxu at 2e-2
+STRESS_TOL = {"stress_mxu": {F32: 1e-4, BF: 2e-2}, "stress_vpu": 1e-5,
+              "stress_vmem": 1e-5}                 # stress_hbm: bit-exact
+STRESS_SOURCES = {"stress_mxu": "src/repro/kernels/stressors.py:46",
+                  "stress_vpu": "src/repro/kernels/stressors.py:80",
+                  "stress_hbm": "src/repro/kernels/stressors.py:102",
+                  "stress_vmem": "src/repro/kernels/stressors.py:132"}
+
+
+def check_exact(name, got, want) -> float:
+    """Fail unless ``got`` equals ``want`` byte for byte."""
+    torch.cuda.synchronize()
+    same = got.shape == want.shape and got.dtype == want.dtype and torch.equal(
+        got.contiguous().view(torch.uint8), want.contiguous().view(torch.uint8))
+    if not same:
+        raise AssertionError(f"{name}: not a bit-exact copy")
+    return 0.0
+
+
+def check_stressor_call(call, name) -> float:
+    """One dispatch of ``call`` on the kernel against the same on the plain
+    version, on the same inputs."""
+    got = call()
+    with plain_versions():
+        want = call()
+    if call.kernel == "stress_hbm":
+        return check_exact(name, got, want)
+    tol = STRESS_TOL[call.kernel]
+    dtype = call.args[0].dtype
+    return check_close(name, got, want, dtype,
+                       tol[dtype] if isinstance(tol, dict) else tol)
+
+
+def check_stressors(rng) -> dict:
+    """The four stressors against their plain versions, at the reference's
+    shapes and tolerances, and at the card sizes that ``_stressor_call``
+    gives the interference phase (λ = 0.9; the copy also with a
+    cache-probe working set, where it loops several passes)."""
+    worst = {name: 0.0 for name in STRESSORS}
+
+    def note(name, err):
+        worst[name] = max(worst[name], err)
+
+    a, b = randn(rng, (2, 128, 128), F32), randn(rng, (128, 128), F32) * 0.1
+    for dtype in (F32, BF):
+        ad, bd = a.to(dtype), b.to(dtype)
+        note("stress_mxu", check_close(
+            f"stress_mxu {dtype}", st_mod.stress_mxu(ad, bd, 4),
+            st_mod.stress_mxu_plain(ad, bd, 4), dtype, STRESS_TOL["stress_mxu"][dtype]))
+    x = randn(rng, (256, 128), F32)
+    for ilp in (1, 2, 4):
+        note("stress_vpu", check_close(
+            f"stress_vpu ilp{ilp}", st_mod.stress_vpu(x, 16, ilp),
+            st_mod.stress_vpu_plain(x, 16, ilp), F32, STRESS_TOL["stress_vpu"]))
+    xb = randn(rng, (2048, 128), BF)
+    note("stress_hbm", check_exact("stress_hbm bf16", st_mod.stress_hbm(xb), xb))
+    x = randn(rng, (512, 128), F32)
+    for stride in (1, 8, 32):
+        note("stress_vmem", check_close(
+            f"stress_vmem stride{stride}", st_mod.stress_vmem(x, 8, stride),
+            st_mod.stress_vmem_plain(x, 8, stride), F32, STRESS_TOL["stress_vmem"]))
+    specs = [StressorSpec(axis, 0.9) for axis in gpu_native.AXES]
+    specs.append(StressorSpec("hbm", 0.5, working_set=0.25 * H100.cache_capacity))
+    for spec in specs:
+        call = _stressor_call(spec, DEV)
+        note(call.kernel, check_stressor_call(
+            call, f"{call.kernel} card size {spec} {call.kwargs}"))
+    return worst
+
+
+def time_stressor(call, name, bytes_moved, operations, dtype, smem_bytes=0.0,
+                  library=None) -> dict:
+    """``time_ms`` of one dispatch of ``call`` (five per graph: each is a
+    millisecond or so), its plain version's time, and its bound: the larger
+    of device-memory bytes, shared-memory bytes over ``SMEM_BYTES_PER_S``
+    and operations over the type's peak."""
+    b_ms, by = bound(bytes_moved, operations, dtype)
+    t_smem = smem_bytes / SMEM_BYTES_PER_S * 1e3
+    term = "shared-memory bytes" if t_smem > b_ms else (
+        "device-memory bytes" if by == "bytes" else "operations")
+    with plain_versions():
+        plain = time_ms(lambda i: call(), iters=1, reps=3)["ms"]
+    return {"shape": name, "dtype": str(dtype).replace("torch.", ""),
+            "blocks": call.blocks, **call.kwargs,
+            **time_ms(lambda i: call(), iters=5, reps=5),
+            "plain_ms": plain,
+            "library_ms": time_ms(library, iters=5, reps=5)["ms"] if library else None,
+            "bound_ms": max(b_ms, t_smem),
+            "bound_by": "bytes" if t_smem > b_ms else by, "bound_term": term}
+
+
+def time_stressors() -> dict:
+    """Each stressor at the card size of λ = 0.9 (119 of 132 SMs)."""
+    out = {}
+    call = _stressor_call(StressorSpec("mxu", 0.9), DEV)
+    n, T, it = call.blocks, st_mod.MXU_TILE, call.kwargs["iters"]
+    out["stress_mxu"] = time_stressor(call, f"a ({n}, {T}, {T}) bf16, iters {it}",
+                                      (2 * n + 1) * T * T * 2, n * it * 2.0 * T ** 3, BF)
+    call = _stressor_call(StressorSpec("vpu", 0.9), DEV)
+    x, it, ilp = call.args[0], call.kwargs["iters"], call.kwargs["ilp"]
+    out["stress_vpu"] = time_stressor(call, f"x {tuple(x.shape)} f32, iters {it}, ilp {ilp}",
+                                      2 * x.numel() * 4, x.numel() * it * ilp * 2.0, F32)
+    # the copy once (passes = 1), so that it is the library's function too
+    call = _stressor_call(StressorSpec("hbm", 0.9), DEV)
+    call.kwargs["passes"] = 1
+    x = call.args[0]
+    y = torch.empty_like(x)
+    out["stress_hbm"] = time_stressor(call, f"x {tuple(x.shape)} f32 ({x.numel() * 4} B), one pass",
+                                      2 * x.numel() * 4, 0.0, F32,
+                                      library=lambda i: y.copy_(x))
+    call = _stressor_call(StressorSpec("smem", 0.9), DEV)
+    x, it = call.args[0], call.kwargs["iters"]
+    out["stress_vmem"] = time_stressor(call, f"x {tuple(x.shape)} f32, iters {it}, stride {call.kwargs['stride']}",
+                                       2 * x.numel() * 4, 0.0, F32,
+                                       smem_bytes=it * 3 * 4.0 * x.numel())
+    return out
+
+
+def ilp_and_stride_times() -> dict:
+    """``stress_vpu`` at ilp 1, 2, 4, 8 and ``stress_vmem`` at stride 1, 8,
+    32, each at one block per SM and the same iterations: the chains are
+    separate if the time stays while ilp grows, and the bank conflicts
+    follow the stride if the time grows with it."""
+    call = _stressor_call(StressorSpec("vpu", 1.0), DEV)
+    x, it = call.args[0], call.kwargs["iters"]
+    ilp = {k: time_ms(lambda i, k=k: st_mod.stress_vpu(x, it, k), iters=5, reps=5)["ms"]
+           for k in (1, 2, 4, 8)}
+    vcall = _stressor_call(StressorSpec("smem", 1.0), DEV)
+    xv, vit = vcall.args[0], vcall.kwargs["iters"]
+    stride = {s: time_ms(lambda i, s=s: st_mod.stress_vmem(xv, vit, s), iters=5, reps=5)["ms"]
+              for s in (1, 8, 32)}
+    return {"vpu": {"x": list(x.shape), "iters": it, "ms_by_ilp": ilp},
+            "vmem": {"x": list(xv.shape), "iters": vit, "ms_by_stride": stride}}
+
+
+def stressor_shares() -> list:
+    """For each axis and λ of the fit grid: the rate the stressor reaches
+    alone (its work over its median device time on a stream) as a share
+    of the H100 model's capacity and of the data sheet's rate."""
+    stream = torch.cuda.Stream()
+    rows = []
+    for axis in gpu_native.AXES:
+        for lam in FIT_LAMBDAS:
+            call = _stressor_call(StressorSpec(axis, lam), DEV)
+            torch.cuda.synchronize()
+            t, iqr = median_iqr_time(call, repeats=5, warmup=1, stream=stream)
+            rate = call.work / t
+            rows.append({"axis": axis, "lambda": lam, "blocks": call.blocks,
+                         "kernel": call.kernel, "ms": t * 1e3, "iqr_ms": iqr * 1e3,
+                         "rate": rate, "share_of_model": rate / H100.capacity(axis),
+                         "share_of_sheet": rate / SHEET_RATE[axis]})
+    return rows
+
+
+def phase_stressors(records: dict) -> None:
+    rng = np.random.default_rng(1)
+    errs = check_stressors(rng)
+    emit(phase="stressors_checked", max_abs_err=errs,
+         tolerance={"stress_mxu": {"float32": 1e-4, "bfloat16": 2e-2},
+                    "stress_vpu": 1e-5, "stress_hbm": "bit-exact",
+                    "stress_vmem": 1e-5})
+    times = time_stressors()
+    emit(phase="stressor_times", times=times)
+    emit(phase="stressor_ilp_stride", **ilp_and_stride_times())
+    emit(phase="stressor_shares", sm_clock_hz=SM_CLOCK_HZ,
+         model=H100.name, rows=stressor_shares())
+    for name, t in times.items():
+        records[name] = {"name": name, "route": "cuda",
+                         "source": "src/repro_torch/csrc/stressors.cu",
+                         "replaces": STRESS_SOURCES[name], "launches": 0,
+                         "max_abs_err": errs[name], "shape": t["shape"],
+                         **{k: t[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}}
+
+
+# --------------------------------------------------------------------- #
 #  phase 4: serve, small and exact                                       #
 # --------------------------------------------------------------------- #
 def phase_serve_small() -> None:
@@ -362,7 +569,7 @@ def phase_serve_small() -> None:
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (9, 23, 40)]
     ids = [eng.submit(p, max_new=6) for p in prompts]
     metrics = eng.run_until_done()
-    used = counts()
+    used = counts(SERVING)
     if not all(used.values()):
         raise AssertionError(f"small serve skipped a kernel: {used}")
     with plain_versions(), torch.no_grad():
@@ -439,7 +646,7 @@ def phase_serve_full(records: dict) -> None:
         reset_counts()                     # counts of the main path only
         eng, metrics, seconds = serve(cfg, ecfg, prompts, max_new, device=DEV,
                                       params=params)
-        used = counts()
+        used = counts(SERVING)
         stats = serve_stats(eng, metrics, seconds, max_new)
         stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         stats["launches"] = used
@@ -522,6 +729,40 @@ def _leaves(tree):
 
 
 # --------------------------------------------------------------------- #
+#  phase 6: interference, the §4 loop on CUDA streams                    #
+# --------------------------------------------------------------------- #
+def phase_interference(records: dict) -> None:
+    """``gpu_native.interference_sweep``: the sweep, the fit and the
+    validation for both full-width victims. Fails unless every colocated
+    run was bracketed by its background, every planned run is there with
+    a finite slowdown, and each stressor was launched on this path."""
+    reset_counts()                          # counts of this path only
+    out = gpu_native.interference_sweep(DEV)
+    used = counts(STRESSORS)
+    cols = out["colocations"]
+    n_axes = len(gpu_native.AXES)
+    per_victim = n_axes * (len(FIT_LAMBDAS) + 2 + 4) + 4 + n_axes * 3
+    want = 2 * per_victim
+    for rec in cols:
+        emit(phase="interference", **rec)
+    for name, prof in out["profiles"].items():
+        emit(phase="interference_profile", victim=name, **prof)
+        emit(phase="interference_validation", victim=name, **out["validation"][name])
+    emit(phase="interference_brackets", **out["brackets"], launches=used)
+    if len(cols) != want:
+        raise AssertionError(f"interference: {len(cols)} colocated runs, planned {want}")
+    if not out["brackets"]["all_bracketed"]:
+        raise AssertionError("interference: a colocated run was not bracketed")
+    vals = [r[k] for r in cols for k in ("measured", "predicted_analytic", "predicted_fitted")]
+    if not all(np.isfinite(vals)) or min(r["measured"] for r in cols) < 1.0:
+        raise AssertionError("interference: a slowdown is not finite or below 1")
+    if not all(used.values()):
+        raise AssertionError(f"interference: a stressor was never launched: {used}")
+    for name, n in used.items():
+        records[name]["launches"] = n
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script measures the GPU path "
@@ -530,8 +771,13 @@ def main() -> int:
     t_all = time.perf_counter()
     smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"])
+    clocks = run_text(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                       "--format=csv,noheader"])
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
     nvcc = run_text([_build._nvcc(), "--version"]).splitlines()[-2:]
-    emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
+    emit(phase="device", nvidia_smi=smi, clocks_sm_and_max=clocks,
+         torch=torch.__version__,
          cuda=torch.version.cuda, nvcc=nvcc, python=sys.version.split()[0])
 
     t0 = time.perf_counter()
@@ -544,12 +790,23 @@ def main() -> int:
     emit(phase="kernels", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    phase_stressors(records)
+    t_stress = time.perf_counter() - t0
+    emit(phase="stressors", seconds=t_stress)
+
+    t0 = time.perf_counter()
     phase_serve_small()
     emit(phase="serve_small_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     phase_serve_full(records)
     emit(phase="serve_full_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_interference(records)
+    t_interf = time.perf_counter() - t0
+    emit(phase="interference_done", seconds=t_interf,
+         new_phases_seconds=t_stress + t_interf)
 
     emit(phase="total", seconds=time.perf_counter() - t_all)
     emit(kernels=list(records.values()))

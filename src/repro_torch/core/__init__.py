@@ -1,5 +1,6 @@
 """Multi-resource interference estimator: the NumPy solver that the serve
-engine prices prefill chunks with."""
+engine prices prefill chunks with, the k-way slot-fraction search, and the
+sensitivity library of the paper's §4 (per-axis stressor sweeps)."""
 from repro_torch.core.resources import (DEVICES, H100, RTX3090, TPU_V5E,  # noqa: F401
                                         TPU_V5P, DeviceModel)
 from repro_torch.core.profile import KernelProfile, ProfileMatrix, WorkloadProfile  # noqa: F401
@@ -11,3 +12,11 @@ from repro_torch.core.estimator import (FRACTION_FLOOR, BatchResult,  # noqa: F4
                                         estimate, estimate_batch,
                                         pairwise_slowdown, solve_batch,
                                         solve_scenarios, workload_slowdown)
+from repro_torch.core.fracsearch import (DENSE_SEARCH, LEGACY_SEARCH,  # noqa: F401
+                                         FractionSearchConfig, GroupFractions,
+                                         search_group_fractions,
+                                         simplex_candidates)
+from repro_torch.core.sensitivity import (SensitivityReport,  # noqa: F401
+                                          cache_pollution_curve,
+                                          partition_curve, sensitivity,
+                                          sensitivity_batch, stressor)

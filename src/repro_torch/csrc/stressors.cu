@@ -1,0 +1,439 @@
+// The four resource stressors for Hopper: the paper's §4.1 benchmark suite
+// (a compute kernel, an ILP sweep on the FP32 pipes, a copy kernel and a
+// shared-memory bank-conflict kernel), each loading one resource of the card
+// at a share set by the number of blocks its caller launches. Every block
+// keeps its SM busy for the whole dispatch, so ceil(lambda * SMs) blocks
+// occupy lambda of the card's SMs.
+//
+// Each kernel computes exactly the function of its TPU twin (and of the
+// oracle in src/repro/kernels/ref.py), so the caller can check its output.
+#include "common.cuh"
+
+// --------------------------------------------------------------------- //
+//  stress_mxu                                                            //
+// --------------------------------------------------------------------- //
+// Replaces src/repro/kernels/stressors.py:_mxu_kernel / stress_mxu. Per
+// tile, `iters` times c <- c @ b, then c <- c / max(max|c|, 1); the output
+// is c in the input type. One block owns one 128 x 128 tile for the whole
+// loop; c and b never leave shared memory.
+//
+// bf16 (what the calibration drives): the products run on the tensor cores
+// through mma.sync m16n8k16 with f32 accumulation, and c is rounded to bf16
+// as the next A operand on every iteration, as the TPU's MXU does at default
+// precision. Bound by the tensor cores in principle; in practice by the
+// shared-memory reads of the operand fragments (each warp re-reads its
+// 32 x 128 slab of c and 128 x 64 slab of b per iteration: 192 KB per
+// block per iteration against 2 M multiply-adds). The warp tile (32 x 64,
+// eight warps) reuses every B fragment for two m-tiles and every A fragment
+// for eight n-tiles; the fragments come four matrices at a time through
+// ldmatrix, and the rows are padded by 8 elements so that its eight row
+// addresses hit 32 distinct banks.
+//
+// f32: the reference test holds f32 to 1e-4, which TF32 (about 1e-3 per
+// product) cannot meet, so the same loop runs exactly in FFMA: each thread
+// owns an 8 x 8 block of c spread over the tile (rows ty + 16 i, columns
+// tx + 16 j), b and c in shared memory with an odd row length, so that both
+// operand reads are free of bank conflicts. Bound by the FP32 pipes.
+//
+// Both scale c by one reciprocal of max(max|c|, 1) per iteration instead
+// of dividing each element (within an f32 ulp of the reference's c / m): a
+// division is about ten instructions, and 64 of them per thread cost more
+// issue slots than the products themselves.
+constexpr int MXU_T = 128;
+constexpr int MXU_THREADS = 256;
+constexpr int MXU_LD_F32 = MXU_T + 1;     // floats per shared row (odd: no conflicts)
+constexpr int MXU_LD_BF16 = MXU_T + 8;    // bf16 per shared row (68 words: no conflicts)
+constexpr int MXU_SMEM_F32 = 2 * MXU_T * MXU_LD_F32 * 4;
+constexpr int MXU_SMEM_BF16 = 2 * MXU_T * MXU_LD_BF16 * 2;
+
+// max over the block of every thread's v; the first barrier also orders
+// every read of the tile in this iteration before any write of the next
+template <int NT>
+__device__ __forceinline__ float block_max(float v, float* red) {
+    v = warp_max(v);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    float m = red[0];
+#pragma unroll
+    for (int w = 1; w < NT / 32; ++w) m = fmaxf(m, red[w]);
+    __syncthreads();
+    return m;
+}
+
+__global__ void __launch_bounds__(MXU_THREADS)
+stress_mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                      float* __restrict__ out, int iters) {
+    extern __shared__ float mxu_f32_smem[];
+    float* cs = mxu_f32_smem;                    // c, row-major
+    float* bs = mxu_f32_smem + MXU_T * MXU_LD_F32;   // b, row-major
+    __shared__ float red[MXU_THREADS / 32];
+    const int64_t tile = (int64_t)blockIdx.x * MXU_T * MXU_T;
+    for (int e = threadIdx.x; e < MXU_T * MXU_T; e += MXU_THREADS) {
+        const int r = e / MXU_T, c = e % MXU_T;
+        cs[r * MXU_LD_F32 + c] = a[tile + e];
+        bs[r * MXU_LD_F32 + c] = b[e];
+    }
+    __syncthreads();
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    float acc[8][8];
+    for (int it = 0; it < iters; ++it) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+        for (int k = 0; k < MXU_T; ++k) {
+            float av[8], bv[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) av[i] = cs[(ty + 16 * i) * MXU_LD_F32 + k];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) bv[j] = bs[k * MXU_LD_F32 + tx + 16 * j];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+        float m = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(acc[i][j]));
+        const float inv = 1.f / fmaxf(block_max<MXU_THREADS>(m, red), 1.f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                cs[(ty + 16 * i) * MXU_LD_F32 + tx + 16 * j] = acc[i][j] * inv;
+        __syncthreads();
+    }
+    for (int e = threadIdx.x; e < MXU_T * MXU_T; e += MXU_THREADS)
+        out[tile + e] = cs[(e / MXU_T) * MXU_LD_F32 + e % MXU_T];
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices from shared memory, one row address per lane
+// (lanes 8q..8q+7 give the rows of matrix q); register q holds matrix q in
+// the mma fragment layout
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__global__ void __launch_bounds__(MXU_THREADS)
+stress_mxu_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                       bf16* __restrict__ out, int iters) {
+    extern __shared__ __align__(16) unsigned char mxu_bf16_smem[];
+    bf16* cs = reinterpret_cast<bf16*>(mxu_bf16_smem);   // c, row-major: [m][k]
+    bf16* bt = cs + MXU_T * MXU_LD_BF16;                 // b transposed: [n][k]
+    __shared__ float red[MXU_THREADS / 32];
+    const int64_t tile = (int64_t)blockIdx.x * MXU_T * MXU_T;
+    for (int e = threadIdx.x; e < MXU_T * MXU_T; e += MXU_THREADS) {
+        const int r = e / MXU_T, c = e % MXU_T;
+        cs[r * MXU_LD_BF16 + c] = a[tile + e];
+        bt[c * MXU_LD_BF16 + r] = b[e];
+    }
+    __syncthreads();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;             // mma fragment coordinates
+    const int row0 = (warp >> 1) * 32;                 // this warp's 32 x 64 tile of c
+    const int col0 = (warp & 1) * 64;
+    const int q = lane >> 3, rr = lane & 7;            // ldmatrix: matrix, row
+    // A of m-tile mt: matrices (rows +0/+8) x (k +0/+8); B of n-tiles nt,
+    // nt + 1: (n-tile) x (k +0/+8), from b transposed
+    const bf16* a_ld = cs + (row0 + rr + (q & 1) * 8) * MXU_LD_BF16 + (q >> 1) * 8;
+    const bf16* b_ld = bt + (col0 + rr + (q >> 1) * 8) * MXU_LD_BF16 + (q & 1) * 8;
+    float acc[2][8][4];
+    for (int it = 0; it < iters; ++it) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+#pragma unroll 2
+        for (int k0 = 0; k0 < MXU_T; k0 += 16) {
+            uint32_t af[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+                ldsm_x4(af[mt], a_ld + mt * 16 * MXU_LD_BF16 + k0);
+#pragma unroll
+            for (int nt = 0; nt < 8; nt += 2) {
+                uint32_t bf[4];
+                ldsm_x4(bf, b_ld + nt * 8 * MXU_LD_BF16 + k0);
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+                    mma_bf16_16816(acc[mt][nt], af[mt], bf[0], bf[1]);
+                    mma_bf16_16816(acc[mt][nt + 1], af[mt], bf[2], bf[3]);
+                }
+            }
+        }
+        float m = 0.f;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) m = fmaxf(m, fabsf(acc[mt][nt][q]));
+        const float inv = 1.f / fmaxf(block_max<MXU_THREADS>(m, red), 1.f);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+                bf16* cr = cs + (row0 + mt * 16 + g) * MXU_LD_BF16 + col0 + nt * 8 + 2 * t;
+                *reinterpret_cast<__nv_bfloat162*>(cr) =
+                    __floats2bfloat162_rn(acc[mt][nt][0] * inv, acc[mt][nt][1] * inv);
+                *reinterpret_cast<__nv_bfloat162*>(cr + 8 * MXU_LD_BF16) =
+                    __floats2bfloat162_rn(acc[mt][nt][2] * inv, acc[mt][nt][3] * inv);
+            }
+        __syncthreads();
+    }
+    for (int e = threadIdx.x; e < MXU_T * MXU_T; e += MXU_THREADS)
+        out[tile + e] = cs[(e / MXU_T) * MXU_LD_BF16 + e % MXU_T];
+}
+
+// a: (n_tiles, T, T), b: (T, T), out like a, all contiguous. Only T = 128.
+extern "C" int rt_stress_mxu(const void* a, const void* b, void* out, int n_tiles,
+                             int T, int iters, int dtype, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (T != MXU_T || n_tiles <= 0 || iters < 0) return -1;
+    if (dtype == RT_F32) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            stress_mxu_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MXU_SMEM_F32);
+        if (err != cudaSuccess) return (int)err;
+        stress_mxu_f32_kernel<<<n_tiles, MXU_THREADS, MXU_SMEM_F32, s>>>(
+            static_cast<const float*>(a), static_cast<const float*>(b),
+            static_cast<float*>(out), iters);
+    } else if (dtype == RT_BF16) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            stress_mxu_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MXU_SMEM_BF16);
+        if (err != cudaSuccess) return (int)err;
+        stress_mxu_bf16_kernel<<<n_tiles, MXU_THREADS, MXU_SMEM_BF16, s>>>(
+            static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+            static_cast<bf16*>(out), iters);
+    } else {
+        return -1;
+    }
+    return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------------- //
+//  stress_vpu                                                            //
+// --------------------------------------------------------------------- //
+// Replaces src/repro/kernels/stressors.py:_vpu_kernel / stress_vpu. Per
+// element, `ilp` independent chains acc_i <- acc_i * 1.000001 + 0.5 from
+// x + i, `iters` steps, output (sum_i acc_i) / (4 ilp). One block per
+// 256-row block of the reference's grid; a thread walks its elements one
+// after the other, and for each runs the ILP chains side by side.
+//
+// Bound by the FP32 pipes' latency, and that is the point (the paper's
+// S1..S4 ILP sweep): the chains are template-unrolled registers, each step
+// one FFMA, so the SASS holds exactly `ilp` independent FFMA chains per
+// element. With eight warps on an SM (two per scheduler) and a 4-cycle
+// FFMA latency, ilp = 1 fills half of each scheduler's FFMA slots and
+// ilp >= 2 fills them all. The element loop is not unrolled, so chains of
+// two elements are never interleaved into more ILP than asked for.
+constexpr int VPU_THREADS = 256;
+
+template <int ILP>
+__global__ void __launch_bounds__(VPU_THREADS)
+stress_vpu_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  int64_t n, int64_t block_elems, int iters) {
+    const int64_t begin = (int64_t)blockIdx.x * block_elems;
+    const int64_t end = min(begin + block_elems, n);
+#pragma unroll 1
+    for (int64_t e = begin + threadIdx.x; e < end; e += VPU_THREADS) {
+        const float xv = x[e];
+        float acc[ILP];
+#pragma unroll
+        for (int i = 0; i < ILP; ++i) acc[i] = xv + (float)i;
+#pragma unroll 8
+        for (int it = 0; it < iters; ++it) {
+#pragma unroll
+            for (int i = 0; i < ILP; ++i) acc[i] = fmaf(acc[i], 1.000001f, 0.5f);
+        }
+        float s = acc[0];
+#pragma unroll
+        for (int i = 1; i < ILP; ++i) s += acc[i];
+        out[e] = s / (float)(ILP * 4);
+    }
+}
+
+// x, out: n contiguous f32; block b takes elements [b * block_elems, ...).
+extern "C" int rt_stress_vpu(const void* x, void* out, long long n,
+                             long long block_elems, int n_blocks, int iters,
+                             int ilp, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (n <= 0 || block_elems <= 0 || n_blocks <= 0 || iters < 0) return -1;
+    const float* xp = static_cast<const float*>(x);
+    float* op = static_cast<float*>(out);
+#define VPU_LAUNCH(L) \
+    stress_vpu_kernel<L><<<n_blocks, VPU_THREADS, 0, s>>>(xp, op, n, block_elems, iters)
+    switch (ilp) {
+        case 1: VPU_LAUNCH(1); break;
+        case 2: VPU_LAUNCH(2); break;
+        case 3: VPU_LAUNCH(3); break;
+        case 4: VPU_LAUNCH(4); break;
+        case 5: VPU_LAUNCH(5); break;
+        case 6: VPU_LAUNCH(6); break;
+        case 7: VPU_LAUNCH(7); break;
+        case 8: VPU_LAUNCH(8); break;
+        default: return -1;
+    }
+#undef VPU_LAUNCH
+    return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------------- //
+//  stress_hbm                                                            //
+// --------------------------------------------------------------------- //
+// Replaces src/repro/kernels/stressors.py:_copy_kernel / stress_hbm: a
+// streaming copy, out == x bit for bit for any element type, so the kernel
+// copies bytes. Bound by device-memory bytes. Each block streams one
+// contiguous share of the buffer with 16-byte loads, four in flight per
+// thread (32 KB per SM of 512 threads), which is what one SM needs to pull
+// its share of the card's bandwidth; `passes` repeats the copy, so a small
+// working set (the cache-polluter probes) still makes a dispatch long
+// enough to overlap a victim. No __restrict__: every pass must reload.
+constexpr int HBM_THREADS = 512;
+constexpr int HBM_UNROLL = 4;
+
+__global__ void __launch_bounds__(HBM_THREADS)
+stress_hbm_kernel(const uint4* x, uint4* out, const unsigned char* xb,
+                  unsigned char* ob, int64_t n16, int64_t per_block,
+                  int64_t nbytes, int passes) {
+    const int64_t begin = (int64_t)blockIdx.x * per_block;
+    const int64_t end = min(begin + per_block, n16);
+    for (int p = 0; p < passes; ++p) {
+        for (int64_t i = begin + threadIdx.x; i < end; i += HBM_THREADS * HBM_UNROLL) {
+            uint4 v[HBM_UNROLL];
+#pragma unroll
+            for (int u = 0; u < HBM_UNROLL; ++u) {
+                const int64_t j = i + (int64_t)u * HBM_THREADS;
+                if (j < end) v[u] = x[j];
+            }
+#pragma unroll
+            for (int u = 0; u < HBM_UNROLL; ++u) {
+                const int64_t j = i + (int64_t)u * HBM_THREADS;
+                if (j < end) out[j] = v[u];
+            }
+        }
+        if (blockIdx.x == gridDim.x - 1)                   // the ragged tail
+            for (int64_t j = n16 * 16 + threadIdx.x; j < nbytes; j += HBM_THREADS)
+                ob[j] = xb[j];
+    }
+}
+
+// x, out: nbytes contiguous, both 16-byte aligned; n_blocks shares.
+extern "C" int rt_stress_hbm(const void* x, void* out, long long nbytes,
+                             int n_blocks, int passes, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (nbytes <= 0 || n_blocks <= 0 || passes < 1) return -1;
+    if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+        return -1;
+    const int64_t n16 = nbytes / 16;
+    const int64_t per_block = (n16 + n_blocks - 1) / n_blocks;
+    stress_hbm_kernel<<<n_blocks, HBM_THREADS, 0, s>>>(
+        static_cast<const uint4*>(x), static_cast<uint4*>(out),
+        static_cast<const unsigned char*>(x), static_cast<unsigned char*>(out),
+        n16, per_block, nbytes, passes);
+    return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------------- //
+//  stress_vmem                                                           //
+// --------------------------------------------------------------------- //
+// Replaces src/repro/kernels/stressors.py:_vmem_kernel / stress_vmem. Per
+// block of br = min(512, R) rows, `iters` times y <- y + roll(y, stride)
+// along the rows, output y / 2^iters. The TPU's sublane roll becomes what a
+// GPU has for real: shared-memory bank conflicts.
+//
+// A 512-row block of 128 f32 columns (256 KB) does not fit the 227 KB a
+// block may have, but the columns are independent, so a CUDA block takes
+// the br rows of a strip of 32 columns, column-major in shared memory
+// (column length br + 1, so that loading a row of the strip is conflict
+// free), double-buffered: each iteration reads one buffer and writes the
+// other, with one barrier between iterations. Bound by the shared-memory
+// pipe, and by how far `stride` serialises it: lane j of a warp takes row
+// (j s + floor(j s / br)) mod br of its column (a permutation of the rows
+// when s divides br), and the bank of a row is its index mod 32, so a
+// warp's 32 reads fall into 32 / s banks: stride 1 is conflict free, 8 is
+// 8-way, and 32 is 16-way (the wrap term moves lanes 16..31 one row on, to
+// a second bank). Strides that do not divide br take the rows in order.
+//
+// The kernel halves y on every iteration instead of dividing by 2^iters at
+// the end: scaling by a power of two commutes with rounding, so the result
+// is bit for bit the reference's wherever the reference stays finite
+// (iters < 128 for inputs of order one), and it stays finite beyond.
+constexpr int VMEM_W = 32;
+constexpr int VMEM_MAX_ROWS = 512;
+constexpr int VMEM_THREADS = VMEM_MAX_ROWS;    // one thread per row of the block
+
+__global__ void __launch_bounds__(VMEM_THREADS)
+stress_vmem_kernel(const float* __restrict__ x, float* __restrict__ out, int C,
+                   int br, int iters, int shift, int permute) {
+    extern __shared__ float vmem_smem[];
+    const int ld = br + 1;
+    const int buf_floats = VMEM_W * ld;               // two buffers of this
+    const int strips = C / VMEM_W;
+    const int64_t row0 = (int64_t)(blockIdx.x / strips) * br;
+    const int col0 = (blockIdx.x % strips) * VMEM_W;
+    const int n = br * VMEM_W;
+    for (int e = threadIdx.x; e < n; e += VMEM_THREADS) {     // coalesced rows
+        const int r = e / VMEM_W, c = e % VMEM_W;
+        vmem_smem[c * ld + r] = x[(row0 + r) * C + col0 + c];
+    }
+    __syncthreads();
+    // one row slot per thread (br <= 512 threads), the same for every
+    // column and iteration: the row and its roll partner are computed once
+    const int j = threadIdx.x;
+    int r = j, rp = j;
+    if (j < br) {
+        r = permute ? (int)(((int64_t)j * shift + (int64_t)j * shift / br) % br) : j;
+        rp = r >= shift ? r - shift : r - shift + br;
+    }
+    int cur = 0;
+    for (int it = 0; it < iters; ++it) {
+        const float* src = vmem_smem + cur * buf_floats;
+        float* dst = vmem_smem + (cur ^ 1) * buf_floats;
+        if (j < br) {
+#pragma unroll 8
+            for (int c = 0; c < VMEM_W; ++c)
+                dst[c * ld + r] = (src[c * ld + r] + src[c * ld + rp]) * 0.5f;
+        }
+        __syncthreads();
+        cur ^= 1;
+    }
+    for (int e = threadIdx.x; e < n; e += VMEM_THREADS) {
+        const int r = e / VMEM_W, c = e % VMEM_W;
+        out[(row0 + r) * C + col0 + c] = vmem_smem[cur * buf_floats + c * ld + r];
+    }
+}
+
+// x, out: (R, C) contiguous f32; br divides R, C a multiple of 32.
+extern "C" int rt_stress_vmem(const void* x, void* out, int R, int C, int br,
+                              int iters, int stride, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (R <= 0 || br <= 0 || br > VMEM_MAX_ROWS || R % br || C <= 0 || C % VMEM_W
+        || iters < 0)
+        return -1;
+    const int shift = ((stride % br) + br) % br;
+    const int permute = shift > 0 && br % shift == 0;
+    const int smem = 2 * VMEM_W * (br + 1) * 4;
+    const cudaError_t err = cudaFuncSetAttribute(
+        stress_vmem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (R / br) * (C / VMEM_W);
+    stress_vmem_kernel<<<blocks, VMEM_THREADS, smem, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), C, br, iters,
+        shift, permute);
+    return (int)cudaGetLastError();
+}

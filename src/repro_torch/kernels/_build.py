@@ -35,6 +35,10 @@ _SIGNATURES = {
     "rt_rmsnorm": [_P, _P, _P, _I, _I, _L, _L, _F, _I, _P],
     "rt_flash_decode": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_I, _I, _P],
     "rt_flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 5 + [_P],
+    "rt_stress_mxu": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "rt_stress_vpu": [_P, _P, _L, _L, _I, _I, _I, _P],
+    "rt_stress_hbm": [_P, _P, _L, _I, _I, _P],
+    "rt_stress_vmem": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
