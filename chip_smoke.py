@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, times them at the shapes their paths
-give them, and drives two paths, counting the kernels' launches on each:
+give them, and drives four paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
     continuous-batching engine (rmsnorm, flash_attention, flash_decode);
@@ -13,7 +13,14 @@ give them, and drives two paths, counting the kernels' launches on each:
     stressor kernels on their own CUDA streams beside two full-width
     attention victims replayed from CUDA graphs
     (``repro_torch.launch.gpu_native.interference_sweep``), each colocated
-    run bracketed by its background's events.
+    run bracketed by its background's events;
+  * the solver: the same qwen3-1.7b serve with every prefill chunk priced
+    by the torch solver backend on the card (cache_share), against the
+    NumPy backend's chunks, and a batch of the interference phase's
+    scenarios on both backends;
+  * falcon-mamba-7b at full width and depth through the model facade:
+    prefill and greedy decode steps on the selective scan (ssm_scan,
+    rmsnorm).
 
 Every phase prints JSON lines; any failure ends the run with a non-zero
 exit code. Without a CUDA device the script fails: nothing runs on the CPU.
@@ -40,26 +47,37 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.calib import FIT_LAMBDAS, StressorSpec, median_iqr_time  # noqa: E402
 from repro_torch.calib.measure import _stressor_call  # noqa: E402
+from repro_torch.calib import fit as fit_mod  # noqa: E402
 from repro_torch.configs.registry import get_config, tiny_config  # noqa: E402
-from repro_torch.core.resources import H100  # noqa: E402
+from repro_torch.core import estimator_torch  # noqa: E402
+from repro_torch.core.backend import solver_backend  # noqa: E402
+from repro_torch.core.estimator import solve_scenarios  # noqa: E402
+from repro_torch.core.resources import H100, TPU_V5E  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import cache_share as cs_mod  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
+from repro_torch.kernels import ssm_scan as ssm_mod  # noqa: E402
 from repro_torch.kernels import stressors as st_mod  # noqa: E402
 from repro_torch.launch import gpu_native  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.core.scenario import Scenario  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+                  torch.float64: 34e12}      # f64 outside the tensor cores
 # shared memory: 32 banks of 4 bytes a clock on each of 132 SMs, at the
 # H100 SXM's highest SM clock (1,980 MHz, data sheet); the device phase
 # prints the card's own clocks.max.sm beside it
 SM_CLOCK_HZ = 1.98e9
 SMEM_BYTES_PER_S = 132 * 128 * SM_CLOCK_HZ
+# exponentials: the multi-function unit of an SM returns 16 a clock (CUDA
+# programming guide, throughput of arithmetic instructions, cc 9.0)
+EXP_PER_S = 132 * 16 * SM_CLOCK_HZ
 # the data sheet's rate of each stressor's axis
 SHEET_RATE = {"mxu": 989e12, "vpu": 67e12, "hbm": HBM_BYTES_PER_S,
               "smem": SMEM_BYTES_PER_S}
@@ -99,8 +117,10 @@ def ptxas_summary() -> dict:
 # every wrapper of the port: (module, name); the plain version is name + "_plain"
 WRAPPERS = [(rms_mod, "rmsnorm"), (fa_mod, "flash_attention"),
             (dec_mod, "flash_decode"), (st_mod, "stress_mxu"),
-            (st_mod, "stress_vpu"), (st_mod, "stress_hbm"), (st_mod, "stress_vmem")]
+            (st_mod, "stress_vpu"), (st_mod, "stress_hbm"), (st_mod, "stress_vmem"),
+            (cs_mod, "cache_share"), (ssm_mod, "ssm_scan")]
 SERVING = ("rmsnorm", "flash_attention", "flash_decode")
+SCAN_TOL = 1e-4                                   # the reference's, tests/test_kernels.py
 STRESSORS = ("stress_mxu", "stress_vpu", "stress_hbm", "stress_vmem")
 
 
@@ -344,12 +364,125 @@ def time_flash_attention(rng, S, pos0) -> dict:
             "bound_ms": b_ms, "bound_by": by}
 
 
+def cache_share_cases(rng) -> list:
+    """(ws, present, cap) as NumPy arrays: the reference's 37 x 3 case with a
+    row whose working sets add up to the capacity exactly
+    (tests/test_estimator_jax.py), the engine's padded batch (8 x 2), and K =
+    2..6 at up to 4,096 rows, each with a row at the cliff and one a byte
+    over it."""
+    r9 = np.random.default_rng(9)
+    cap = TPU_V5E.cache_capacity
+    ws = r9.random((37, 3)) * 2.0 * cap
+    ws[r9.random((37, 3)) < 0.3] = 0.0
+    ws[0] = [cap / 2, cap / 2, 0.0]
+    present = r9.random((37, 3)) < 0.9
+    cases = [(np.where(present, ws, 0.0), present, cap)]
+    cap = H100.cache_capacity
+    for S, K in [(8, 2), (4096, 2), (4096, 3), (1000, 4), (2048, 5), (4096, 6)]:
+        ws = rng.random((S, K)) * rng.choice([0.3, 1.0, 2.0], size=(S, 1)) * cap
+        ws[rng.random((S, K)) < 0.3] = 0.0
+        ws[:2] = 0.0
+        ws[0, :2] = cap / 2
+        ws[1, :2] = [cap / 2, cap / 2 + 1.0]
+        present = rng.random((S, K)) < 0.85
+        present[:2] = True
+        cases.append((np.where(present, ws, 0.0), present, cap))
+    return cases
+
+
+def check_cache_share(rng) -> float:
+    """The kernel equals its plain version bit for bit (f64, the same sum
+    order, IEEE division)."""
+    for ws, present, cap in cache_share_cases(rng):
+        w, p = torch.from_numpy(ws).to(DEV), torch.from_numpy(present).to(DEV)
+        check_exact(f"cache_share {ws.shape}", cs_mod.cache_share(w, p, cap),
+                    cs_mod.cache_share_plain(w, p, cap))
+    return 0.0
+
+
+def scan_inputs(rng, Bb, S, di, N, x_dtype=F32):
+    """The reference kernel test's distributions (tests/test_kernels.py)."""
+    x = randn(rng, (Bb, S, di), F32) * 0.5
+    dt = F.softplus(randn(rng, (Bb, S, di), F32) - 2)
+    A = -torch.exp(randn(rng, (di, N), F32) * 0.3)
+    return (x.to(x_dtype), dt, A, randn(rng, (Bb, S, N), F32) * 0.5,
+            randn(rng, (Bb, S, N), F32) * 0.5)
+
+
+def check_ssm_scan(rng) -> float:
+    """y and the final state against the plain version at 1e-4: the
+    reference's grid (Bb 2), ragged sizes, and falcon-mamba's prefill (from
+    a state) and decode step (S = 1, the state written in place)."""
+    worst = 0.0
+    grid = [(2, 128, 64, 8, F32), (2, 64, 128, 16, F32), (2, 96, 32, 4, F32),
+            (3, 37, 200, 16, BF), (2, 5, 130, 3, F32)]
+    for Bb, S, di, N, xd in grid:
+        args = scan_inputs(rng, Bb, S, di, N, xd)
+        (y, h), (wy, wh) = ssm_mod.ssm_scan(*args), ssm_mod.ssm_scan_plain(*args)
+        name = f"ssm_scan Bb{Bb} S{S} di{di} N{N} {xd}"
+        worst = max(worst, check_close(name, y, wy, F32, SCAN_TOL),
+                    check_close(name + " hT", h, wh, F32, SCAN_TOL))
+    Bb, di, N = 4, 8192, 16
+    args = scan_inputs(rng, Bb, 1024, di, N, BF)
+    h0 = randn(rng, (Bb, di, N), F32) * 0.5
+    (y, h), (wy, wh) = ssm_mod.ssm_scan(*args, h0), ssm_mod.ssm_scan_plain(*args, h0)
+    worst = max(worst, check_close("ssm_scan prefill", y, wy, F32, SCAN_TOL),
+                check_close("ssm_scan prefill hT", h, wh, F32, SCAN_TOL))
+    args = scan_inputs(rng, Bb, 1, di, N, BF)
+    state = h0.clone()
+    y, h = ssm_mod.ssm_scan(*args, state, out_state=state)
+    wy, wh = ssm_mod.ssm_scan_plain(*args, h0)
+    if h.data_ptr() != state.data_ptr():
+        raise AssertionError("ssm_scan decode: the state was not written in place")
+    return max(worst, check_close("ssm_scan decode", y, wy, F32, SCAN_TOL),
+               check_close("ssm_scan decode hT", state, wh, F32, SCAN_TOL))
+
+
+def time_cache_share(rng, S, K) -> dict:
+    cap = H100.cache_capacity
+    ws = torch.from_numpy(rng.random((S, K)) * cap).to(DEV)
+    present = torch.from_numpy(rng.random((S, K)) < 0.9).to(DEV)
+    n = S * K
+    b_ms, by = bound(n * (8 + 1 + 8), 5.0 * n, torch.float64)
+    return {"shape": f"({S}, {K}) f64", "dtype": "float64",
+            **time_ms(lambda i: cs_mod.cache_share(ws, present, cap)),
+            "plain_ms": time_ms(lambda i: cs_mod.cache_share_plain(ws, present, cap))["ms"],
+            "library_ms": None, "bound_ms": b_ms, "bound_by": by}
+
+
+def time_ssm_scan(rng, Bb, S, with_state) -> dict:
+    """The scan at falcon-mamba's widths (d_inner 8192, N 16), x in bf16.
+    Bound: the larger of its bytes (x, dt, y once, A, B, C, the states),
+    its f32 operations (7 per state and step, one per channel and step)
+    and its exps over the multi-function units' rate."""
+    di, N = 8192, 16
+    x, dt, A, B, C = scan_inputs(rng, Bb, S, di, N, BF)
+    h0 = randn(rng, (Bb, di, N), F32) * 0.1 if with_state else None
+    n = Bb * S * di
+    bytes_moved = (n * (2 + 4 + 4) + A.numel() * 4 + 2 * B.numel() * 4
+                   + (2 if with_state else 1) * Bb * di * N * 4)
+    b_ms, by = bound(bytes_moved, n * (7.0 * N + 1), F32)
+    t_exp = n * N / EXP_PER_S * 1e3
+    reps = 3 if S > 1 else 7
+    plain = time_ms(lambda i: ssm_mod.ssm_scan_plain(x, dt, A, B, C, h0),
+                    iters=1, reps=reps)["ms"]
+    return {"shape": f"x ({Bb}, {S}, {di}) bf16, N {N}" + (", from h0" if with_state else ""),
+            "dtype": "bfloat16", **time_ms(lambda i: ssm_mod.ssm_scan(x, dt, A, B, C, h0)),
+            "plain_ms": plain, "library_ms": None, "bound_ms": max(b_ms, t_exp),
+            "bound_by": "operations" if t_exp > b_ms else by,
+            "bound_term": "exp on the multi-function units" if t_exp > b_ms else (
+                "device-memory bytes" if by == "bytes" else "f32 operations"),
+            "bytes_ms": bytes_moved / HBM_BYTES_PER_S * 1e3, "exp_ms": t_exp}
+
+
 def phase_kernels() -> dict:
     rng = np.random.default_rng(0)
     errs = {"rmsnorm": check_rmsnorm(rng), "flash_decode": check_flash_decode(rng),
-            "flash_attention": check_flash_attention(rng)}
+            "flash_attention": check_flash_attention(rng),
+            "cache_share": check_cache_share(rng), "ssm_scan": check_ssm_scan(rng)}
     emit(phase="kernels_checked", max_abs_err=errs,
-         tolerance={"float32": TOL[F32], "bfloat16": TOL[BF]})
+         tolerance={"float32": TOL[F32], "bfloat16": TOL[BF], "cache_share": "bit-exact",
+                    "ssm_scan": SCAN_TOL})
     mixed = [1025, 1025, 64, 200, 333, 512, 800, 1000]    # two idle slots read it all
     times = {
         "rmsnorm": [time_rmsnorm(rng, (1, 128, 2048)), time_rmsnorm(rng, (8, 1, 2048))],
@@ -358,13 +491,19 @@ def phase_kernels() -> dict:
         "flash_attention": [time_flash_attention(rng, 128, 512),
                             time_flash_attention(rng, 128, 0),
                             time_flash_attention(rng, 768, 0)],
+        "cache_share": [time_cache_share(rng, 8, 2), time_cache_share(rng, 4096, 6)],
+        "ssm_scan": [time_ssm_scan(rng, 4, 1024, False), time_ssm_scan(rng, 4, 1, True)],
     }
     emit(phase="kernel_times", times=times)
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:27"),
                "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                                 "src/repro/kernels/decode_attention.py:67"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:90")}
+                                   "src/repro/kernels/flash_attention.py:90"),
+               "cache_share": ("src/repro_torch/csrc/cache_share.cu",
+                               "src/repro/kernels/cache_share.py:59"),
+               "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                            "src/repro/kernels/ssm_scan.py:66")}
     records = {}
     for name, (source, replaces) in sources.items():
         first = times[name][0]                 # the main path's first shape
@@ -621,7 +760,15 @@ def logits_close(name, got, want) -> float:
     return err.max().item()
 
 
-def phase_serve_full(records: dict) -> None:
+def serve_prompts(cfg, rng) -> list:
+    """The fixed seeded request mix (``rng`` seeded 0): 8 prompts of 64 to
+    768 tokens."""
+    return [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+            for n in rng.integers(64, 769, size=8)]
+
+
+def phase_serve_full(records: dict) -> dict:
+    """Returns the model's parameters, which the solver phase serves again."""
     cfg = get_config("qwen3-1.7b")
     L, max_new = cfg.n_layers, 32
     gen = torch.Generator(device=DEV)
@@ -633,8 +780,7 @@ def phase_serve_full(records: dict) -> None:
     emit(phase="weights", config=cfg.name, n_params=n_params, dtype=cfg.param_dtype,
          seconds=time.perf_counter() - t0)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
-               for n in rng.integers(64, 769, size=8)]
+    prompts = serve_prompts(cfg, rng)
     # one short unmeasured serve first: the kernels' first launches and the
     # library's first products of each shape load code, which is set-up
     serve(cfg, EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128),
@@ -686,6 +832,7 @@ def phase_serve_full(records: dict) -> None:
          tolerance={"rtol": 0.15, "atol": 0.3})
     emit(phase="step_profile", decode=profile_step(lambda: eng._decode(dtok, pos).argmax(-1).tolist()),
          extend_128=profile_step(lambda: eng._extend(tok[:, 128:256], 3, 128).argmax(-1).tolist()))
+    return params
 
 
 def profile_step(step, n: int = 4) -> dict:
@@ -731,13 +878,27 @@ def _leaves(tree):
 # --------------------------------------------------------------------- #
 #  phase 6: interference, the §4 loop on CUDA streams                    #
 # --------------------------------------------------------------------- #
-def phase_interference(records: dict) -> None:
+def phase_interference(records: dict) -> list:
     """``gpu_native.interference_sweep``: the sweep, the fit and the
     validation for both full-width victims. Fails unless every colocated
     run was bracketed by its background, every planned run is there with
-    a finite slowdown, and each stressor was launched on this path."""
+    a finite slowdown, and each stressor was launched on this path.
+    Returns the largest batch of scenarios the fit priced, for the solver
+    phase."""
+    largest = []
+
+    def recording(scenarios, dev=None):
+        scenarios = list(scenarios)
+        if len(scenarios) > len(largest):
+            largest[:] = scenarios
+        return solve_scenarios(scenarios, dev)
+
     reset_counts()                          # counts of this path only
-    out = gpu_native.interference_sweep(DEV)
+    fit_mod.solve_scenarios = recording
+    try:
+        out = gpu_native.interference_sweep(DEV)
+    finally:
+        fit_mod.solve_scenarios = solve_scenarios
     used = counts(STRESSORS)
     cols = out["colocations"]
     n_axes = len(gpu_native.AXES)
@@ -760,6 +921,190 @@ def phase_interference(records: dict) -> None:
         raise AssertionError(f"interference: a stressor was never launched: {used}")
     for name, n in used.items():
         records[name]["launches"] = n
+    return largest
+
+
+# --------------------------------------------------------------------- #
+#  phase 7: the torch solver backend on the card                         #
+# --------------------------------------------------------------------- #
+def results_equal(name, want, got, tol=1e-9) -> float:
+    """Two BatchResults agree at rtol = atol = ``tol``, the discrete
+    ``bottleneck`` and ``feasible_slots`` exactly; returns the largest
+    relative difference of the nonzero finite slowdowns."""
+    if not (np.array_equal(got.bottleneck, want.bottleneck)
+            and np.array_equal(got.feasible_slots, want.feasible_slots)):
+        raise AssertionError(f"{name}: bottleneck or feasible_slots differ")
+    worst = 0.0
+    for field in ("speeds", "slowdowns", "axis_load"):
+        a, b = getattr(want, field), getattr(got, field)
+        fin = np.isfinite(a)
+        if not np.array_equal(fin, np.isfinite(b)):
+            raise AssertionError(f"{name}: {field} finite in other places")
+        if not np.allclose(b[fin], a[fin], rtol=tol, atol=tol):
+            raise AssertionError(f"{name}: {field} differ beyond {tol}")
+        nz = fin & (a != 0)
+        if field == "slowdowns" and nz.any():
+            worst = float(np.max(np.abs(b[nz] - a[nz]) / np.abs(a[nz])))
+    return worst
+
+
+def solve_ms(scenarios, n: int = 20) -> float:
+    """Median host time of one solve (it returns NumPy: the device is done)."""
+    solve_scenarios(scenarios, H100)
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        solve_scenarios(scenarios, H100)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def phase_solver(params, scenarios, records: dict) -> None:
+    """The full-width qwen3-1.7b interference-aware serve on the NumPy
+    backend, then on the torch backend on the card: the same prefill chunks
+    and tokens, and one ``cache_share`` launch for every solve. Then one
+    batch of the interference phase's scenarios through both backends, at
+    rtol = atol = 1e-9 with the same bottlenecks, and the time of a solve
+    on each."""
+    cfg = get_config("qwen3-1.7b")
+    prompts = serve_prompts(cfg, np.random.default_rng(0))
+    ecfg = EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128)
+    runs = {}
+    solves = [0]
+
+    def counting(*args):
+        solves[0] += 1
+        return solve_gathered(*args)
+
+    solve_gathered = estimator_torch.solve_gathered
+    for backend in ("numpy", "torch"):
+        with solver_backend(backend, device=DEV):
+            reset_counts()                 # counts of this path only
+            estimator_torch.solve_gathered = counting
+            try:
+                eng, metrics, seconds = serve(cfg, ecfg, prompts, 32, device=DEV,
+                                              params=params)
+            finally:
+                estimator_torch.solve_gathered = solve_gathered
+            used = counts()
+        stats = serve_stats(eng, metrics, seconds, 32)
+        runs[backend] = {**stats, "outputs": [m["output"] for m in metrics.values()],
+                         "launches": used}
+        emit(phase="solver_serve", backend=backend, solves=solves[0] if backend == "torch" else 0,
+             **{k: v for k, v in stats.items() if k != "chunk_sizes"},
+             chunk_sizes=stats["chunk_sizes"], launches=used)
+    np_run, t_run = runs["numpy"], runs["torch"]
+    if t_run["chunk_sizes"] != np_run["chunk_sizes"] or t_run["outputs"] != np_run["outputs"]:
+        raise AssertionError("solver: the torch backend picked other chunks or tokens")
+    n_cs = t_run["launches"]["cache_share"]
+    if np_run["launches"]["cache_share"] or not solves[0] or n_cs != solves[0]:
+        raise AssertionError(f"solver: {n_cs} cache_share launches for {solves[0]} solves")
+    records["cache_share"]["launches"] = n_cs
+    records["cache_share"]["launches_per_solve"] = 1
+
+    eng = Engine(cfg, params=params, ecfg=ecfg, device=DEV)
+    decode = eng._phase_profile("decode", 8)
+    engine_batch = [Scenario((decode,), (eng._phase_profile(f"prefill{c}", c),))
+                    for c in (128, 64, 32, 16)]
+    batches = {"interference_fit": scenarios, "engine_chunk": engine_batch}
+    out = {}
+    for name, batch in batches.items():
+        with solver_backend("numpy"):
+            want, np_ms = solve_scenarios(batch, H100), solve_ms(batch)
+        with solver_backend("torch", device=DEV):
+            got, t_ms = solve_scenarios(batch, H100), solve_ms(batch)
+        out[name] = {"scenarios": len(batch), "width": int(want.mask.shape[1]),
+                     "max_rel_err_slowdowns": results_equal(name, want, got),
+                     "numpy_ms": np_ms, "torch_ms": t_ms}
+    emit(phase="solver_parity", tolerance={"rtol": 1e-9, "atol": 1e-9}, **out)
+
+
+# --------------------------------------------------------------------- #
+#  phase 8: falcon-mamba-7b at full width                                #
+# --------------------------------------------------------------------- #
+def phase_falcon_mamba(records: dict) -> None:
+    """falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192, N 16, vocab
+    65024, bf16, seeded random weights) through the model facade: a
+    prefill of 4 prompts of 1,024 tokens and 32 greedy decode steps, each
+    step timed by the host clock until its ids are on the host; the launches
+    of the run; a decode step's profile; and the logits checked at the
+    reference's bf16 tolerance against the plain versions (a 128-token
+    prefill and one step) and decode against forward."""
+    cfg = get_config("falcon-mamba-7b")
+    L, B, S, n_dec = cfg.n_layers, 4, 1024, 32
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    m = build_model(cfg, device=DEV)
+    params = m.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    emit(phase="falcon_weights", config=cfg.name, n_params=n_params, dtype=cfg.param_dtype,
+         bytes=sum(t.numel() * t.element_size() for t in _leaves(params)),
+         seconds=time.perf_counter() - t0)
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, S))).to(DEV)
+    with torch.no_grad():
+        # one short unmeasured run first: the first launches load code
+        logits, cache = m.prefill(params, {"tokens": prompt[:, :64]}, S)
+        m.decode_step(params, logits.argmax(-1), cache, 64)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                     # counts of this path only
+        t0 = time.perf_counter()
+        logits, cache = m.prefill(params, {"tokens": prompt}, S + n_dec)
+        tok = logits.argmax(-1)
+        ids = [tok.cpu()]
+        prefill_s = time.perf_counter() - t0
+        steps = []
+        for i in range(n_dec):
+            t1 = time.perf_counter()
+            logits, cache = m.decode_step(params, tok, cache, S + i)
+            tok = logits.argmax(-1)
+            ids.append(tok.cpu())
+            steps.append(time.perf_counter() - t1)
+        used = counts()
+    ids = torch.cat(ids, 1)
+    if not torch.isfinite(logits).all() or not ((ids >= 0) & (ids < cfg.vocab_size)).all():
+        raise AssertionError("falcon-mamba: logits not finite or an id out of range")
+    want = {name: 0 for name in used}
+    want.update(ssm_scan=L * (1 + n_dec), rmsnorm=(L + 1) * (1 + n_dec))
+    if used != want:
+        raise AssertionError(f"falcon-mamba: launches {used}, the steps imply {want}")
+    emit(phase="falcon_mamba", config=cfg.name, batch=B, prompt_tokens=S, decode_steps=n_dec,
+         prefill_ms=prefill_s * 1e3, prefill_tokens_per_s=B * S / prefill_s,
+         decode_step_ms_median=statistics.median(steps) * 1e3,
+         decode_step_ms_max=max(steps) * 1e3, decode_tokens_per_s=B * n_dec / sum(steps),
+         tokens_per_s=B * (1 + n_dec) / (prefill_s + sum(steps)),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=used,
+         ids_of_request_0=ids[0].tolist())
+    records["ssm_scan"]["launches"] = used["ssm_scan"]
+    records["ssm_scan"]["launches_per_step"] = L
+    records["rmsnorm"]["launches_falcon_mamba"] = used["rmsnorm"]
+    emit(phase="falcon_step_profile",
+         decode=profile_step(lambda: m.decode_step(params, tok, cache, S + n_dec)[0]
+                             .argmax(-1).tolist()))
+    del cache
+    # kernels against plain versions: one 128-token prefill, one step
+    short = prompt[:, :128]
+    errs = {}
+    with torch.no_grad():
+        got, got_cache = m.prefill(params, {"tokens": short}, 129)
+        with plain_versions():
+            plain, plain_cache = m.prefill(params, {"tokens": short}, 129)
+        errs["prefill_128"] = logits_close("falcon-mamba prefill", got, plain)
+        nxt = got.argmax(-1)
+        got_d, _ = m.decode_step(params, nxt, got_cache, 128)
+        with plain_versions():
+            plain_d, _ = m.decode_step(params, nxt, plain_cache, 128)
+        errs["decode"] = logits_close("falcon-mamba decode", got_d, plain_d)
+        # decode at t against forward at t
+        full = m.forward(params, {"tokens": torch.cat([short, nxt], 1)})
+        errs["prefill_vs_forward"] = logits_close("falcon-mamba prefill vs forward",
+                                                  got[:, 0], full[:, 127])
+        errs["decode_vs_forward"] = logits_close("falcon-mamba decode vs forward",
+                                                 got_d[:, 0], full[:, 128])
+    emit(phase="falcon_mamba_logits", max_abs_err=errs, tolerance={"rtol": 0.15, "atol": 0.3})
 
 
 # --------------------------------------------------------------------- #
@@ -799,14 +1144,22 @@ def main() -> int:
     emit(phase="serve_small_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    phase_serve_full(records)
+    params = phase_serve_full(records)
     emit(phase="serve_full_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    phase_interference(records)
-    t_interf = time.perf_counter() - t0
-    emit(phase="interference_done", seconds=t_interf,
-         new_phases_seconds=t_stress + t_interf)
+    scenarios = phase_interference(records)
+    emit(phase="interference_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_solver(params, scenarios, records)
+    emit(phase="solver_done", seconds=time.perf_counter() - t0)
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_falcon_mamba(records)
+    emit(phase="falcon_mamba_done", seconds=time.perf_counter() - t0)
 
     emit(phase="total", seconds=time.perf_counter() - t_all)
     emit(kernels=list(records.values()))

@@ -3,8 +3,8 @@
 The estimator already answers "given profiles, what slowdowns?"; this
 module answers the calibration question "given observed slowdowns, what
 profiles?" by batched coordinate descent *through* the estimator —
-``solve_scenarios`` (the NumPy solver) is the forward model that prices
-the candidate grids.
+``solve_scenarios`` (on the active solver backend) is the forward model
+that prices the candidate grids.
 
 Parameterization per victim kernel (9 scalars):
 

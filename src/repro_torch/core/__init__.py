@@ -1,6 +1,11 @@
-"""Multi-resource interference estimator: the NumPy solver that the serve
-engine prices prefill chunks with, the k-way slot-fraction search, and the
-sensitivity library of the paper's §4 (per-axis stressor sweeps)."""
+"""Multi-resource interference estimator: the solver that the serve engine
+prices prefill chunks with (NumPy by default, or the f64 PyTorch port on a
+device, chosen by `repro_torch.core.backend`), the k-way slot-fraction
+search, and the sensitivity library of the paper's §4 (per-axis stressor
+sweeps)."""
+from repro_torch.core.backend import (SOLVER_BACKENDS, get_solver_backend,  # noqa: F401
+                                      get_solver_device, set_solver_backend,
+                                      solver_backend, warmup_solver)
 from repro_torch.core.resources import (DEVICES, H100, RTX3090, TPU_V5E,  # noqa: F401
                                         TPU_V5P, DeviceModel)
 from repro_torch.core.profile import KernelProfile, ProfileMatrix, WorkloadProfile  # noqa: F401

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.backend import get_solver_backend
 from repro_torch.core.profile import (KernelProfile, ProfileMatrix,
                                 WorkloadProfile, effective_demand_arrays,
                                 isolated_time_arrays, utilization_arrays)
@@ -179,7 +180,10 @@ def solve_batch(pm: ProfileMatrix, members, dev: DeviceModel,
     real), with optional per-member slot fractions. `names` feeds the
     dict-view `result(i)`; array-only consumers may omit it.
 
-    This package has one solver, the NumPy one below."""
+    Executes on the active solver backend (`repro_torch.core.backend`):
+    the NumPy oracle below, or the f64 PyTorch port
+    (`repro_torch.core.estimator_torch`) on the backend's device —
+    identical results at 1e-9."""
     if len(members) == 0:
         z2 = np.zeros((0, 0))
         return BatchResult(names if names is not None else [],
@@ -193,6 +197,13 @@ def solve_batch(pm: ProfileMatrix, members, dev: DeviceModel,
     _, mask, frac, demand, duration, ws, hit, slots = _gather(
         pm, members, fractions, mask)
     S, K = mask.shape
+    if K > 0 and get_solver_backend() == "torch":
+        from repro_torch.core import estimator_torch
+        speeds, slowdowns, frozen, axis_load, feasible = \
+            estimator_torch.solve_gathered(mask, frac, demand, duration, ws,
+                                           hit, slots, dev)
+        return BatchResult(names, mask, speeds, slowdowns, frozen,
+                           axis_load, feasible)
     # members at or below the exclusion floor are absent (see
     # FRACTION_FLOOR): zero their inputs so they neither contend nor
     # occupy slots; their own slowdown is patched to +inf at the end

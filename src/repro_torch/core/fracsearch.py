@@ -87,11 +87,13 @@ class FractionSearchConfig:
 
     @classmethod
     def default(cls) -> "FractionSearchConfig":
-        """The search config for the solver backend: this package has
-        one, the NumPy solver, and it takes the standard 8-step grid
-        (`DENSE_SEARCH` is for a solver fast enough to widen the grid at
-        unchanged latency budgets)."""
-        return cls()
+        """The search config for the ACTIVE solver backend: the standard
+        8-step grid on numpy, `DENSE_SEARCH` on torch — as the reference
+        widens the grid for its jitted solver at unchanged latency budgets.
+        Resolved at call time, so switch the backend before constructing
+        schedulers."""
+        from repro_torch.core.backend import get_solver_backend
+        return DENSE_SEARCH if get_solver_backend() == "torch" else cls()
 
 
 # coarse-only, no partitioned growth: bit-for-bit the legacy fixed

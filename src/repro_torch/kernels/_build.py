@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     "rt_rmsnorm": [_P, _P, _P, _I, _I, _L, _L, _F, _I, _P],
     "rt_flash_decode": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_I, _I, _P],
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "rt_stress_vpu": [_P, _P, _L, _L, _I, _I, _I, _P],
     "rt_stress_hbm": [_P, _P, _L, _I, _I, _P],
     "rt_stress_vmem": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "rt_cache_share": [_P, _P, _D, _P, _I, _I, _P],
+    "rt_ssm_scan": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

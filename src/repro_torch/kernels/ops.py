@@ -1,4 +1,4 @@
-"""Model-layout entry points of the three kernels, the twins of
+"""Model-layout entry points of the kernels, the twins of
 ``src/repro/kernels/ops.py``. On a CUDA tensor each launches its kernel; on
 a CPU tensor each computes the same function with the kernel's plain
 version (there is no switch between the two)."""
@@ -9,6 +9,7 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import ssm_scan as _ssm
 
 
 def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
@@ -31,3 +32,11 @@ def flash_decode(q, k, v, kv_len):
 def rmsnorm(x, scale, eps: float = 1e-6):
     """x (..., d); scale (d,)."""
     return _rms.rmsnorm(x, scale, eps)
+
+
+def ssm_scan(x, dt, A, B, C):
+    """x, dt (Bb,S,di); A (di,N); B, C (Bb,S,N) -> y (Bb,S,di) in ``x.dtype``,
+    as the Pallas kernel returns it (the model's scan keeps y in f32 and the
+    final state: ``kernels/ssm_scan.py``)."""
+    y, _ = _ssm.ssm_scan(x, dt.float(), A.float(), B.float(), C.float())
+    return y.to(x.dtype)

@@ -1,4 +1,5 @@
-"""Model facade for the dense / global-attention family.
+"""Model facade for the dense / global-attention family and the Mamba-1
+SSM family.
 
   m = build_model(cfg)                      # device="cuda" unless told
   params = m.init(generator)
@@ -18,6 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import hybrid as hyb
+from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (_dtype, embed, embed_init, rmsnorm,
                                        rmsnorm_init, unembed)
@@ -26,8 +29,8 @@ Batch = Dict[str, torch.Tensor]
 
 KV_DTYPE = torch.bfloat16        # init_cache is bf16 whatever the parameters are
 
-_ROADMAP_ITEM = {"ssm": "A6 (ssm and hybrid families)",
-                 "hybrid": "A6 (ssm and hybrid families)",
+_ROADMAP_ITEM = {"ssm": "A6b (Mamba-2 SSD and the hybrid stack)",
+                 "hybrid": "A6b (Mamba-2 SSD and the hybrid stack)",
                  "moe": "A7 (remaining model families)",
                  "vlm": "A7 (remaining model families)",
                  "audio": "A7 (remaining model families)"}
@@ -55,7 +58,8 @@ def resolve_device(device) -> torch.device:
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     device = resolve_device(device)
-    if cfg.family != "dense" or cfg.attn.pattern != "global":
+    is_ssm = cfg.family == "ssm" and cfg.ssm.variant == "mamba1"
+    if not is_ssm and (cfg.family != "dense" or cfg.attn.pattern != "global"):
         item = ("A7 (remaining model families)" if cfg.family == "dense"
                 else _ROADMAP_ITEM.get(cfg.family, "A7"))
         raise NotImplementedError(
@@ -67,38 +71,58 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     def init(gen: torch.Generator):
         if gen.device.type != device.type:
             raise ValueError(f"generator on {gen.device}, model on {device}")
+        stack = (hyb.ssm_stack_init(gen, cfg, dtype) if is_ssm
+                 else tfm.uniform_stack_init(gen, cfg, dtype))
         return {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                                     cfg.tie_embeddings, dtype),
                 "final_ln": rmsnorm_init(cfg.d_model, device),
-                "stack": tfm.uniform_stack_init(gen, cfg, dtype)}
+                "stack": stack}
 
     def _embed_in(p, batch):
         return embed(p["embed"], batch["tokens"], scale_by_dim=cfg.embed_scale)
 
     def forward(p, batch: Batch):
-        x, _ = tfm.uniform_stack_fwd(p["stack"], cfg, _embed_in(p, batch))
+        if is_ssm:
+            x = hyb.ssm_stack_fwd(p["stack"], cfg, _embed_in(p, batch))
+        else:
+            x, _ = tfm.uniform_stack_fwd(p["stack"], cfg, _embed_in(p, batch))
         return unembed(p["embed"], rmsnorm(p["final_ln"], x, cfg.norm_eps))
 
     def init_cache(batch_size: int, max_len: int):
+        if is_ssm:      # fixed-size states: max_len does not enter
+            s, L = cfg.ssm, cfg.n_layers
+            return {"conv": torch.zeros((L, batch_size, s.d_conv - 1, cfg.d_inner),
+                                        dtype=ssm.CONV_DTYPE, device=device),
+                    "h": torch.zeros((L, batch_size, cfg.d_inner, s.d_state),
+                                     dtype=torch.float32, device=device)}
         shape = (cfg.n_layers, batch_size, max_len, a.n_kv_heads, a.head_dim)
         return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
                 "v": torch.zeros(shape, dtype=KV_DTYPE, device=device)}
 
     def prefill(p, batch: Batch, max_len: int):
-        x, (k, v) = tfm.uniform_stack_fwd(p["stack"], cfg, _embed_in(p, batch),
-                                          collect_kv=True)
-        # as in the reference, the prefilled cache keeps the keys' own type
-        # (bf16 for bf16 parameters), padded with zeros up to max_len
-        pad = (0, 0, 0, 0, 0, max(max_len - k.shape[2], 0))
-        cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+        if is_ssm:
+            tokens = batch["tokens"]
+            cache = init_cache(tokens.shape[0], max_len)
+            x = hyb.ssm_stack_prefill(p["stack"], cfg, _embed_in(p, batch), cache)
+        else:
+            x, (k, v) = tfm.uniform_stack_fwd(p["stack"], cfg, _embed_in(p, batch),
+                                              collect_kv=True)
+            # as in the reference, the prefilled cache keeps the keys' own type
+            # (bf16 for bf16 parameters), padded with zeros up to max_len
+            pad = (0, 0, 0, 0, 0, max(max_len - k.shape[2], 0))
+            cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
         x = rmsnorm(p["final_ln"], x[:, -1:], cfg.norm_eps)
         return unembed(p["embed"], x), cache
 
     def decode_step(p, tokens, cache, pos):
-        """tokens (B,1) integers; pos: int, () or (B,) absolute position.
+        """tokens (B,1) integers; pos: int, () or (B,) absolute position
+        (the SSM family's state carries its own position and ignores it).
         The cache is updated in place and returned."""
         x = embed(p["embed"], tokens, scale_by_dim=cfg.embed_scale)
-        x = tfm.uniform_stack_decode(p["stack"], cfg, x, cache["k"], cache["v"], pos)
+        if is_ssm:
+            x = hyb.ssm_stack_decode(p["stack"], cfg, x, cache)
+        else:
+            x = tfm.uniform_stack_decode(p["stack"], cfg, x, cache["k"], cache["v"], pos)
         x = rmsnorm(p["final_ln"], x, cfg.norm_eps)
         return unembed(p["embed"], x), cache
 

