@@ -114,6 +114,24 @@ def ptxas_summary() -> dict:
     return {"kernels_compiled": n, "kernels_with_spills": spills}
 
 
+def sass_hmma_counts(kernel: str) -> dict:
+    """HMMA (tensor-core) instructions in the SASS of every function of the
+    built library whose name holds ``kernel`` (``cuobjdump -sass``)."""
+    exe = Path(_build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(exe) if exe.exists() else "cuobjdump", "-sass",
+                          str(_build.library_path())], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, timeout=300).stdout
+    found, name = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            if kernel in name:
+                found[name] = 0
+        elif name in found and "HMMA" in ln:
+            found[name] += 1
+    return found
+
+
 # every wrapper of the port: (module, name); the plain version is name + "_plain"
 WRAPPERS = [(rms_mod, "rmsnorm"), (fa_mod, "flash_attention"),
             (dec_mod, "flash_decode"), (st_mod, "stress_mxu"),
@@ -270,6 +288,18 @@ def check_flash_decode(rng) -> float:
             f"flash_decode B{B} H{H} D{D} T{T}",
             dec_mod.flash_decode(q, ck[1], cv[1], lens),
             dec_mod.flash_decode_plain(q, ck[1], cv[1], lens), kd))
+    # the lengths as the model has them (int64) and as int32: one result,
+    # each the plain version's, G = 16 (the widest group) beside the path's
+    for B, H, KVH, lens in [(8, 16, 8, [1025, 1, 64, 65, 333, 800, 1024, 1025]),
+                            (2, 32, 2, [700, 129])]:
+        q = randn(rng, (B, 1, H, 128), BF)
+        ck, cv = path_cache(rng, 2, B, 1025, KVH, 128, BF)
+        l64 = torch.tensor(lens, dtype=torch.int64, device=DEV)
+        got64 = dec_mod.flash_decode(q, ck[0], cv[0], l64)
+        got32 = dec_mod.flash_decode(q, ck[0], cv[0], l64.to(torch.int32))
+        check_exact(f"flash_decode int64 vs int32 lengths H{H}", got64, got32)
+        worst = max(worst, check_close(f"flash_decode int64 lengths H{H}", got64,
+                                       dec_mod.flash_decode_plain(q, ck[0], cv[0], l64), BF))
     return worst
 
 
@@ -277,13 +307,28 @@ def check_flash_attention(rng) -> float:
     worst = 0.0
     grid = [(128, 128, 64, 1, "causal", F32), (256, 256, 128, 4, "causal", BF),
             (128, 384, 64, 2, "bidirectional", F32), (200, 200, 64, 2, "causal", F32),
-            (256, 256, 64, 1, "local", F32)]
+            (256, 256, 64, 1, "local", F32),
+            # the tensor-core body on each kind, ragged S, every head dim
+            (256, 256, 64, 4, "local", BF), (128, 384, 64, 4, "bidirectional", BF),
+            (37, 37, 64, 4, "causal", BF), (200, 200, 64, 4, "causal", BF),
+            (200, 200, 32, 2, "local", BF), (37, 300, 16, 1, "bidirectional", BF)]
     for S, T, D, g, kind, dtype in grid:
         q, k, v = bhsd_views(rng, 2, g, S, T, D, dtype)
         worst = max(worst, check_close(
             f"flash_attention {kind} S{S} T{T} D{D} g{g}",
             fa_mod.flash_attention(q, k, v, kind, 64),
             fa_mod.flash_attention_plain(q, k, v, kind, 64), dtype))
+    # the split of the keys, forced: 1 to 4 pieces on the path's chunk, and a
+    # local window that leaves a split with no key of a query tile
+    for S, T, D, g, kind, pieces in [(128, 640, 128, 2, "causal", (1, 2, 3, 4)),
+                                     (128, 640, 64, 2, "local", (2, 4)),
+                                     (200, 520, 128, 1, "bidirectional", (3,))]:
+        q, k, v = bhsd_views(rng, 1, g, S, T, D, BF)
+        want = fa_mod.flash_attention_plain(q, k, v, kind, 64)
+        for n in pieces:
+            worst = max(worst, check_close(
+                f"flash_attention {kind} S{S} T{T} D{D} kv_splits={n}",
+                fa_mod.flash_attention(q, k, v, kind, 64, 0, n), want, BF))
     cases = [  # B, S, H, KVH, D, pos0, q dtype, cache dtype
         (2, 128, 8, 2, 64, 0, F32, F32),
         (1, 128, 16, 8, 128, 0, BF, BF),        # the path's chunk, pos0 = 0
@@ -333,7 +378,10 @@ def time_flash_decode(rng, kv_len, label) -> dict:
     n_keys = int(sum(kv_len))
     b_ms, by = bound(2 * n_keys * KVH * D * 2 + 2 * q.numel() * 2 + B * 4,
                      4 * n_keys * H * D, BF)
+    chunk, n_splits = dec_mod.split_plan(T, B * KVH)
     return {"shape": label, "dtype": "bfloat16", "kv_len": list(kv_len),
+            "kv_len_dtype": str(lens.dtype), "body": "cp_async_lanes", "chunk": chunk,
+            "kv_splits": n_splits,
             **time_ms(lambda i: dec_mod.flash_decode(q, ck[i], cv[i], lens), L),
             "plain_ms": time_ms(lambda i: dec_mod.flash_decode_plain(q, ck[i], cv[i], lens), L)["ms"],
             "library_ms": time_ms(library, L)["ms"],
@@ -357,7 +405,13 @@ def time_flash_attention(rng, S, pos0) -> dict:
 
     pairs = sum(min(T, s + pos0 + 1) for s in range(S))      # unmasked (q, k) pairs
     b_ms, by = bound((2 * q.numel() + 2 * B * T * KVH * D) * 2, 4 * pairs * B * H * D, BF)
+    plan = fa_mod.split_plan(B, S, H, T, BF, torch.cuda.get_device_properties(0).multi_processor_count)
+    # (a) the keys split over 2-4 blocks, merged by a second kernel; (b) no split
+    fills = {f"kv_splits={n}": time_ms(
+        lambda i, n=n: fa_mod.flash_attention(q, *views[i], "causal", 0, pos0, n), L)["ms"]
+        for n in (1, 2, 3, 4)}
     return {"shape": f"S={S} T={T} pos0={pos0} H={H} KVH={KVH} D={D}", "dtype": "bfloat16",
+            **plan, "ms_by_kv_splits": fills,
             **time_ms(lambda i: fa_mod.flash_attention(q, *views[i], "causal", 0, pos0), L),
             "plain_ms": time_ms(lambda i: fa_mod.flash_attention_plain(q, *views[i], "causal", 0, pos0), L)["ms"],
             "library_ms": time_ms(library, L)["ms"],
@@ -511,7 +565,9 @@ def phase_kernels() -> dict:
                          "replaces": replaces, "launches": 0,
                          "max_abs_err": errs[name], "shape": first["shape"],
                          **{k: first[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
-                                                  "bound_by", "library_ms")}}
+                                                  "bound_by", "library_ms")},
+                         **{k: first[k] for k in ("body", "bm", "kv_splits", "chunk")
+                            if k in first}}
     return records
 
 
@@ -1127,8 +1183,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
+    built = ptxas_summary()
     emit(phase="build", seconds=time.perf_counter() - t0,
-         sources=[s.name for s in _build.sources()], **ptxas_summary())
+         sources=[s.name for s in _build.sources()], **built)
+    spilled = [k for k in built["kernels_with_spills"] if "flash_attention" in k or "decode_" in k]
+    if spilled:
+        raise AssertionError(f"attention kernels spill registers: {spilled}")
+    hmma = sass_hmma_counts("flash_attention_mma_kernel")
+    emit(phase="sass", hmma_in_flash_attention_mma_kernel=hmma)
+    if not hmma or not all(hmma.values()):
+        raise AssertionError(f"the bf16 attention body has no HMMA in its SASS: {hmma}")
 
     t0 = time.perf_counter()
     records = phase_kernels()

@@ -390,9 +390,11 @@ def _stressor_call(spec: StressorSpec, device, slots: Optional[int] = None,
 # the observed side's calls: one untimed, then ``repeats`` timed
 _WARMUP = 1
 # the background first aims to last MARGIN x the observed side's isolated
-# window, then twice as long on each of RETRIES repeats if it fell short
+# window, then, on each of RETRIES repeats if it fell short, twice as long
+# or GROWTH x the span the last attempt needed, whichever is longer
 MARGIN = 4.0
 RETRIES = 3
+GROWTH = 1.5
 
 
 class BracketError(RuntimeError):
@@ -419,8 +421,9 @@ class TorchBackend:
     made, a property of the queue and not of the victim.  CUDA events
     before the first and after the last background dispatch must bracket
     the timed window: if they do not, the run is repeated with a
-    background twice as long, and after ``RETRIES`` such repeats the
-    measurement raises ``BracketError``.
+    background twice as long, or ``GROWTH`` times the span from its first
+    event to the end of the timed window if that is longer, and after
+    ``RETRIES`` such repeats the measurement raises ``BracketError``.
 
     Slowdowns are ``max(colocated / isolated, 1)`` of the median times.
     A cohort of victims raises ``NotImplementedError``; reverse probes
@@ -525,7 +528,11 @@ class TorchBackend:
             margin = min(lead + tail)
             if margin >= 0.0:
                 return _median_iqr(ts)[0], margin, sum(counts)
-            window *= 2.0
+            # twice as long, or as long as this attempt showed the background
+            # must last (from its start to the end of the timed window): a
+            # short victim slowed by waiting for SMs that the background
+            # holds outgrows any multiple of its isolated time
+            window = max(2.0 * window, GROWTH * (max(lead) + self.last_bracket["window_s"]))
         raise BracketError(
             f"the background did not cover the timed window after "
             f"{RETRIES} longer repeats: {self.last_bracket}")

@@ -1,6 +1,7 @@
 // Shared device helpers for the repro_torch kernels: element types, 16-byte
-// global loads/stores converted to float, warp reductions and the strided
-// global -> shared tile copy. No PyTorch headers: the kernels are built by
+// global loads/stores converted to float, warp reductions, the strided
+// global -> shared tile copy, cp.async, and the tensor-core fragments
+// (mma.sync m16n8k16 bf16, ldmatrix). No PyTorch headers: the kernels are built by
 // nvcc into a plain C library and bound with ctypes.
 #pragma once
 
@@ -65,6 +66,14 @@ __device__ __forceinline__ void store16(bf16* p, const float* in) {
     *reinterpret_cast<uint4*>(p) = v;
 }
 
+// 2^x on the multi-function unit (ex2.approx.ftz: about 2 ulp, 0 for -inf
+// and for very negative x)
+__device__ __forceinline__ float fast_exp2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -112,4 +121,96 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
             for (int i = 0; i < VN; ++i) dst[r * ld + c + i] = f[it][i];
         }
     }
+}
+
+// ---------------------------------------------------------------------- //
+//  cp.async: 16-byte copies from global to shared memory that do not hold //
+//  a register until they land                                            //
+// ---------------------------------------------------------------------- //
+// Copy 16 bytes, or write 16 zero bytes and read nothing when !ok (the
+// source must still be a valid address: pass an in-bounds row).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(gmem), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------- //
+//  tensor cores                                                          //
+// ---------------------------------------------------------------------- //
+// d += a b on a 16 x 8 x 16 tile: a (16 x 16, row) and b (16 x 8, col) in
+// bf16, d in f32. Fragment coordinates: g = lane / 4, t = lane % 4; d[0..1]
+// is row g, columns 2t, 2t + 1; d[2..3] the same columns of row g + 8.
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices from shared memory, one row address per lane
+// (lanes 8q..8q+7 give the rows of matrix q); register q holds matrix q in
+// the mma fragment layout
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// the same, each matrix transposed on the way: rows of the tile in shared
+// memory become columns of the fragment (the B operand from a row-major
+// (k, n) tile)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// two floats rounded to bf16 (to nearest even) in one register, the first
+// in the low half: an A-operand register of mma_bf16_16816
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// ---------------------------------------------------------------------- //
+//  programmatic dependent launch (sm_90)                                 //
+// ---------------------------------------------------------------------- //
+// A kernel launched by launch_after() may be scheduled while the kernel
+// before it on the stream still runs, once every block of that kernel has
+// called allow_dependents() or exited; it must call wait_for_prerequisite()
+// before it reads what that kernel writes (it returns when that kernel has
+// finished and its writes are visible). Both are no-ops in a kernel launched
+// the ordinary way. This hides the second launch of a two-pass kernel.
+__device__ __forceinline__ void allow_dependents() {
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_prerequisite() {
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+template <typename Param>
+static cudaError_t launch_after(void (*kernel)(Param), dim3 grid, dim3 block,
+                                cudaStream_t stream, const Param& p) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = block;
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, kernel, p);
 }

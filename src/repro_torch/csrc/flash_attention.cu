@@ -2,45 +2,104 @@
 // causal / local(window) / bidirectional, and a query offset.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention_bhsd). At the serving path's shapes (a chunk of up to a
-// few hundred queries over a prefix of up to 1k keys) the card's least time
-// is set by the bytes of q, k, v and o, with the operations (4*D per
-// unmasked pair and head, at the tensor cores' rate) close behind: what
-// matters is that scores and weights never reach device memory. The TPU
-// version makes the KV blocks a sequential grid axis and carries
-// (m, l, acc) in scratch memory between grid steps; here one block owns one
-// (batch, head, query tile), loops over the KV tiles itself and keeps
-// m, l and the output tile in registers, so the scores never reach device
-// memory. This first version runs the products as f32 FMA on shared-memory
-// tiles (16x8 threads, each a BM/16 x 8 patch of the score tile and a
-// BM/16 x D/8 patch of the output tile), which is far from either bound;
-// the tensor cores are a later step. q, k, v and o are read
-// and written in the model's layouts through strides, so a slot's slice of
-// the KV cache is used in place; the reference's padding to block multiples
-// becomes the edge masks q < S and k < T. KV tiles wholly outside the
-// causal or local band are skipped: a fully masked tile leaves nothing
-// behind once a later tile raises the running maximum (alpha = 0), so the
-// result is the one the reference computes.
+// (flash_attention_bhsd). The TPU version makes the KV blocks a sequential
+// grid axis and carries (m, l, acc) in scratch memory between grid steps;
+// here one block owns one (batch, head, query tile), loops over the KV tiles
+// itself and keeps m, l and the output tile in registers, so scores and
+// weights never reach device memory. q, k, v and o are read and written in
+// the model's layouts through strides, so a slot's slice of the KV cache is
+// used in place; the reference's padding to block multiples becomes the
+// edge masks q < S and k < T.
 //
+// Two bodies, chosen by the queries' type (an explicit dispatch in
+// rt_flash_attention, not a fallback; a failed launch raises):
+//
+// * bf16 q, k, v (every call of the serving path and of the prefill
+//   victim): the tensor-core body, FlashAttention-2's pattern. At the
+//   path's shapes (a chunk of 128 queries over up to 1k keys) the card's
+//   least time is set by the bytes of q, k, v and o (1 µs), with the
+//   products (4 D flops per unmasked pair and head) close behind at the
+//   tensor cores' rate. What bounds the kernel is neither: it is the serial
+//   walk of each block over its key tiles (on an H100, a 64-key tile costs
+//   a block of four warps about 1.7 µs: one warp per scheduler waits on
+//   its own mma.sync, ldmatrix and exp chains) and how few blocks a chunk
+//   makes (B x H x S/64: 32 at the path's chunk on 132 SMs). The design:
+//   - Four warps own 16 query rows each and keep their Q fragments in
+//     registers; S = Q Kᵀ runs on mma.sync m16n8k16 (bf16 in, f32 out) with
+//     K read by ldmatrix; the online softmax works on the accumulator
+//     fragments in the exp2 domain (row max and sum over the four lanes of
+//     a quad); P is rounded to bf16 in registers (the reference casts the
+//     weights to the values' type, ROADMAP C3) and the m16n8 accumulator
+//     layout is reused as the A operand of O += P V, with V read by
+//     ldmatrix.trans. Scores and weights never leave registers.
+//   - K and V stay bf16 in shared memory, XOR-swizzled by 16-byte chunk so
+//     that ldmatrix's eight row addresses hit distinct banks, and arrive
+//     by cp.async into a ring of FA_MMA_STAGES stages: the next tile is in
+//     flight while tile i is computed, one barrier a tile. Only tiles that
+//     straddle the causal / local band or the end of the keys run the mask
+//     code.
+//   - To shorten the walk and fill the card, the key range may be split
+//     over blocks (`n_splits` pieces of `chunk` keys, planned from the
+//     shapes by kernels/flash_attention.py:split_plan): each split writes
+//     its partial (m, l, acc) in f32 and a second small kernel merges them,
+//     as flash_decode does. A query tile that only one split reaches (the
+//     early tiles of a causal prompt) is written by that split directly.
+//     The merge is launched as a programmatic dependent of the partial
+//     kernel, so its launch overlaps the partial kernel's tail.
+// * f32 queries (the tiny model, the f32 tests, f32 queries over a bf16
+//   cache): the scalar FMA body on the FP32 pipes. The reference holds f32
+//   to 2e-5, which neither bf16 nor TF32 tensor cores can meet, so these
+//   products run exactly in f32: 16 x 8 threads, each a BM/16 x 8 patch of
+//   the score tile and a BM/16 x D/8 patch of the output tile, operands
+//   widened to f32 in shared memory. Its query tile (bm = 32 or 64) comes
+//   from the same plan.
+//
+// Both skip KV tiles wholly outside the causal or local band: a fully
+// masked tile leaves nothing behind once a later tile raises the running
+// maximum (alpha = 0), so the result is the one the reference computes.
 // The mask compares k_pos with q_pos + q_offset. With q_offset = 0 this is
 // the reference kernel; with q_offset = pos0 the S queries are a prefill
 // chunk at absolute positions pos0 .. pos0 + S - 1 over a cache prefix.
 #include "common.cuh"
 
 constexpr int FA_THREADS = 128;
-constexpr int FA_BN = 64;        // keys per tile
+constexpr int FA_BN = 64;        // keys per tile, both bodies
+constexpr int FA_MMA_BM = 64;    // queries per block of the tensor-core body
+constexpr int FA_MMA_STAGES = 2;  // K / V tiles in the cp.async ring
+constexpr int FA_MAX_SPLITS = 4;
+constexpr float FA_LOG2E = 1.4426950408889634f;
 
 struct AttnParams {
     const void* q;               // (B, S, H, D)
     const void* k;               // (B, T, KVH, D)
     const void* v;
     void* o;                     // (B, S, H, D)
+    float* part_m;               // (B, H, n_splits, S_pad), n_splits > 1 only
+    float* part_l;
+    float* part_acc;             // (B, H, n_splits, S_pad, D)
     int S, T, H, KVH;
     int64_t q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh;
     int kind, window, q_offset;
+    int chunk, n_splits;         // keys per split, splits (tensor-core body)
     float scale;
 };
 
+// keys [n_lo, n_hi) that some query of the tile q0 .. q0 + bm - 1 may see;
+// n_lo is a multiple of the tile
+__device__ __forceinline__ void attn_key_range(const AttnParams& p, int q0, int bm,
+                                               int& n_lo, int& n_hi) {
+    n_lo = 0;
+    n_hi = p.T;
+    if (p.kind != RT_BIDIRECTIONAL) n_hi = min(p.T, q0 + bm + p.q_offset);
+    if (p.kind == RT_LOCAL) {
+        const int lo = q0 + p.q_offset - p.window + 1;
+        if (lo > 0) n_lo = (lo / FA_BN) * FA_BN;
+    }
+}
+
+// ---------------------------------------------------------------------- //
+//  f32 queries: the FMA body                                             //
+// ---------------------------------------------------------------------- //
 template <int D, int BM>
 constexpr int attn_smem_floats() {
     return (BM + FA_BN) * (D + 1) + FA_BN * D + BM * (FA_BN + 1);
@@ -85,13 +144,8 @@ flash_attention_kernel(const AttnParams p) {
         for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
     }
 
-    // keys that any query of this tile may see
-    int n_lo = 0, n_hi = T;
-    if (p.kind != RT_BIDIRECTIONAL) n_hi = min(T, q0 + BM + p.q_offset);
-    if (p.kind == RT_LOCAL) {
-        const int lo = q0 + p.q_offset - p.window + 1;
-        if (lo > 0) n_lo = (lo / BN) * BN;
-    }
+    int n_lo, n_hi;
+    attn_key_range(p, q0, BM, n_lo, n_hi);
 
     for (int n0 = n_lo; n0 < n_hi; n0 += BN) {
         __syncthreads();                           // the last tile is consumed
@@ -191,32 +245,349 @@ static int launch_attn(const AttnParams& p, int B, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-// Query tiles of 64 rows do more work per byte staged in shared memory; tiles
-// of 32 rows give twice the blocks, which is what fills the card when
-// batch x heads x S/64 is below the number of SMs (a prefill chunk of one
-// sequence). The choice is made from the shapes alone.
-template <typename TQ, typename TK, int D>
-static int launch_attn_bm(const AttnParams& p, int B, cudaStream_t stream) {
-    static int n_sm = 0;
-    if (n_sm == 0) {
-        int dev = 0;
-        cudaError_t err = cudaGetDevice(&dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-        if (err != cudaSuccess) return (int)err;
+// ---------------------------------------------------------------------- //
+//  bf16: the tensor-core body                                            //
+// ---------------------------------------------------------------------- //
+// Element offset of 16-byte chunk c of row r in a (rows, D) bf16 tile whose
+// chunks are XOR-swizzled: the eight rows that one ldmatrix matrix reads at
+// the same logical chunk land in eight distinct 16-byte bank groups, for
+// every D from 16 (two chunks a row) to 128 (sixteen).
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+    constexpr int CH = D / 8;                      // chunks per row
+    constexpr int RPL = CH >= 8 ? 1 : 8 / CH;      // rows per 128-byte line
+    constexpr int MASK = (CH >= 8 ? 8 : CH) - 1;
+    return r * D + ((c ^ ((r / RPL) & MASK)) << 3);
+}
+
+template <int D>
+constexpr int attn_mma_smem_bytes() {
+    return (FA_MMA_BM + 2 * FA_MMA_STAGES * FA_BN) * D * (int)sizeof(bf16);
+}
+
+// the keys [s_lo, s_hi) of split `split` that the query tile starting at q0
+// may see (empty when s_lo >= s_hi); whole tiles, since chunk is a multiple
+// of FA_BN
+__device__ __forceinline__ void attn_split_range(const AttnParams& p, int q0, int split,
+                                                 int& s_lo, int& s_hi) {
+    int n_lo, n_hi;
+    attn_key_range(p, q0, FA_MMA_BM, n_lo, n_hi);
+    s_lo = max(n_lo, split * p.chunk);
+    s_hi = min(n_hi, split * p.chunk + p.chunk);
+}
+
+// the splits [first, last) that hold a key the query tile at q0 may see
+__device__ __forceinline__ void attn_used_splits(const AttnParams& p, int q0,
+                                                 int& first, int& last) {
+    int n_lo, n_hi;
+    attn_key_range(p, q0, FA_MMA_BM, n_lo, n_hi);
+    first = n_lo / p.chunk;
+    last = n_hi > n_lo ? min(p.n_splits, (n_hi + p.chunk - 1) / p.chunk) : first;
+}
+
+template <int D>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_attention_mma_kernel(const AttnParams p) {
+    constexpr int BM = FA_MMA_BM, BN = FA_BN, NT = FA_THREADS;
+    constexpr int CH = D / 8;                      // 16-byte chunks per row
+    constexpr int KSTEPS = D / 16;                 // k-steps of Q Kᵀ
+    constexpr int NTILES = BN / 8;                 // 8-key score tiles of a warp
+    constexpr int DTILES = D / 8;                  // 8-column output tiles of a warp
+    static_assert(D % 16 == 0 && D <= 128, "unsupported head_dim");
+
+    extern __shared__ __align__(128) unsigned char fa_smem[];
+    bf16* Qs = reinterpret_cast<bf16*>(fa_smem);  // (BM, D)
+    bf16* Ks = Qs + BM * D;                        // STAGES x (BN, D)
+    bf16* Vs = Ks + FA_MMA_STAGES * BN * D;        // STAGES x (BN, D)
+
+    allow_dependents();                            // the merge may be scheduled
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;         // mma fragment coordinates
+    const int h = blockIdx.y;
+    const int b = blockIdx.z / p.n_splits, split = blockIdx.z % p.n_splits;
+    const int kvh = h / (p.H / p.KVH);
+    const int q0 = blockIdx.x * BM;
+    int s_lo, s_hi, first, last;
+    attn_split_range(p, q0, split, s_lo, s_hi);
+    attn_used_splits(p, q0, first, last);
+    // a split that sees no key of this tile writes nothing: the merge skips
+    // it. Without splits the block still writes its rows (zeros).
+    if (p.n_splits > 1 && s_lo >= s_hi) return;
+    // the only split of its tile (early causal tiles) writes the output itself
+    const bool direct = last - first <= 1;
+    const int n_tiles = s_hi > s_lo ? (s_hi - s_lo + BN - 1) / BN : 0;
+
+    const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+    const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+    // Q with the first K / V tile in one group, then the next STAGES - 2
+    // tiles; rows past S or T are zeros
+    for (int e = tid; e < BM * CH; e += NT) {
+        const int r = e / CH, c = e % CH;
+        const bool ok = q0 + r < p.S;
+        cp_async16(Qs + swz<D>(r, c), qb + (int64_t)(ok ? q0 + r : 0) * p.q_ss + c * 8, ok);
     }
-    const long long blocks64 = (long long)((p.S + 63) / 64) * p.H * B;
-    if (blocks64 >= n_sm) return launch_attn<TQ, TK, D, 64>(p, B, stream);
-    return launch_attn<TQ, TK, D, 32>(p, B, stream);
+    auto load_kv = [&](int tile) {
+        const int n0 = s_lo + tile * BN;
+        bf16* ks = Ks + (tile % FA_MMA_STAGES) * BN * D;
+        bf16* vs = Vs + (tile % FA_MMA_STAGES) * BN * D;
+        for (int e = tid; e < BN * CH; e += NT) {
+            const int r = e / CH, c = e % CH;
+            const bool ok = n0 + r < p.T;
+            const int64_t row = ok ? n0 + r : 0;
+            cp_async16(ks + swz<D>(r, c), kb + row * p.k_st + c * 8, ok);
+            cp_async16(vs + swz<D>(r, c), vb + row * p.v_st + c * 8, ok);
+        }
+    };
+#pragma unroll
+    for (int st = 0; st < FA_MMA_STAGES - 1; ++st) {
+        if (st < n_tiles) load_kv(st);
+        cp_async_commit();
+    }
+    cp_async_wait<FA_MMA_STAGES - 2>();            // Q has landed
+    __syncthreads();
+
+    // this warp's 16 query rows as A fragments, for the whole key loop
+    const int row0 = warp * 16;
+    uint32_t qf[KSTEPS][4];
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks)
+        ldsm_x4(qf[ks], Qs + swz<D>(row0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                    2 * ks + (lane >> 4)));
+
+    float m[2] = {RT_NEG_INF, RT_NEG_INF}, l[2] = {0.f, 0.f};
+    float acc[DTILES][4];
+#pragma unroll
+    for (int dt = 0; dt < DTILES; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+    const float scale2 = p.scale * FA_LOG2E;       // m in the exp2 domain
+    const int q_pos0 = q0 + row0 + g + p.q_offset; // the rows of this lane: +0, +8
+    // ldmatrix lanes: K as B (matrices: keys +0 / +8 x chunks +0 / +1),
+    // V transposed as B (keys +0 / +8 x chunks +0 / +1)
+    const int k_row = (lane & 7) + (lane >> 4) * 8, k_chunk = (lane >> 3) & 1;
+    const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_chunk = lane >> 4;
+
+    for (int i = 0; i < n_tiles; ++i) {
+        cp_async_wait<FA_MMA_STAGES - 2>();        // tile i has landed ...
+        __syncthreads();                           // ... for all; tile i - 1 is consumed
+        if (i + FA_MMA_STAGES - 1 < n_tiles) load_kv(i + FA_MMA_STAGES - 1);
+        cp_async_commit();
+        const int n0 = s_lo + i * BN;
+        const bf16* ks = Ks + (i % FA_MMA_STAGES) * BN * D;
+        const bf16* vs = Vs + (i % FA_MMA_STAGES) * BN * D;
+
+        float s[NTILES][4];
+#pragma unroll
+        for (int nt = 0; nt < NTILES; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+            for (int nt = 0; nt < NTILES; nt += 2) {
+                uint32_t kf[4];
+                ldsm_x4(kf, ks + swz<D>(nt * 8 + k_row, 2 * kk + k_chunk));
+                mma_bf16_16816(s[nt], qf[kk], kf[0], kf[1]);
+                mma_bf16_16816(s[nt + 1], qf[kk], kf[2], kf[3]);
+            }
+
+        // the mask, on tiles that straddle the band or the end of the keys
+        const bool edge = n0 + BN > p.T
+            || (p.kind != RT_BIDIRECTIONAL && n0 + BN - 1 > q0 + p.q_offset)
+            || (p.kind == RT_LOCAL && n0 <= q0 + BM - 1 + p.q_offset - p.window);
+        if (edge) {
+#pragma unroll
+            for (int nt = 0; nt < NTILES; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int col = n0 + nt * 8 + 2 * t + (e & 1);
+                    const int q_pos = q_pos0 + (e >> 1) * 8;
+                    bool ok = col < p.T;
+                    if (p.kind != RT_BIDIRECTIONAL) ok = ok && col <= q_pos;
+                    if (p.kind == RT_LOCAL) ok = ok && col > q_pos - p.window;
+                    if (!ok) s[nt][e] = -INFINITY;   // weighs exactly 0
+                }
+        }
+
+        // online softmax of rows g (r = 0) and g + 8 (r = 1); the four
+        // lanes of a quad hold a row's 64 scores. The scale (> 0) commutes
+        // with the maximum, so it is applied inside the exponent's FFMA
+        // (which is why a masked score is -inf and not a large finite
+        // number: the FFMA's exact product of one would not cancel m).
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float mx = RT_NEG_INF;
+#pragma unroll
+            for (int nt = 0; nt < NTILES; ++nt)
+                mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m[r], mx * scale2);
+            const float alpha = fast_exp2(m[r] - m_new);
+            float rs = 0.f;
+#pragma unroll
+            for (int nt = 0; nt < NTILES; ++nt)
+#pragma unroll
+                for (int e = 2 * r; e < 2 * r + 2; ++e) {
+                    s[nt][e] = fast_exp2(fmaf(s[nt][e], scale2, -m_new));
+                    rs += s[nt][e];
+                }
+            l[r] = l[r] * alpha + rs;              // this lane's part; the quad sums at the end
+            m[r] = m_new;
+#pragma unroll
+            for (int dt = 0; dt < DTILES; ++dt) {
+                acc[dt][2 * r] *= alpha;
+                acc[dt][2 * r + 1] *= alpha;
+            }
+        }
+
+        // O += P V: the score tiles 2j, 2j + 1 are the A fragment of k-step j
+#pragma unroll
+        for (int j = 0; j < BN / 16; ++j) {
+            uint32_t pa[4];
+            pa[0] = pack_bf16x2(s[2 * j][0], s[2 * j][1]);
+            pa[1] = pack_bf16x2(s[2 * j][2], s[2 * j][3]);
+            pa[2] = pack_bf16x2(s[2 * j + 1][0], s[2 * j + 1][1]);
+            pa[3] = pack_bf16x2(s[2 * j + 1][2], s[2 * j + 1][3]);
+#pragma unroll
+            for (int dt = 0; dt < DTILES; dt += 2) {
+                uint32_t vf[4];
+                ldsm_x4_trans(vf, vs + swz<D>(16 * j + v_row, dt + v_chunk));
+                mma_bf16_16816(acc[dt], pa, vf[0], vf[1]);
+                mma_bf16_16816(acc[dt + 1], pa, vf[2], vf[3]);
+            }
+        }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    if (direct) {
+        bf16* ob = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = q0 + row0 + g + 8 * r;
+            if (row >= p.S) continue;
+            const float inv = 1.f / fmaxf(l[r], 1e-30f);
+            bf16* orow = ob + (int64_t)row * p.o_ss + 2 * t;
+#pragma unroll
+            for (int dt = 0; dt < DTILES; ++dt)
+                *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
+                    __floats2bfloat162_rn(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+        }
+        return;
+    }
+    // a split's partial (m in the exp2 domain, l, acc), rows below S
+    const int s_pad = gridDim.x * BM;              // S rounded up to BM
+    const int64_t base = (((int64_t)b * p.H + h) * p.n_splits + split) * s_pad;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = q0 + row0 + g + 8 * r;
+        if (row >= p.S) continue;
+        if (t == 0) {
+            p.part_m[base + row] = m[r];
+            p.part_l[base + row] = l[r];
+        }
+        float* arow = p.part_acc + (base + row) * D + 2 * t;
+#pragma unroll
+        for (int dt = 0; dt < DTILES; ++dt)
+            *reinterpret_cast<float2*>(arow + dt * 8) = make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
+    }
+}
+
+// Merge the splits of each query row: out = sum_s w_s acc_s / max(sum_s w_s
+// l_s, 1e-30), w_s = 2^(m_s - max_s m_s), over the splits that saw a key of
+// the row's tile (the partial kernel's own test), rounded through bf16; a
+// tile with a single such split was written by it. One thread per (row, 4
+// columns), each split's loads issued before any is used.
+template <int D>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_attention_merge_kernel(const AttnParams p) {
+    constexpr int TPR = D / 4;                     // threads a row
+    constexpr int RPB = FA_THREADS / TPR;          // rows a block
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int row = blockIdx.x * RPB + threadIdx.x / TPR;
+    const int d = (threadIdx.x % TPR) * 4;
+    if (row >= p.S) return;
+    int first, last;
+    attn_used_splits(p, (row / FA_MMA_BM) * FA_MMA_BM, first, last);
+    if (last - first == 1) return;                 // written by its only split
+    wait_for_prerequisite();                       // the partials are written
+    const int s_pad = (p.S + FA_MMA_BM - 1) / FA_MMA_BM * FA_MMA_BM;
+    const int64_t base = ((int64_t)b * p.H + h) * p.n_splits * s_pad + row;
+    float ms[FA_MAX_SPLITS], ls[FA_MAX_SPLITS];
+    float4 as[FA_MAX_SPLITS];
+#pragma unroll
+    for (int j = 0; j < FA_MAX_SPLITS; ++j) {
+        const int sp = first + j;
+        if (sp < last) {
+            const int64_t i = base + (int64_t)sp * s_pad;
+            ms[j] = p.part_m[i];
+            ls[j] = p.part_l[i];
+            as[j] = *reinterpret_cast<const float4*>(p.part_acc + i * D + d);
+        } else {
+            ms[j] = RT_NEG_INF;
+            ls[j] = 0.f;
+            as[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+    }
+    float m = RT_NEG_INF;
+#pragma unroll
+    for (int j = 0; j < FA_MAX_SPLITS; ++j) m = fmaxf(m, ms[j]);
+    float l = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < FA_MAX_SPLITS; ++j) {
+        const float w = first + j < last ? exp2f(ms[j] - m) : 0.f;
+        l += w * ls[j];
+        a[0] += w * as[j].x; a[1] += w * as[j].y; a[2] += w * as[j].z; a[3] += w * as[j].w;
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    bf16* orow = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh + (int64_t)row * p.o_ss + d;
+    *reinterpret_cast<__nv_bfloat162*>(orow) = __floats2bfloat162_rn(a[0] * inv, a[1] * inv);
+    *reinterpret_cast<__nv_bfloat162*>(orow + 2) = __floats2bfloat162_rn(a[2] * inv, a[3] * inv);
+}
+
+template <int D>
+static int launch_attn_mma(const AttnParams& p, int B, cudaStream_t stream) {
+    constexpr int smem = attn_mma_smem_bytes<D>();
+    static_assert(D % 4 == 0 && FA_THREADS % (D / 4) == 0, "merge rows");
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int q_tiles = (p.S + FA_MMA_BM - 1) / FA_MMA_BM;
+    flash_attention_mma_kernel<D><<<dim3(q_tiles, p.H, B * p.n_splits), FA_THREADS, smem,
+                                    stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || p.n_splits == 1) return (int)err;
+    constexpr int rows = FA_THREADS / (D / 4);
+    err = launch_after(flash_attention_merge_kernel<D>, dim3((p.S + rows - 1) / rows, p.H, B),
+                       dim3(FA_THREADS), stream, p);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TK>
-static int dispatch_attn(const AttnParams& p, int B, int D, cudaStream_t stream) {
+static int dispatch_fma(const AttnParams& p, int B, int D, int bm, cudaStream_t stream) {
+    const bool wide = bm == 64;
     switch (D) {
-        case 16: return launch_attn_bm<TQ, TK, 16>(p, B, stream);
-        case 32: return launch_attn_bm<TQ, TK, 32>(p, B, stream);
-        case 64: return launch_attn_bm<TQ, TK, 64>(p, B, stream);
-        case 128: return launch_attn_bm<TQ, TK, 128>(p, B, stream);
+        case 16: return wide ? launch_attn<TQ, TK, 16, 64>(p, B, stream) : launch_attn<TQ, TK, 16, 32>(p, B, stream);
+        case 32: return wide ? launch_attn<TQ, TK, 32, 64>(p, B, stream) : launch_attn<TQ, TK, 32, 32>(p, B, stream);
+        case 64: return wide ? launch_attn<TQ, TK, 64, 64>(p, B, stream) : launch_attn<TQ, TK, 64, 32>(p, B, stream);
+        case 128: return wide ? launch_attn<TQ, TK, 128, 64>(p, B, stream) : launch_attn<TQ, TK, 128, 32>(p, B, stream);
+        default: return -1;
+    }
+}
+
+static int dispatch_mma(const AttnParams& p, int B, int D, cudaStream_t stream) {
+    switch (D) {
+        case 16: return launch_attn_mma<16>(p, B, stream);
+        case 32: return launch_attn_mma<32>(p, B, stream);
+        case 64: return launch_attn_mma<64>(p, B, stream);
+        case 128: return launch_attn_mma<128>(p, B, stream);
         default: return -1;
     }
 }
@@ -224,31 +595,50 @@ static int dispatch_attn(const AttnParams& p, int B, int D, cudaStream_t stream)
 // q, o: (B, S, H, D) of type q_dtype; k, v: (B, T, KVH, D) of type kv_dtype
 // (the same, or a bf16 cache under f32 queries); strides in elements, unit
 // stride along D, every row 16-byte aligned. kind: RT_CAUSAL, RT_LOCAL
-// (with window) or RT_BIDIRECTIONAL. Returns cudaGetLastError(), or -1 for
-// a shape the kernel does not take.
+// (with window) or RT_BIDIRECTIONAL. The plan (kernels/flash_attention.py:
+// split_plan): bf16 runs the tensor-core body with query tiles of bm = 64
+// and the keys cut into n_splits pieces of `chunk` keys (a multiple of 64;
+// with 1 < n_splits <= 4, part_m / part_l (B, H, n_splits, S_pad) and part_acc
+// (B, H, n_splits, S_pad, D), S_pad = S rounded up to 64, are f32 scratch
+// the caller allocates); f32 queries run the FMA body with bm = 32 or 64
+// and no split. Returns cudaGetLastError(), or -1 for a shape or plan the
+// kernels do not take.
 extern "C" int rt_flash_attention(
         const void* q, const void* k, const void* v, void* o,
+        void* part_m, void* part_l, void* part_acc,
         int B, int S, int T, int H, int KVH, int D,
         long long q_sb, long long q_ss, long long q_sh,
         long long k_sb, long long k_st, long long k_sh,
         long long v_sb, long long v_st, long long v_sh,
         long long o_sb, long long o_ss, long long o_sh,
         int kind, int window, int q_offset, int q_dtype, int kv_dtype,
-        void* stream) {
+        int bm, int chunk, int n_splits, void* stream) {
     if (KVH <= 0 || H % KVH != 0) return -1;
     if (kind != RT_CAUSAL && kind != RT_LOCAL && kind != RT_BIDIRECTIONAL) return -1;
     AttnParams p;
     p.q = q; p.k = k; p.v = v; p.o = o;
+    p.part_m = static_cast<float*>(part_m);
+    p.part_l = static_cast<float*>(part_l);
+    p.part_acc = static_cast<float*>(part_acc);
     p.S = S; p.T = T; p.H = H; p.KVH = KVH;
     p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
     p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
     p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
     p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
     p.kind = kind; p.window = window; p.q_offset = q_offset;
+    p.chunk = chunk; p.n_splits = n_splits;
     p.scale = 1.0f / sqrtf((float)D);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (q_dtype == RT_F32 && kv_dtype == RT_F32) return dispatch_attn<float, float>(p, B, D, s);
-    if (q_dtype == RT_BF16 && kv_dtype == RT_BF16) return dispatch_attn<bf16, bf16>(p, B, D, s);
-    if (q_dtype == RT_F32 && kv_dtype == RT_BF16) return dispatch_attn<float, bf16>(p, B, D, s);
+    if (q_dtype == RT_BF16 && kv_dtype == RT_BF16) {
+        if (bm != FA_MMA_BM || n_splits < 1 || n_splits > FA_MAX_SPLITS
+            || chunk <= 0 || chunk % FA_BN != 0
+            || (long long)chunk * n_splits < T
+            || (n_splits > 1 && (part_m == nullptr || part_l == nullptr || part_acc == nullptr)))
+            return -1;
+        return dispatch_mma(p, B, D, s);
+    }
+    if (n_splits != 1 || (bm != 32 && bm != 64)) return -1;
+    if (q_dtype == RT_F32 && kv_dtype == RT_F32) return dispatch_fma<float, float>(p, B, D, bm, s);
+    if (q_dtype == RT_F32 && kv_dtype == RT_BF16) return dispatch_fma<float, bf16>(p, B, D, bm, s);
     return -1;
 }

@@ -4,143 +4,302 @@
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py
 // (flash_decode_bkgd). Bound by bytes: each valid key and value row of the
-// cache is read once; the operations per byte are far below the card's
-// ratio. The TPU version walks the keys as a sequential grid axis with the
-// running (m, l, acc) in scratch memory. Here that walk is a loop inside a
-// block, and because batch x KV heads alone would leave most of the 132 SMs
-// idle, the keys are split over blocks (grid x = split) and a second small
-// kernel merges the partial (m, l, acc) of the splits. Keys at or beyond
-// kv_len[b] are never read. The cache is read in the model's own layout
-// (B, T, KVH, D) through strides: no transpose, no copy.
+// cache is read once (20 MB at the serving path's mix, 6 µs at 3.35 TB/s),
+// and the operations per byte are far below the card's ratio. So the
+// design is about keeping device memory busy; what is left above the bound
+// is the partial kernel's ramp and tail and the second launch:
+//
+// * Splits. The TPU version walks the keys as a sequential grid axis with
+//   the running (m, l, acc) in scratch memory. Here the keys are cut into
+//   splits of about 128 (kernels/decode_attention.py:split_plan), one block
+//   each over grid (split, KV head, batch), so that the longest serial walk
+//   is short and a small batch still fills the SMs; a split past kv_len[b]
+//   exits at once, and a second small kernel merges the partial (m, l, acc)
+//   of the splits that saw a key. The merge is launched as a programmatic
+//   dependent of the partial kernel, so its launch overlaps the partial
+//   kernel's tail; each of its threads issues every split's loads at once.
+// * Loads in flight. K and V tiles are staged in shared memory in the
+//   cache's own type (bf16 on the path: half the bytes of f32 staging) by
+//   cp.async 16-byte copies into a ring of DEC_STAGES stages: three tiles
+//   are in flight while one is computed, and a 128-key split of a bf16
+//   cache (64 KB) is requested at once. One barrier a tile.
+// * Scores. A key row is held by LPR = D / VPL neighbouring lanes, each
+//   with VPL values of d and the matching slice of the G queries in
+//   registers; a row's dot product is reduced over those lanes by shuffles.
+//   Each group of LPR lanes (a "slot") keeps its own running (m, l, acc)
+//   over the rows it sees, so the key loop needs no shared state at all;
+//   the slots are merged once at the end, by shuffles within a warp and
+//   through shared memory across the four warps.
+//
+// Keys at or beyond kv_len[b] are never read (cp.async writes zeros) and
+// never weigh. kv_len is int32 or int64, as the caller has it. The cache is
+// read in the model's own layout (B, T, KVH, D) through strides: no
+// transpose, no copy. Scores are in the exp2 domain (q prescaled by
+// scale * log2 e); the weights pass through the values' type before the
+// weighted sum, as the reference's cast does.
 #include "common.cuh"
 
 constexpr int DEC_THREADS = 128;
-constexpr int DEC_BN = 64;       // keys per shared-memory tile
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_STAGES = 4;    // K / V tiles in the cp.async ring
 constexpr int DEC_MAXG = 16;     // most query heads per KV head
+constexpr float DEC_LOG2E = 1.4426950408889634f;
 
 struct DecodeParams {
     const void* q;               // (B, H, D)
     const void* k;               // (B, T, KVH, D)
     const void* v;
-    const int* kv_len;           // (B,)
+    const void* kv_len;          // (B,) int32 or int64
+    int len_is_64;
     void* o;                     // (B, H, D)
-    float* part_m;               // (B, KVH, n_splits, G)
+    float* part_m;               // (B, KVH, n_splits, G), exp2 domain
     float* part_l;               // (B, KVH, n_splits, G)
     float* part_acc;             // (B, KVH, n_splits, G, D)
     int T, KVH, G, chunk, n_splits;
     int64_t q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh;
-    float scale;
+    float scale_log2;
 };
 
-template <int D>
-constexpr int decode_smem_floats() {
-    return DEC_BN * (D + 1) + DEC_BN * D + DEC_MAXG * D + DEC_MAXG * DEC_BN
-           + 3 * DEC_MAXG;
+__device__ __forceinline__ int seq_len(const DecodeParams& p, int b) {
+    const long long n = p.len_is_64 ? static_cast<const long long*>(p.kv_len)[b]
+                                    : (long long)static_cast<const int*>(p.kv_len)[b];
+    return (int)max(0LL, min(n, (long long)p.T));
 }
 
-template <typename TQ, typename TK, int D>
+// VPL values of T at p (16 or 8 bytes, aligned), widened to float
+template <int VPL>
+__device__ __forceinline__ void load_vals(const bf16* p, float* out) {
+    if constexpr (VPL == 8) {
+        load16(p, out);
+    } else {
+        static_assert(VPL == 4, "4 or 8 values a lane");
+        const uint2 v = *reinterpret_cast<const uint2*>(p);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+        const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+        out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+    }
+}
+template <int VPL>
+__device__ __forceinline__ void load_vals(const float* p, float* out) {
+#pragma unroll
+    for (int i = 0; i < VPL; i += 4) load16(p + i, out + i);
+}
+
+// The work of one lane, from the head dim, the padded group size GT (2, 8
+// or 16 query heads) and the cache's type.
+template <typename TK, int D, int GT>
+struct DecShape {
+    static constexpr int VPL = GT <= 8 ? 8 : 4;            // values of d a lane
+    static constexpr int LPR = D / VPL;                     // lanes a key row
+    static constexpr int NSLOT = DEC_THREADS / LPR;         // rows read at once
+    static constexpr int BN = NSLOT > 32 ? NSLOT : 32;      // keys a stage
+    static constexpr int KPS = BN / NSLOT;                  // rows of a slot a stage
+    static constexpr int KB = KPS < 32 / GT ? KPS : (32 / GT > 0 ? 32 / GT : 1);  // rows a batch
+    static constexpr int EPC = 16 / (int)sizeof(TK);        // elements a 16-byte copy
+    static constexpr int CPR = D / EPC;                     // copies a row
+    static constexpr int RING = DEC_STAGES * 2 * BN * D * (int)sizeof(TK);
+    static constexpr int COMBINE = (2 * DEC_WARPS * GT + DEC_WARPS * GT * D) * (int)sizeof(float);
+    static constexpr int SMEM = RING > COMBINE ? RING : COMBINE;
+    static_assert(LPR >= 1 && LPR <= 32 && KPS * NSLOT == BN && KPS % KB == 0, "shape");
+};
+
+template <typename TQ, typename TK, int D, int GT>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_partial_kernel(const DecodeParams p) {
-    constexpr int NT = DEC_THREADS, BN = DEC_BN, LDK = D + 1;
-    constexpr int GSTEP = NT / D;                  // head groups served at once
-    constexpr int NACC = DEC_MAXG * D / NT;        // accumulators per thread
-    static_assert(NT % D == 0 && NACC >= 1, "unsupported head_dim");
+    using Sh = DecShape<TK, D, GT>;
+    constexpr int VPL = Sh::VPL, LPR = Sh::LPR, NSLOT = Sh::NSLOT, BN = Sh::BN;
+    constexpr int KPS = Sh::KPS, KB = Sh::KB, EPC = Sh::EPC, CPR = Sh::CPR;
 
-    extern __shared__ float smem[];
-    float* Ks = smem;                              // (BN, D + 1)
-    float* Vs = Ks + BN * LDK;                     // (BN, D)
-    float* Qs = Vs + BN * D;                       // (MAXG, D)
-    float* Ss = Qs + DEC_MAXG * D;                 // (MAXG, BN)
-    float* m_s = Ss + DEC_MAXG * BN;
-    float* l_s = m_s + DEC_MAXG;
-    float* alpha_s = l_s + DEC_MAXG;
+    extern __shared__ __align__(16) unsigned char dec_smem[];
+    TK* ring = reinterpret_cast<TK*>(dec_smem);     // STAGES x (K (BN, D), V (BN, D))
 
+    allow_dependents();                             // the merge may be scheduled
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int slot = tid / LPR, part = tid % LPR;   // row of a stage, slice of d
     const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
     const int G = p.G;
-    const int len = min(p.kv_len[b], p.T);
+    const int len = seq_len(p, b);
     const int t0 = split * p.chunk;
+    if (t0 >= len) return;                          // the merge does not read it
     const int t1 = min(t0 + p.chunk, len);
+    const int n_tiles = (t1 - t0 + BN - 1) / BN;
 
-    const TQ* qb = static_cast<const TQ*>(p.q) + b * p.q_sb + (int64_t)kvh * G * p.q_sh;
     const TK* kb = static_cast<const TK*>(p.k) + b * p.k_sb + kvh * p.k_sh;
     const TK* vb = static_cast<const TK*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-    for (int e = tid; e < G * D; e += NT)
-        Qs[e] = to_f32(qb[(e / D) * p.q_sh + (e % D)]);
-    if (tid < G) { m_s[tid] = RT_NEG_INF; l_s[tid] = 0.f; }
-
-    const int dcol = tid % D, gg = tid / D;
-    float acc[NACC];
+    auto load_stage = [&](int tile) {
+        TK* ks = ring + (tile % DEC_STAGES) * 2 * BN * D;
+        TK* vs = ks + BN * D;
+        const int n0 = t0 + tile * BN;
+        for (int e = tid; e < BN * CPR; e += DEC_THREADS) {
+            const int r = e / CPR, c = e % CPR;
+            const bool ok = n0 + r < t1;
+            const int64_t row = ok ? n0 + r : t0;
+            cp_async16(ks + r * D + c * EPC, kb + row * p.k_st + c * EPC, ok);
+            cp_async16(vs + r * D + c * EPC, vb + row * p.v_st + c * EPC, ok);
+        }
+    };
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+    for (int s = 0; s < DEC_STAGES - 1; ++s) {
+        if (s < n_tiles) load_stage(s);
+        cp_async_commit();
+    }
+
+    // the G queries' slice of d, prescaled into the exp2 domain; padded
+    // heads (g >= G) are zeros and never written
+    const TQ* qb = static_cast<const TQ*>(p.q) + b * p.q_sb + (int64_t)kvh * G * p.q_sh;
+    float qr[GT][VPL];
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+        if (g < G) {
+            load_vals<VPL>(qb + g * p.q_sh + part * VPL, qr[g]);
+#pragma unroll
+            for (int i = 0; i < VPL; ++i) qr[g][i] *= p.scale_log2;
+        } else {
+#pragma unroll
+            for (int i = 0; i < VPL; ++i) qr[g][i] = 0.f;
+        }
+    }
+
+    float m[GT], l[GT], acc[GT][VPL];
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+        m[g] = RT_NEG_INF;
+        l[g] = 0.f;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) acc[g][i] = 0.f;
+    }
+
+    for (int it = 0; it < n_tiles; ++it) {
+        cp_async_wait<DEC_STAGES - 2>();            // tile it has landed ...
+        __syncthreads();                            // ... for all; tile it - 1 is consumed
+        if (it + DEC_STAGES - 1 < n_tiles) load_stage(it + DEC_STAGES - 1);
+        cp_async_commit();
+        const TK* ks = ring + (it % DEC_STAGES) * 2 * BN * D;
+        const TK* vs = ks + BN * D;
+        const int n0 = t0 + it * BN;
+#pragma unroll
+        for (int j0 = 0; j0 < KPS; j0 += KB) {
+            float s[KB][GT];
+#pragma unroll
+            for (int j = 0; j < KB; ++j) {
+                float kv[VPL];
+                load_vals<VPL>(ks + (slot + (j0 + j) * NSLOT) * D + part * VPL, kv);
+#pragma unroll
+                for (int g = 0; g < GT; ++g) {
+                    float a = 0.f;
+#pragma unroll
+                    for (int i = 0; i < VPL; ++i) a += qr[g][i] * kv[i];
+                    s[j][g] = a;
+                }
+            }
+#pragma unroll
+            for (int o = LPR / 2; o > 0; o >>= 1)
+#pragma unroll
+                for (int j = 0; j < KB; ++j)
+#pragma unroll
+                    for (int g = 0; g < GT; ++g)
+                        s[j][g] += __shfl_xor_sync(0xffffffffu, s[j][g], o);
+#pragma unroll
+            for (int j = 0; j < KB; ++j)
+                if (n0 + slot + (j0 + j) * NSLOT >= t1)
+#pragma unroll
+                    for (int g = 0; g < GT; ++g) s[j][g] = -INFINITY;   // weighs nothing
+#pragma unroll
+            for (int g = 0; g < GT; ++g) {
+                float mx = s[0][g];
+#pragma unroll
+                for (int j = 1; j < KB; ++j) mx = fmaxf(mx, s[j][g]);
+                const float m_new = fmaxf(m[g], mx);
+                const float alpha = exp2f(m[g] - m_new);
+                m[g] = m_new;
+                l[g] *= alpha;
+#pragma unroll
+                for (int i = 0; i < VPL; ++i) acc[g][i] *= alpha;
+#pragma unroll
+                for (int j = 0; j < KB; ++j) {
+                    const float pr = exp2f(s[j][g] - m_new);
+                    l[g] += pr;
+                    s[j][g] = round_through<TK>(pr);
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < KB; ++j) {
+                float vv[VPL];
+                load_vals<VPL>(vs + (slot + (j0 + j) * NSLOT) * D + part * VPL, vv);
+#pragma unroll
+                for (int g = 0; g < GT; ++g)
+#pragma unroll
+                    for (int i = 0; i < VPL; ++i) acc[g][i] += s[j][g] * vv[i];
+            }
+        }
+    }
+
+    // merge the slots of a warp: lanes part, part + LPR, ... hold one slice
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1)
+#pragma unroll
+        for (int g = 0; g < GT; ++g) {
+            const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+            const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
+            const float m_new = fmaxf(m[g], mo);
+            const float wa = exp2f(m[g] - m_new), wb = exp2f(mo - m_new);
+            m[g] = m_new;
+            l[g] = l[g] * wa + lo * wb;
+#pragma unroll
+            for (int i = 0; i < VPL; ++i)
+                acc[g][i] = acc[g][i] * wa + __shfl_xor_sync(0xffffffffu, acc[g][i], o) * wb;
+        }
+
+    // ... and the four warps through shared memory, over the ring
+    cp_async_wait<0>();
     __syncthreads();
-
-    for (int n0 = t0; n0 < t1; n0 += BN) {
-        load_tile<TK, D, BN, NT>(Ks, LDK, kb, p.k_st, n0, t1);
-        load_tile<TK, D, BN, NT>(Vs, D, vb, p.v_st, n0, t1);
-        __syncthreads();
-
-        // scores of this tile: one (head, key) pair per thread and pass
-        for (int e = tid; e < G * BN; e += NT) {
-            const int g = e / BN, n = e % BN;
-            float s = 0.f;
-#pragma unroll 8
-            for (int d = 0; d < D; ++d) s += Qs[g * D + d] * Ks[n * LDK + d];
-            Ss[e] = (n0 + n < t1) ? s * p.scale : RT_NEG_INF;
-        }
-        __syncthreads();
-
-        // online softmax: one warp per head, two keys per lane
-        for (int g = warp; g < G; g += NT / 32) {
-            const float s0 = Ss[g * BN + lane], s1 = Ss[g * BN + lane + 32];
-            const float m_prev = m_s[g];
-            const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-            const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-            const float psum = warp_sum(p0 + p1);
-            Ss[g * BN + lane] = round_through<TK>(p0);
-            Ss[g * BN + lane + 32] = round_through<TK>(p1);
-            __syncwarp();
+    float* cm = reinterpret_cast<float*>(dec_smem);  // (WARPS, GT)
+    float* cl = cm + DEC_WARPS * GT;                  // (WARPS, GT)
+    float* ca = cl + DEC_WARPS * GT;                  // (WARPS, GT, D)
+    if (lane < LPR) {
+#pragma unroll
+        for (int g = 0; g < GT; ++g) {
             if (lane == 0) {
-                const float alpha = expf(m_prev - m_new);
-                alpha_s[g] = alpha;
-                l_s[g] = l_s[g] * alpha + psum;
-                m_s[g] = m_new;
+                cm[warp * GT + g] = m[g];
+                cl[warp * GT + g] = l[g];
             }
-        }
-        __syncthreads();
-
-        // weighted sum of the values: one (head, column) pair per accumulator
 #pragma unroll
-        for (int i = 0; i < NACC; ++i) {
-            const int g = gg + i * GSTEP;
-            if (g < G) {
-                float a = acc[i] * alpha_s[g];
-#pragma unroll 8
-                for (int n = 0; n < BN; ++n) a += Ss[g * BN + n] * Vs[n * D + dcol];
-                acc[i] = a;
-            }
+            for (int i = 0; i < VPL; ++i) ca[(warp * GT + g) * D + part * VPL + i] = acc[g][i];
         }
-        __syncthreads();
     }
-
+    __syncthreads();
     const int64_t pbase = (((int64_t)b * p.KVH + kvh) * p.n_splits + split) * G;
+    for (int e = tid; e < G * D; e += DEC_THREADS) {
+        const int g = e / D, d = e % D;
+        float mm = RT_NEG_INF;
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-        const int g = gg + i * GSTEP;
-        if (g < G) p.part_acc[(pbase + g) * D + dcol] = acc[i];
-    }
-    if (tid < G) {
-        p.part_m[pbase + tid] = m_s[tid];
-        p.part_l[pbase + tid] = l_s[tid];
+        for (int w = 0; w < DEC_WARPS; ++w) mm = fmaxf(mm, cm[w * GT + g]);
+        float ll = 0.f, aa = 0.f;
+#pragma unroll
+        for (int w = 0; w < DEC_WARPS; ++w) {
+            const float wt = exp2f(cm[w * GT + g] - mm);
+            ll += wt * cl[w * GT + g];
+            aa += wt * ca[(w * GT + g) * D + d];
+        }
+        p.part_acc[(pbase + g) * D + d] = aa;
+        if (d == 0) {
+            p.part_m[pbase + g] = mm;
+            p.part_l[pbase + g] = ll;
+        }
     }
 }
 
 // Merge the splits: out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30) with
-// w_s = exp(m_s - max_s m_s). A split that saw no valid key has m = -1e30
-// and l = 0, so it drops out whenever another split saw one. The result
+// w_s = 2^(m_s - max_s m_s), over the splits that saw a key (those below
+// kv_len[b]). A split whose keys all lie past kv_len was never written
+// and drops out as m = -1e30, l = 0 would. One thread per (head, 4
+// columns); the splits are read sixteen at a time, all sixteen loads issued
+// before any is used (and before kv_len is known), and folded in with a
+// running maximum. The result
 // passes through the values' type before it is stored in the queries' type,
 // as the reference's product of value-typed weights and values does.
+constexpr int DEC_MERGE_BATCH = 16;
+
 template <typename TQ, typename TK, int D>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_merge_kernel(const DecodeParams p) {
@@ -148,50 +307,94 @@ decode_merge_kernel(const DecodeParams p) {
     const int G = p.G;
     const int64_t base = ((int64_t)b * p.KVH + kvh) * p.n_splits * G;
     TQ* ob = static_cast<TQ*>(p.o) + b * p.o_sb + (int64_t)kvh * G * p.o_sh;
-    for (int e = threadIdx.x; e < G * D; e += DEC_THREADS) {
-        const int g = e / D, d = e % D;
-        float m = RT_NEG_INF;
-        for (int s = 0; s < p.n_splits; ++s) m = fmaxf(m, p.part_m[base + s * G + g]);
-        float l = 0.f, a = 0.f;
-        for (int s = 0; s < p.n_splits; ++s) {
-            const float w = expf(p.part_m[base + s * G + g] - m);
-            l += w * p.part_l[base + s * G + g];
-            a += w * p.part_acc[(base + s * G + g) * D + d];
+    const int len = seq_len(p, b);
+    wait_for_prerequisite();                        // the partials are written
+    for (int e = threadIdx.x; e < G * D / 4; e += DEC_THREADS) {
+        const int g = e / (D / 4), d = (e % (D / 4)) * 4;
+        float m = RT_NEG_INF, l = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int s0 = 0; s0 < p.n_splits; s0 += DEC_MERGE_BATCH) {
+            // the loads do not wait for kv_len: a split it rules out (never
+            // written) is dropped after its load
+            float ms[DEC_MERGE_BATCH], ls[DEC_MERGE_BATCH];
+            float4 as[DEC_MERGE_BATCH];
+#pragma unroll
+            for (int j = 0; j < DEC_MERGE_BATCH; ++j) {
+                const int64_t i = base + (int64_t)(s0 + j) * G + g;
+                if (s0 + j < p.n_splits) {
+                    ms[j] = p.part_m[i];
+                    ls[j] = p.part_l[i];
+                    as[j] = *reinterpret_cast<const float4*>(p.part_acc + i * D + d);
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < DEC_MERGE_BATCH; ++j)
+                if (s0 + j >= p.n_splits || (s0 + j) * p.chunk >= len) {
+                    ms[j] = RT_NEG_INF;
+                    ls[j] = 0.f;
+                    as[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+                }
+            float mb = m;
+#pragma unroll
+            for (int j = 0; j < DEC_MERGE_BATCH; ++j) mb = fmaxf(mb, ms[j]);
+            const float alpha = exp2f(m - mb);
+            l *= alpha;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) a[c] *= alpha;
+#pragma unroll
+            for (int j = 0; j < DEC_MERGE_BATCH; ++j) {
+                const float w = exp2f(ms[j] - mb);
+                l += w * ls[j];
+                a[0] += w * as[j].x; a[1] += w * as[j].y; a[2] += w * as[j].z; a[3] += w * as[j].w;
+            }
+            m = mb;
         }
-        from_f32(round_through<TK>(a / fmaxf(l, 1e-30f)), ob + g * p.o_sh + d);
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+            from_f32(round_through<TK>(a[c] * inv), ob + g * p.o_sh + d + c);
     }
 }
 
-template <typename TQ, typename TK, int D>
+template <typename TQ, typename TK, int D, int GT>
 static int launch_decode(const DecodeParams& p, int B, cudaStream_t stream) {
-    constexpr int smem = decode_smem_floats<D>() * (int)sizeof(float);
+    constexpr int smem = DecShape<TK, D, GT>::SMEM;
     cudaError_t err = cudaFuncSetAttribute(
-        decode_partial_kernel<TQ, TK, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        decode_partial_kernel<TQ, TK, D, GT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    decode_partial_kernel<TQ, TK, D><<<dim3(p.n_splits, p.KVH, B), DEC_THREADS, smem, stream>>>(p);
+    decode_partial_kernel<TQ, TK, D, GT><<<dim3(p.n_splits, p.KVH, B), DEC_THREADS, smem, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    decode_merge_kernel<TQ, TK, D><<<dim3(p.KVH, B), DEC_THREADS, 0, stream>>>(p);
+    err = launch_after(decode_merge_kernel<TQ, TK, D>, dim3(p.KVH, B), dim3(DEC_THREADS),
+                       stream, p);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+template <typename TQ, typename TK, int D>
+static int dispatch_group(const DecodeParams& p, int B, cudaStream_t stream) {
+    if (p.G <= 2) return launch_decode<TQ, TK, D, 2>(p, B, stream);
+    if (p.G <= 8) return launch_decode<TQ, TK, D, 8>(p, B, stream);
+    return launch_decode<TQ, TK, D, 16>(p, B, stream);
 }
 
 template <typename TQ, typename TK>
 static int dispatch_decode(const DecodeParams& p, int B, int D, cudaStream_t stream) {
     switch (D) {
-        case 16: return launch_decode<TQ, TK, 16>(p, B, stream);
-        case 32: return launch_decode<TQ, TK, 32>(p, B, stream);
-        case 64: return launch_decode<TQ, TK, 64>(p, B, stream);
-        case 128: return launch_decode<TQ, TK, 128>(p, B, stream);
+        case 16: return dispatch_group<TQ, TK, 16>(p, B, stream);
+        case 32: return dispatch_group<TQ, TK, 32>(p, B, stream);
+        case 64: return dispatch_group<TQ, TK, 64>(p, B, stream);
+        case 128: return dispatch_group<TQ, TK, 128>(p, B, stream);
         default: return -1;
     }
 }
 
 // q, o: (B, H, D) of type q_dtype; k, v: (B, T, KVH, D) of type kv_dtype (the
 // same, or a bf16 cache under f32 queries); strides in elements, unit stride
-// along D, every k and v row 16-byte aligned. kv_len: (B,) int32 on the device.
-// The keys are cut into n_splits pieces of `chunk` keys; part_* are scratch
-// the caller allocates. Returns cudaGetLastError(), or -1 for a shape the
-// kernels do not take.
+// along D, every q, k and v row 16-byte aligned. kv_len: (B,) on the device,
+// int32 (len_is_64 = 0) or int64 (1). The keys are cut into n_splits pieces
+// of `chunk` keys (a multiple of 64); part_* are scratch the caller
+// allocates. Returns cudaGetLastError(), or -1 for a shape the kernels do
+// not take.
 extern "C" int rt_flash_decode(
         const void* q, const void* k, const void* v, const void* kv_len, void* o,
         void* part_m, void* part_l, void* part_acc,
@@ -200,11 +403,12 @@ extern "C" int rt_flash_decode(
         long long k_sb, long long k_st, long long k_sh,
         long long v_sb, long long v_st, long long v_sh,
         long long o_sb, long long o_sh,
-        int q_dtype, int kv_dtype, void* stream) {
+        int q_dtype, int kv_dtype, int len_is_64, void* stream) {
     if (KVH <= 0 || H % KVH != 0 || H / KVH > DEC_MAXG) return -1;
-    if (chunk <= 0 || n_splits <= 0 || (long long)chunk * n_splits < T) return -1;
+    if (chunk <= 0 || chunk % 64 != 0 || n_splits <= 0 || (long long)chunk * n_splits < T)
+        return -1;
     DecodeParams p;
-    p.q = q; p.k = k; p.v = v; p.kv_len = static_cast<const int*>(kv_len); p.o = o;
+    p.q = q; p.k = k; p.v = v; p.kv_len = kv_len; p.len_is_64 = len_is_64 != 0; p.o = o;
     p.part_m = static_cast<float*>(part_m);
     p.part_l = static_cast<float*>(part_l);
     p.part_acc = static_cast<float*>(part_acc);
@@ -213,7 +417,7 @@ extern "C" int rt_flash_decode(
     p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
     p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
     p.o_sb = o_sb; p.o_sh = o_sh;
-    p.scale = 1.0f / sqrtf((float)D);
+    p.scale_log2 = DEC_LOG2E / sqrtf((float)D);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (q_dtype == RT_F32 && kv_dtype == RT_F32) return dispatch_decode<float, float>(p, B, D, s);
     if (q_dtype == RT_BF16 && kv_dtype == RT_BF16) return dispatch_decode<bf16, bf16>(p, B, D, s);

@@ -110,24 +110,6 @@ stress_mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
         out[tile + e] = cs[(e / MXU_T) * MXU_LD_F32 + e % MXU_T];
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8 x 8 bf16 matrices from shared memory, one row address per lane
-// (lanes 8q..8q+7 give the rows of matrix q); register q holds matrix q in
-// the mma fragment layout
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
 __global__ void __launch_bounds__(MXU_THREADS)
 stress_mxu_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
                        bf16* __restrict__ out, int iters) {

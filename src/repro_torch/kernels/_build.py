@@ -34,8 +34,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _D = ctypes.c_double
 _SIGNATURES = {
     "rt_rmsnorm": [_P, _P, _P, _I, _I, _L, _L, _F, _I, _P],
-    "rt_flash_decode": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_I, _I, _P],
-    "rt_flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 5 + [_P],
+    "rt_flash_decode": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_I] * 3 + [_P],
+    "rt_flash_attention": [_P] * 7 + [_I] * 6 + [_L] * 12 + [_I] * 8 + [_P],
     "rt_stress_mxu": [_P, _P, _P, _I, _I, _I, _I, _P],
     "rt_stress_vpu": [_P, _P, _L, _L, _I, _I, _I, _P],
     "rt_stress_hbm": [_P, _P, _L, _I, _I, _P],

@@ -3,11 +3,13 @@ and its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/decode_attention.py``
 (``flash_decode_bkgd``). Bound by the bytes of the valid part of the cache
-on the card. The keys are split over blocks so that a small batch still
-fills the SMs, and a second small kernel merges the partial
-``(m, l, acc)`` of the splits (two passes, always). The cache is read in
-the model's layout ``(B, T, KVH, D)`` through strides: nothing is
-transposed or copied.
+on the card. The keys are split over blocks of about 128 keys each, so
+that the longest serial walk is short and a small batch still fills the
+SMs, and a second small kernel merges the partial ``(m, l, acc)`` of the
+splits (two passes, always); ``merge_partials_plain`` is that merge in
+PyTorch. The cache is read in the model's layout ``(B, T, KVH, D)``
+through strides: nothing is transposed or copied. The lengths are read as
+the caller has them, int32 or int64.
 """
 from __future__ import annotations
 
@@ -20,9 +22,11 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)    # head sizes the kernels are built for
 MAX_GROUP = 16                   # most query heads per KV head (DEC_MAXG)
-_TILE = 64                       # keys per shared-memory tile (DEC_BN)
-_TARGET_BLOCKS = 264             # two blocks for each of the card's 132 SMs
+_TILE = 64                       # a split is whole tiles of every stage size (32, 64)
+_SPLIT_KEYS = 128                # keys a split, the serial work of one block
+_MAX_BLOCKS = 8 * 132            # eight blocks for each of the card's 132 SMs
 _MAX_SPLITS = 32
+LEN_DTYPES = {torch.int32: 0, torch.int64: 1}   # len_is_64 of rt_flash_decode
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,19 +48,36 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def split_plan(T: int, n_pairs: int) -> tuple:
     """(keys per split, number of splits) for a cache of T positions and
-    ``n_pairs`` = batch x KV heads: enough splits to fill the card, whole
-    tiles per split."""
-    want = min(_MAX_SPLITS, max(1, -(-_TARGET_BLOCKS // n_pairs)))
-    per_split = -(-T // want)
+    ``n_pairs`` = batch x KV heads: splits of ``_SPLIT_KEYS`` keys, so that
+    no block walks far, unless the card already holds ``_MAX_BLOCKS``
+    blocks or the splits would pass ``_MAX_SPLITS``: then fewer, longer
+    ones. Whole tiles per split."""
+    want = min(_MAX_SPLITS, -(-T // _SPLIT_KEYS), max(1, _MAX_BLOCKS // max(1, n_pairs)))
+    per_split = -(-T // max(1, want))
     chunk = max(_TILE, -(-per_split // _TILE) * _TILE)
-    return chunk, -(-T // chunk)
+    return chunk, max(1, -(-T // chunk))
+
+
+def merge_partials_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """The merge kernel's function: m, l (..., n_splits) and acc (...,
+    n_splits, D) are each split's running maximum (natural-log domain),
+    sum of weights and weighted sum of values; returns ``sum_s w_s acc_s /
+    max(sum_s w_s l_s, 1e-30)`` with ``w_s = exp(m_s - max_s m_s)``, passed
+    through ``out_dtype`` (the values' type). A split that saw no key has
+    m = -1e30 and l = 0 and drops out."""
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    num = (w[..., None] * acc).sum(dim=-2)
+    den = (w * l).sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return (num / den).to(out_dtype)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_len: torch.Tensor) -> torch.Tensor:
     """q: (B, 1, H, D); k, v: (B, T, KVH, D), possibly strided views of the
-    cache; kv_len: (B,) integer tensor, each >= 1. A tensor on the CPU takes
-    the plain version; a CUDA tensor launches the kernels or raises."""
+    cache; kv_len: (B,) int32 or int64 tensor, each >= 1. A tensor on the
+    CPU takes the plain version; a CUDA tensor launches the kernels or
+    raises."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kv_len)
     if q.device.type != "cuda":
@@ -77,7 +98,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_len.shape != (B,):
         raise ValueError(f"flash_decode: kv_len must be ({B},), got "
                          f"{tuple(kv_len.shape)}")
-    kv_len = kv_len.to(torch.int32).contiguous()
+    if kv_len.dtype not in LEN_DTYPES:
+        raise TypeError(f"flash_decode: kv_len must be int32 or int64, got {kv_len.dtype}")
+    kv_len = kv_len.contiguous()
     q = q.contiguous()
     _build.check_rows_aligned("flash_decode: k", k, *k.stride()[:3])
     _build.check_rows_aligned("flash_decode: v", v, *v.stride()[:3])
@@ -95,7 +118,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), o.stride(0), o.stride(2),
         _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k.dtype],
-        _build.stream_ptr())
+        LEN_DTYPES[kv_len.dtype], _build.stream_ptr())
     _build.check_launch(rc, f"flash_decode q{tuple(q.shape)} k{tuple(k.shape)}")
     flash_decode.launches += 1
     return o

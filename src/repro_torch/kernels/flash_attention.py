@@ -2,12 +2,15 @@
 ``csrc/flash_attention.cu`` and its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
-(``flash_attention_bhsd``). At the serving path's shapes the card's least
-time is set by the bytes of q, k, v and o, with the operations close behind;
-the kernel keeps scores and weights out of device memory. One block per (batch, head, query tile) loops over the KV tiles
-with ``m``, ``l`` and the output tile in registers; q, k, v and o are used
-in the model's layouts through strides, so a slot's slice of the KV cache
-is read in place.
+(``flash_attention_bhsd``). The kernel keeps scores and weights out of
+device memory: one block per (batch, head, query tile) loops over the KV
+tiles with ``m``, ``l`` and the output tile in registers; q, k, v and o are
+used in the model's layouts through strides, so a slot's slice of the KV
+cache is read in place. bf16 runs on the tensor cores (``mma.sync``), f32
+queries on the FP32 pipes (the reference's f32 tolerance is beyond bf16 and
+TF32 products). ``split_plan`` decides from the shapes alone which body
+runs, its query tile, and whether the keys are split over blocks, whose
+partial ``(m, l, acc)`` a second kernel merges as ``flash_decode`` does.
 
 ``q_offset`` is added to the query position in the causal / local mask
 (``k_pos <= q_pos + q_offset``). At 0 this is the reference kernel; at
@@ -16,6 +19,7 @@ is read in place.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,6 +29,39 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)    # head sizes the kernel is built for
 KINDS = {"causal": 0, "local": 1, "bidirectional": 2}   # csrc/common.cuh
+TILE = 64                        # keys a tile (FA_BN), queries a tile of the bf16 body
+MAX_SPLITS = 4                   # most pieces the keys of a query tile are split into
+N_SM = 132                       # the H100's SMs: what a plan has to fill
+
+
+def split_plan(B: int, S: int, H: int, T: int, q_dtype: torch.dtype,
+               n_sm: int = N_SM, kv_splits: int = 0) -> dict:
+    """Which body runs and on what grid, from the shapes alone.
+
+    bf16: the tensor-core body, 64 queries a block. When B x H x S/64
+    blocks leave SMs idle (a prefill chunk of one sequence), the keys are
+    split into up to ``MAX_SPLITS`` pieces of whole tiles, at least two
+    tiles each, so that blocks x splits fill the card; the partials are
+    merged by a second kernel. ``kv_splits`` > 0 asks for that many pieces
+    instead (fewer come back where the keys run out). f32 queries: the FMA
+    body, 64 queries a block, or 32 when that leaves SMs idle, never split.
+    Returns ``{"body", "bm", "kv_splits", "chunk"}``: the keys
+    ``[s * chunk, (s + 1) * chunk)`` of split s cover ``[0, T)`` once."""
+    n_tiles = max(1, -(-T // TILE))
+    if q_dtype == torch.float32:
+        bm = TILE if -(-S // TILE) * H * B >= n_sm else 32
+        return {"body": "fma_f32", "bm": bm, "kv_splits": 1, "chunk": n_tiles * TILE}
+    blocks = max(1, -(-S // TILE) * H * B)
+    want = kv_splits or (1 if blocks >= n_sm
+                         else min(MAX_SPLITS, -(-n_sm // blocks), n_tiles // 2))
+    per = -(-n_tiles // max(1, want))                 # tiles a split
+    return {"body": "mma_bf16", "bm": TILE, "kv_splits": -(-n_tiles // per),
+            "chunk": per * TILE}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,10 +93,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kind: str = "causal", window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, kv_splits: int = 0) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, T, KVH, D), possibly strided views. A
     tensor on the CPU takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    kernel or raises. ``kv_splits`` overrides the plan's split of the keys
+    (bf16 only; 0: the plan's own)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kind, window, q_offset)
     if q.device.type != "cuda":
@@ -87,8 +125,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     if B * S == 0:
         return o
+    plan = split_plan(B, S, H, T, q.dtype, _sm_count(q.device), kv_splits)
+    n_splits = plan["kv_splits"]
+    part_ml = part_acc = None
+    if n_splits > 1:
+        s_pad = -(-S // TILE) * TILE
+        part_ml = torch.empty((2, B, H, n_splits, s_pad), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((B, H, n_splits, s_pad, D), dtype=torch.float32,
+                               device=q.device)
     rc = _build.load().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        *((part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr())
+          if n_splits > 1 else (None, None, None)),
         B, S, T, H, KVH, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
@@ -96,7 +145,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o.stride(0), o.stride(1), o.stride(2),
         KINDS[kind], int(window), int(q_offset),
         _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k.dtype],
-        _build.stream_ptr())
+        plan["bm"], plan["chunk"], n_splits, _build.stream_ptr())
     _build.check_launch(rc, f"flash_attention q{tuple(q.shape)} k{tuple(k.shape)}")
     flash_attention.launches += 1
     return o

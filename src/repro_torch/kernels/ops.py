@@ -23,9 +23,11 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
 
 
 def flash_decode(q, k, v, kv_len):
-    """q (B,1,H,D); k/v (B,T,KVH,D); kv_len an int, () or (B,) -> (B,1,H,D)."""
+    """q (B,1,H,D); k/v (B,T,KVH,D); kv_len an int, () or (B,) -> (B,1,H,D).
+    An integer tensor is handed over in its own type (int32 or int64): no
+    cast on the way."""
     B = q.shape[0]
-    kv_len = torch.as_tensor(kv_len, device=q.device).to(torch.int32)
+    kv_len = torch.as_tensor(kv_len, device=q.device)
     return _dec.flash_decode(q, k, v, kv_len.reshape(-1).expand(B))
 
 

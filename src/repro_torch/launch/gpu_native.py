@@ -62,23 +62,34 @@ def stressor_suite(repeats: int = 5, device="cuda") -> List[Row]:
 # --------------------------------------------------------------------- #
 #  victims                                                               #
 # --------------------------------------------------------------------- #
+# FLOPs of one warp instruction on each compute axis: 32 lanes x one FMA on
+# the FP32 pipes, one mma.sync m16n8k16 (16 x 8 x 16 multiply-adds) on the
+# tensor cores
+FLOPS_PER_WARP_INSTR = {"vpu": 64.0, "mxu": 4096.0}
+
+
 @dataclass
 class Victim:
     """A victim's zero-argument launcher and the work of one call: bytes
-    of device memory, f32 FLOPs (the port's attention kernels run on the
-    FP32 pipes) and an estimate of its shared-memory bytes."""
+    of device memory, FLOPs and the axis its kernel runs them on (``"mxu"``:
+    the tensor cores; ``"vpu"``: the FP32 pipes), and an estimate of its
+    shared-memory bytes."""
     name: str
     fn: Callable[[], object]
     hbm_bytes: float
     flops: float
     smem_bytes: float
+    axis: str = "vpu"
 
     def profile(self, t_iso: float) -> KernelProfile:
         """The analytic profile: its bytes and operations over its measured
         isolated time, as a demand vector (warp instructions on the issue
-        axis: one per 32 FMAs and per 32 four-byte shared loads)."""
+        axis: one per ``FLOPS_PER_WARP_INSTR`` of its axis and one per 512
+        bytes of shared memory, 16 bytes a lane, as cp.async, ldmatrix and
+        the decode kernel's row loads move them)."""
         demand = {r: 0.0 for r in RESOURCE_AXES}
-        demand.update(vpu=self.flops, issue=self.flops / 64 + self.smem_bytes / 128,
+        demand.update({self.axis: self.flops},
+                      issue=self.flops / FLOPS_PER_WARP_INSTR[self.axis] + self.smem_bytes / 512,
                       hbm=self.hbm_bytes, l2=self.hbm_bytes, smem=self.smem_bytes)
         return KernelProfile(f"{self.name}:analytic", demand=demand,
                              duration=t_iso)
@@ -132,24 +143,31 @@ def attention_victims(device="cuda", seed: int = 0,
                                    PREFILL_POS0)
 
     n_keys = sum(DECODE_KV_LEN)
-    G = H // KVH
     dec_kv = 2 * n_keys * KVH * D                     # K and V elements read
     dec_flops = 4.0 * n_keys * H * D
     pairs = sum(min(T, i + PREFILL_POS0 + 1) for i in range(PREFILL_S))
     pre_flops = 4.0 * pairs * H * D
+    tile = fa_mod.TILE
+    # key tiles each 64-query tile of the chunk walks (its split pieces add up
+    # to the same tiles)
+    walked = sum(-(-min(T, q0 + tile + PREFILL_POS0) // tile)
+                 for q0 in range(0, PREFILL_S, tile))
     return {
         "decode_attention_step": Victim(
             "decode_attention_step", _graphed(decode, device),
             hbm_bytes=L * (2.0 * dec_kv + 2 * 2 * SLOTS * H * D + 4 * SLOTS),
             flops=L * dec_flops,
-            # K/V tiles staged in shared memory as f32, read by G heads
-            smem_bytes=L * 4.0 * dec_kv * (1 + G)),
+            # scores and weighted sums as FMAs on the FP32 pipes; K/V tiles
+            # staged in bf16 by cp.async, each element read once by one lane
+            smem_bytes=L * 2.0 * 2 * dec_kv, axis="vpu"),
         "prefill_chunk_attention": Victim(
             "prefill_chunk_attention", _graphed(prefill, device),
             hbm_bytes=L * 2.0 * (2 * PREFILL_S * H * D + 2 * T * KVH * D),
             flops=L * pre_flops,
-            # two four-byte shared loads for every three FMAs
-            smem_bytes=L * pre_flops / 2 * 2 / 3 * 4),
+            # products on the tensor cores; bf16 Q written and read once, each
+            # K/V tile written once and read by the block's four warps
+            smem_bytes=L * H * (2.0 * 2 * PREFILL_S * D + 2.0 * 2 * tile * D * (1 + 4) * walked),
+            axis="mxu"),
     }
 
 

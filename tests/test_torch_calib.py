@@ -352,13 +352,17 @@ def test_gpu_native_victims_and_their_analytic_profiles():
     n_keys = sum(gpu_native.DECODE_KV_LEN)
     assert dec.flops == 4.0 * n_keys * 16 * 128
     assert dec.hbm_bytes >= 2 * 2 * n_keys * 8 * 128            # K and V, bf16
+    # each on the axis its kernel runs: decode's FMAs on the FP32 pipes,
+    # prefill's products on the tensor cores
+    assert dec.axis == "vpu" and victims["prefill_chunk_attention"].axis == "mxu"
     for v in victims.values():
         v.fn()
         p = v.profile(2e-3)
         u = p.utilization(tres.H100)
-        assert p.duration == 2e-3 and u["mxu"] == 0.0
+        other = "vpu" if v.axis == "mxu" else "mxu"
+        assert p.duration == 2e-3 and u[other] == 0.0
         assert u["hbm"] == pytest.approx(v.hbm_bytes / 2e-3 / tres.H100.hbm_bw)
-        assert u["vpu"] == pytest.approx(v.flops / 2e-3 / tres.H100.vpu_flops)
+        assert u[v.axis] == pytest.approx(v.flops / 2e-3 / tres.H100.capacity(v.axis))
     with pytest.raises(ValueError):
         gpu_native.interference_sweep("cpu")
 

@@ -23,8 +23,9 @@ from repro.models.attention import chunk_attention as jax_chunk_attention
 from repro.models.attention import decode_attention as jax_decode_attention
 from repro.models.attention import reference_attention as jax_reference_attention
 from repro_torch.kernels import decode_attention as dec_mod
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import split_plan
+from repro_torch.kernels.decode_attention import merge_partials_plain, split_plan
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -92,6 +93,107 @@ def test_flash_attention_q_offset_is_chunk_attention(pos0, C):
     close(got, want, 2e-5)
 
 
+@pytest.mark.parametrize("B,S,H,T", [
+    (1, 128, 16, 640),      # the path's chunk deep in a prompt
+    (1, 128, 16, 128),      # ... at pos0 = 0
+    (1, 768, 16, 768),      # a whole prompt (serial mode)
+    (1, 37, 16, 248),       # a ragged last chunk
+    (8, 64, 16, 64),        # enough blocks without a split
+    (1, 1, 1, 1), (1, 5, 2, 4097), (2, 200, 4, 200),
+])
+def test_flash_attention_split_plan_covers_the_keys(B, S, H, T):
+    """The split of the keys over blocks, which the CUDA kernel relies on:
+    whole tiles per split, every key in exactly one split, at most
+    MAX_SPLITS pieces; f32 queries run the FMA body unsplit."""
+    for kv_splits in (0, 1, 2, 3, 4):
+        plan = fa_mod.split_plan(B, S, H, T, torch.bfloat16, kv_splits=kv_splits)
+        chunk, n = plan["chunk"], plan["kv_splits"]
+        assert plan["body"] == "mma_bf16" and plan["bm"] == fa_mod.TILE
+        assert chunk % fa_mod.TILE == 0 and chunk >= fa_mod.TILE
+        assert chunk * n >= T > chunk * (n - 1)
+        assert 1 <= n <= fa_mod.MAX_SPLITS and (kv_splits == 0 or n <= kv_splits)
+        covered = np.zeros(T, int)
+        for sp in range(n):
+            covered[sp * chunk:(sp + 1) * chunk] += 1
+        assert (covered == 1).all()
+    # a grid that fills the card is not split; one that leaves SMs idle is
+    blocks = -(-S // fa_mod.TILE) * H * B
+    if blocks >= fa_mod.N_SM:
+        assert fa_mod.split_plan(B, S, H, T, torch.bfloat16)["kv_splits"] == 1
+    plan = fa_mod.split_plan(B, S, H, T, torch.float32)
+    assert plan["body"] == "fma_f32" and plan["kv_splits"] == 1
+    assert plan["bm"] in (32, 64) and plan["chunk"] >= T
+
+
+def _partials(s, v, ok, chunk, n_splits):
+    """Per split of ``chunk`` keys: the running maximum, the sum of weights
+    and the weighted values of the scores ``s`` (..., T) over the keys that
+    ``ok`` lets through; a split with no such key gives (-1e30, 0, 0)."""
+    ms, ls, accs = [], [], []
+    for sp in range(n_splits):
+        sl = slice(sp * chunk, (sp + 1) * chunk)
+        sc = torch.where(ok[..., sl], s[..., sl], torch.full_like(s[..., sl], -torch.inf))
+        m = sc.amax(dim=-1).clamp_min(-1e30)
+        w = torch.exp(sc - m[..., None])
+        ms.append(m)
+        ls.append(w.sum(dim=-1))
+        accs.append(torch.einsum("...t,...td->...d", w, v[..., sl, :]))
+    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
+
+
+@pytest.mark.parametrize("T,G,D,lens", [(512, 4, 64, (512, 256, 7)),
+                                        (1025, 2, 128, (1025, 1, 700)),
+                                        (300, 1, 16, (300, 5, 64))])
+def test_merge_of_decode_partials_is_flash_decode(T, G, D, lens):
+    """Split the keys as split_plan does, compute each split's partial
+    (m, l, acc) in torch and merge them with merge_partials_plain: the
+    Pallas decode kernel's result (interpret mode), in f32. Short lengths
+    leave splits that see no valid key."""
+    BKV = 3
+    rng = np.random.default_rng(7)
+    jq, tq = draw(rng, (BKV, G, D))
+    jk, tk = draw(rng, (BKV, T, D))
+    jv, tv = draw(rng, (BKV, T, D))
+    lens = np.array(lens, np.int32)
+    want = flash_decode_bkgd(jq, jk, jv, jnp.asarray(lens), block_k=128, interpret=True)
+    chunk, n_splits = split_plan(T, BKV)
+    assert any(sp * chunk >= n for n in lens for sp in range(n_splits))   # an empty split
+    s = torch.einsum("bgd,btd->bgt", tq, tk) / np.sqrt(D)
+    ok = (torch.arange(T)[None, :] < torch.from_numpy(lens)[:, None])[:, None, :]
+    m, l, acc = _partials(s, tv[:, None].expand(BKV, G, T, D), ok, chunk, n_splits)
+    close(merge_partials_plain(m, l, acc, torch.float32), want, 2e-5)
+
+
+@pytest.mark.parametrize("S,T,kind,kv_splits", [(128, 128, "causal", 2),
+                                                (200, 200, "causal", 4),
+                                                (128, 384, "bidirectional", 3),
+                                                (256, 256, "local", 4)])
+def test_merge_of_attention_partials_is_flash_attention(S, T, kind, kv_splits):
+    """The same for attention: the keys cut per flash_attention's split
+    plan, partials in torch, merged; against the Pallas kernel in interpret
+    mode at 2e-5. Causal and local rows see no key in some splits."""
+    BKV, g, D = 2, 2, 64
+    rng = np.random.default_rng(8)
+    jq, tq = draw(rng, (BKV * g, S, D))
+    jk, tk = draw(rng, (BKV, T, D))
+    jv, tv = draw(rng, (BKV, T, D))
+    want = flash_attention_bhsd(jq, jk, jv, kind=kind, window=64, block_q=128,
+                                block_k=128, interpret=True)
+    plan = fa_mod.split_plan(1, S, 1, T, torch.bfloat16, kv_splits=kv_splits)
+    chunk, n_splits = plan["chunk"], plan["kv_splits"]
+    assert n_splits > 1
+    q = tq.view(BKV, g, S, D)
+    s = torch.einsum("bgsd,btd->bgst", q, tk) / np.sqrt(D)
+    qp, kp = torch.arange(S)[:, None], torch.arange(T)[None, :]
+    ok = {"causal": kp <= qp, "local": (kp <= qp) & (kp > qp - 64),
+          "bidirectional": torch.ones(S, T, dtype=torch.bool)}[kind]
+    if kind != "bidirectional":
+        assert not ok[:, :chunk].any(dim=1).all() or not ok[:, -chunk:].any(dim=1).all()
+    m, l, acc = _partials(s, tv[:, None, None].expand(BKV, g, S, T, D), ok, chunk, n_splits)
+    got = merge_partials_plain(m, l, acc, torch.float32).reshape(BKV * g, S, D)
+    close(got, want, 2e-5)
+
+
 def test_flash_attention_refuses_softcap():
     q = torch.zeros(1, 4, 2, 16)
     with pytest.raises(NotImplementedError):
@@ -135,11 +237,33 @@ def test_flash_decode_model_layout():
                                        (33, 1000)])
 def test_flash_decode_split_plan_covers_the_cache(T, n_pairs):
     """The split of the keys over blocks, which the CUDA kernel relies on:
-    whole tiles per split, every key in exactly one split."""
+    whole tiles per split, every key in exactly one split; and short
+    splits (``_SPLIT_KEYS``) unless the card is full or the splits run out."""
     chunk, n_splits = split_plan(T, n_pairs)
     assert chunk % dec_mod._TILE == 0 and chunk >= dec_mod._TILE
     assert chunk * n_splits >= T > chunk * (n_splits - 1)
     assert 1 <= n_splits <= dec_mod._MAX_SPLITS
+    if n_pairs * -(-T // dec_mod._SPLIT_KEYS) <= dec_mod._MAX_BLOCKS \
+            and T <= dec_mod._SPLIT_KEYS * dec_mod._MAX_SPLITS:
+        assert chunk == max(dec_mod._TILE, -(-dec_mod._SPLIT_KEYS // dec_mod._TILE)
+                            * dec_mod._TILE) or n_splits == 1
+
+
+@pytest.mark.parametrize("lens", [(200, 64), (1, 256)])
+def test_flash_decode_takes_int64_and_int32_lengths(lens):
+    """The model hands its lengths over as int64, a caller may have int32:
+    ops.flash_decode takes either as it is, with one result, the
+    reference's."""
+    B, H, KVH, D, T = 2, 8, 2, 64, 256
+    rng = np.random.default_rng(9)
+    jq, tq = draw(rng, (B, 1, H, D))
+    jk, tk = draw(rng, (B, T, KVH, D))
+    jv, tv = draw(rng, (B, T, KVH, D))
+    l64 = torch.tensor(lens, dtype=torch.int64)
+    got64 = ops.flash_decode(tq, tk, tv, l64)
+    got32 = ops.flash_decode(tq, tk, tv, l64.to(torch.int32))
+    assert torch.equal(got64, got32)
+    close(got64, jax_decode_attention(jq, jk, jv, jnp.asarray(np.array(lens, np.int32))), 2e-5)
 
 
 # ------------------------------ rmsnorm ------------------------------- #
