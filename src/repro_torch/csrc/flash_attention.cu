@@ -303,10 +303,13 @@ flash_attention_mma_kernel(const AttnParams p) {
     allow_dependents();                            // the merge may be scheduled
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;         // mma fragment coordinates
-    const int h = blockIdx.y;
+    // grid (head, query tile, batch x split), the last query tiles first:
+    // under a causal mask they walk the most keys, and blocks are handed
+    // out in this order, so a light tile shares an SM with a heavy one
+    const int h = blockIdx.x;
     const int b = blockIdx.z / p.n_splits, split = blockIdx.z % p.n_splits;
     const int kvh = h / (p.H / p.KVH);
-    const int q0 = blockIdx.x * BM;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
     int s_lo, s_hi, first, last;
     attn_split_range(p, q0, split, s_lo, s_hi);
     attn_used_splits(p, q0, first, last);
@@ -482,7 +485,7 @@ flash_attention_mma_kernel(const AttnParams p) {
         return;
     }
     // a split's partial (m in the exp2 domain, l, acc), rows below S
-    const int s_pad = gridDim.x * BM;              // S rounded up to BM
+    const int s_pad = gridDim.y * BM;              // S rounded up to BM
     const int64_t base = (((int64_t)b * p.H + h) * p.n_splits + split) * s_pad;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -559,7 +562,7 @@ static int launch_attn_mma(const AttnParams& p, int B, cudaStream_t stream) {
         flash_attention_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const int q_tiles = (p.S + FA_MMA_BM - 1) / FA_MMA_BM;
-    flash_attention_mma_kernel<D><<<dim3(q_tiles, p.H, B * p.n_splits), FA_THREADS, smem,
+    flash_attention_mma_kernel<D><<<dim3(p.H, q_tiles, B * p.n_splits), FA_THREADS, smem,
                                     stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess || p.n_splits == 1) return (int)err;

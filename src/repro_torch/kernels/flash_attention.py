@@ -32,6 +32,7 @@ KINDS = {"causal": 0, "local": 1, "bidirectional": 2}   # csrc/common.cuh
 TILE = 64                        # keys a tile (FA_BN), queries a tile of the bf16 body
 MAX_SPLITS = 4                   # most pieces the keys of a query tile are split into
 N_SM = 132                       # the H100's SMs: what a plan has to fill
+BLOCKS_PER_SM = 2                # of the bf16 body (80 KB of shared memory, ~220 registers)
 
 
 def split_plan(B: int, S: int, H: int, T: int, q_dtype: torch.dtype,
@@ -39,10 +40,11 @@ def split_plan(B: int, S: int, H: int, T: int, q_dtype: torch.dtype,
     """Which body runs and on what grid, from the shapes alone.
 
     bf16: the tensor-core body, 64 queries a block. When B x H x S/64
-    blocks leave SMs idle (a prefill chunk of one sequence), the keys are
-    split into up to ``MAX_SPLITS`` pieces of whole tiles, at least two
-    tiles each, so that blocks x splits fill the card; the partials are
-    merged by a second kernel. ``kv_splits`` > 0 asks for that many pieces
+    blocks leave some of the card's ``BLOCKS_PER_SM`` x ``n_sm`` places
+    empty (a prefill chunk of one sequence), the keys are split into up to
+    ``MAX_SPLITS`` pieces of whole tiles, at least two tiles each, so that
+    blocks x splits fill them and no block walks all the keys; the partials
+    are merged by a second kernel. ``kv_splits`` > 0 asks for that many pieces
     instead (fewer come back where the keys run out). f32 queries: the FMA
     body, 64 queries a block, or 32 when that leaves SMs idle, never split.
     Returns ``{"body", "bm", "kv_splits", "chunk"}``: the keys
@@ -52,8 +54,9 @@ def split_plan(B: int, S: int, H: int, T: int, q_dtype: torch.dtype,
         bm = TILE if -(-S // TILE) * H * B >= n_sm else 32
         return {"body": "fma_f32", "bm": bm, "kv_splits": 1, "chunk": n_tiles * TILE}
     blocks = max(1, -(-S // TILE) * H * B)
-    want = kv_splits or (1 if blocks >= n_sm
-                         else min(MAX_SPLITS, -(-n_sm // blocks), n_tiles // 2))
+    places = BLOCKS_PER_SM * n_sm
+    want = kv_splits or (1 if blocks >= places
+                         else min(MAX_SPLITS, -(-places // blocks), n_tiles // 2))
     per = -(-n_tiles // max(1, want))                 # tiles a split
     return {"body": "mma_bf16", "bm": TILE, "kv_splits": -(-n_tiles // per),
             "chunk": per * TILE}

@@ -98,7 +98,8 @@ def test_flash_attention_q_offset_is_chunk_attention(pos0, C):
     (1, 128, 16, 128),      # ... at pos0 = 0
     (1, 768, 16, 768),      # a whole prompt (serial mode)
     (1, 37, 16, 248),       # a ragged last chunk
-    (8, 64, 16, 64),        # enough blocks without a split
+    (8, 64, 16, 64),        # one key tile: nothing to split
+    (4, 512, 16, 512),      # enough blocks without a split
     (1, 1, 1, 1), (1, 5, 2, 4097), (2, 200, 4, 200),
 ])
 def test_flash_attention_split_plan_covers_the_keys(B, S, H, T):
@@ -116,9 +117,9 @@ def test_flash_attention_split_plan_covers_the_keys(B, S, H, T):
         for sp in range(n):
             covered[sp * chunk:(sp + 1) * chunk] += 1
         assert (covered == 1).all()
-    # a grid that fills the card is not split; one that leaves SMs idle is
+    # a grid that fills the card is not split
     blocks = -(-S // fa_mod.TILE) * H * B
-    if blocks >= fa_mod.N_SM:
+    if blocks >= fa_mod.BLOCKS_PER_SM * fa_mod.N_SM:
         assert fa_mod.split_plan(B, S, H, T, torch.bfloat16)["kv_splits"] == 1
     plan = fa_mod.split_plan(B, S, H, T, torch.float32)
     assert plan["body"] == "fma_f32" and plan["kv_splits"] == 1
