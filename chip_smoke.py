@@ -70,11 +70,12 @@ from repro_torch.serve import Engine, EngineConfig  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
                   torch.float64: 34e12}      # f64 outside the tensor cores
-# shared memory: 32 banks of 4 bytes a clock on each of 132 SMs, at the
-# H100 SXM's highest SM clock (1,980 MHz, data sheet); the device phase
-# prints the card's own clocks.max.sm beside it
+# shared memory: one wavefront (32 banks of 4 bytes) a clock on each of
+# 132 SMs, at the H100 SXM's highest SM clock (1,980 MHz, data sheet); the
+# device phase prints the card's own clocks.max.sm beside it
+N_SMS = 132
 SM_CLOCK_HZ = 1.98e9
-SMEM_BYTES_PER_S = 132 * 128 * SM_CLOCK_HZ
+SMEM_BYTES_PER_S = N_SMS * 128 * SM_CLOCK_HZ
 # exponentials: the multi-function unit of an SM returns 16 a clock (CUDA
 # programming guide, throughput of arithmetic instructions, cc 9.0)
 EXP_PER_S = 132 * 16 * SM_CLOCK_HZ
@@ -102,21 +103,26 @@ def run_text(cmd) -> str:
 
 
 def ptxas_summary() -> dict:
-    """What ``-Xptxas -v`` said of the build: kernels compiled, and those
-    that spill registers, with the bytes."""
+    """What ``-Xptxas -v`` said of the build: kernels compiled, those that
+    spill registers, with the bytes, and any warning that it serialised a
+    kernel's wgmma instructions."""
     log = Path(f"{_build.library_path()}.log").read_text().splitlines()
-    entry, n, spills = "", 0, {}
+    entry, n, spills, serialized = "", 0, {}, []
     for ln in log:
         if "Compiling entry function" in ln:
             entry, n = ln.split("'")[1], n + 1
         elif "bytes spill stores" in ln and " 0 bytes spill stores" not in ln:
             spills[entry] = ln.split("ptxas info")[-1].strip(" :")
-    return {"kernels_compiled": n, "kernels_with_spills": spills}
+        elif "wgmma" in ln and "serialized" in ln:
+            serialized.append(ln.strip())
+    return {"kernels_compiled": n, "kernels_with_spills": spills,
+            "wgmma_serialized": serialized}
 
 
-def sass_hmma_counts(kernel: str) -> dict:
-    """HMMA (tensor-core) instructions in the SASS of every function of the
-    built library whose name holds ``kernel`` (``cuobjdump -sass``)."""
+def sass_opcode_counts(kernel: str, opcode: str) -> dict:
+    """Instructions whose text holds ``opcode`` (HMMA: ``mma.sync``; HGMMA:
+    ``wgmma``) in the SASS of every function of the built library whose
+    name holds ``kernel`` (``cuobjdump -sass``)."""
     exe = Path(_build._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(exe) if exe.exists() else "cuobjdump", "-sass",
                           str(_build.library_path())], stdout=subprocess.PIPE,
@@ -127,7 +133,7 @@ def sass_hmma_counts(kernel: str) -> dict:
             name = ln.split("Function :")[1].strip()
             if kernel in name:
                 found[name] = 0
-        elif name in found and "HMMA" in ln:
+        elif name in found and opcode in ln:
             found[name] += 1
     return found
 
@@ -225,9 +231,12 @@ def time_ms(fn, n_variants: int = 1, iters: int = 20, reps: int = 7) -> dict:
     return {"ms": timed(lambda _: graph.replay()), "eager_ms": eager}
 
 
-def bound(bytes_moved: float, operations: float, dtype) -> tuple:
+def bound(bytes_moved: float, operations: float, dtype, sm_share: float = 1.0) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    device memory's rate and the operations over the type's peak, of which
+    a grid that covers ``sm_share`` of the SMs has that share."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = operations / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = operations / (PEAK_OPS_PER_S[dtype] * sm_share) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -463,19 +472,43 @@ def scan_inputs(rng, Bb, S, di, N, x_dtype=F32):
             randn(rng, (Bb, S, N), F32) * 0.5)
 
 
+def falcon_scan_inputs(rng, Bb, S, di, N, x_dtype=F32):
+    """falcon-mamba's own A, -(1..N) in every channel (``models/ssm.py``'s
+    A_log = log(1..N)), and dt = softplus(u), u uniform in [-4, 3]: the
+    steepest decays the model's initialisation gives, up to exp(-16 *
+    softplus(3)) = exp(-48.8) a step. The same draw as
+    ``tests/test_torch_ssm.py:falcon_scan_inputs``."""
+    x = randn(rng, (Bb, S, di), F32) * 0.5
+    u = torch.from_numpy(rng.uniform(-4.0, 3.0, (Bb, S, di)).astype(np.float32)).to(DEV)
+    A = -torch.arange(1, N + 1, dtype=F32, device=DEV).expand(di, N).contiguous()
+    return (x.to(x_dtype), F.softplus(u), A, randn(rng, (Bb, S, N), F32) * 0.5,
+            randn(rng, (Bb, S, N), F32) * 0.5)
+
+
 def check_ssm_scan(rng) -> float:
     """y and the final state against the plain version at 1e-4: the
-    reference's grid (Bb 2), ragged sizes, and falcon-mamba's prefill (from
-    a state) and decode step (S = 1, the state written in place)."""
+    reference's grid (Bb 2), ragged sizes, falcon-mamba's A and dt range at
+    ragged d_inner (200, 130) and N (16, 3) and at full width from a state,
+    and falcon-mamba's prefill (from a state) and decode step (S = 1, the
+    state written in place)."""
     worst = 0.0
-    grid = [(2, 128, 64, 8, F32), (2, 64, 128, 16, F32), (2, 96, 32, 4, F32),
-            (3, 37, 200, 16, BF), (2, 5, 130, 3, F32)]
-    for Bb, S, di, N, xd in grid:
-        args = scan_inputs(rng, Bb, S, di, N, xd)
+    grid = [(2, 128, 64, 8, F32, scan_inputs), (2, 64, 128, 16, F32, scan_inputs),
+            (2, 96, 32, 4, F32, scan_inputs), (3, 37, 200, 16, BF, scan_inputs),
+            (2, 5, 130, 3, F32, scan_inputs),
+            (2, 77, 200, 16, BF, falcon_scan_inputs), (2, 45, 200, 3, F32, falcon_scan_inputs),
+            (3, 70, 130, 16, F32, falcon_scan_inputs), (2, 33, 130, 3, BF, falcon_scan_inputs),
+            (2, 1, 200, 16, BF, falcon_scan_inputs)]
+    for Bb, S, di, N, xd, draw in grid:
+        args = draw(rng, Bb, S, di, N, xd)
         (y, h), (wy, wh) = ssm_mod.ssm_scan(*args), ssm_mod.ssm_scan_plain(*args)
-        name = f"ssm_scan Bb{Bb} S{S} di{di} N{N} {xd}"
+        name = f"ssm_scan {draw.__name__} Bb{Bb} S{S} di{di} N{N} {xd}"
         worst = max(worst, check_close(name, y, wy, F32, SCAN_TOL),
                     check_close(name + " hT", h, wh, F32, SCAN_TOL))
+    args = falcon_scan_inputs(rng, 4, 256, 8192, 16, BF)
+    h0 = randn(rng, (4, 8192, 16), F32) * 0.5
+    (y, h), (wy, wh) = ssm_mod.ssm_scan(*args, h0), ssm_mod.ssm_scan_plain(*args, h0)
+    worst = max(worst, check_close("ssm_scan falcon A full width", y, wy, F32, SCAN_TOL),
+                check_close("ssm_scan falcon A full width hT", h, wh, F32, SCAN_TOL))
     Bb, di, N = 4, 8192, 16
     args = scan_inputs(rng, Bb, 1024, di, N, BF)
     h0 = randn(rng, (Bb, di, N), F32) * 0.5
@@ -623,6 +656,12 @@ def check_stressors(rng) -> dict:
         note("stress_mxu", check_close(
             f"stress_mxu {dtype}", st_mod.stress_mxu(ad, bd, 4),
             st_mod.stress_mxu_plain(ad, bd, 4), dtype, STRESS_TOL["stress_mxu"][dtype]))
+    # the bf16 body's loop runs two iterations a turn: every remainder, and none
+    ad, bd = a.to(BF), b.to(BF)
+    for iters in (0, 1, 2, 3, 5):
+        note("stress_mxu", check_close(
+            f"stress_mxu bf16 iters {iters}", st_mod.stress_mxu(ad, bd, iters),
+            st_mod.stress_mxu_plain(ad, bd, iters), BF, STRESS_TOL["stress_mxu"][BF]))
     x = randn(rng, (256, 128), F32)
     for ilp in (1, 2, 4):
         note("stress_vpu", check_close(
@@ -635,29 +674,36 @@ def check_stressors(rng) -> dict:
         note("stress_vmem", check_close(
             f"stress_vmem stride{stride}", st_mod.stress_vmem(x, 8, stride),
             st_mod.stress_vmem_plain(x, 8, stride), F32, STRESS_TOL["stress_vmem"]))
+    # the card sizes: stress_mxu at 119 tiles and the sized iteration count
     specs = [StressorSpec(axis, 0.9) for axis in gpu_native.AXES]
     specs.append(StressorSpec("hbm", 0.5, working_set=0.25 * H100.cache_capacity))
     for spec in specs:
         call = _stressor_call(spec, DEV)
+        if call.kernel == "stress_mxu" and call.blocks != 119:
+            raise AssertionError(f"stress_mxu at λ 0.9: {call.blocks} tiles, not 119")
         note(call.kernel, check_stressor_call(
             call, f"{call.kernel} card size {spec} {call.kwargs}"))
     return worst
 
 
-def time_stressor(call, name, bytes_moved, operations, dtype, smem_bytes=0.0,
+def time_stressor(call, name, bytes_moved, operations, dtype, smem_wavefronts=0.0,
                   library=None) -> dict:
     """``time_ms`` of one dispatch of ``call`` (five per graph: each is a
     millisecond or so), its plain version's time, and its bound: the larger
-    of device-memory bytes, shared-memory bytes over ``SMEM_BYTES_PER_S``
-    and operations over the type's peak."""
-    b_ms, by = bound(bytes_moved, operations, dtype)
-    t_smem = smem_bytes / SMEM_BYTES_PER_S * 1e3
-    term = "shared-memory bytes" if t_smem > b_ms else (
+    of device-memory bytes over the card's rate, shared-memory wavefronts
+    at one a clock on each SM the grid covers, and operations over the
+    type's peak on the SMs the grid covers (a stressor's block holds its
+    SM: 119 blocks have 119 / 132 of the tensor cores or FP32 pipes, but
+    device memory is not divided by SM, so its rate stays the card's)."""
+    sms = min(call.blocks, N_SMS)
+    b_ms, by = bound(bytes_moved, operations, dtype, sms / N_SMS)
+    t_smem = smem_wavefronts / (sms * SM_CLOCK_HZ) * 1e3
+    term = "shared-memory wavefronts" if t_smem > b_ms else (
         "device-memory bytes" if by == "bytes" else "operations")
     with plain_versions():
         plain = time_ms(lambda i: call(), iters=1, reps=3)["ms"]
     return {"shape": name, "dtype": str(dtype).replace("torch.", ""),
-            "blocks": call.blocks, **call.kwargs,
+            "blocks": call.blocks, "sms_covered": sms, **call.kwargs,
             **time_ms(lambda i: call(), iters=5, reps=5),
             "plain_ms": plain,
             "library_ms": time_ms(library, iters=5, reps=5)["ms"] if library else None,
@@ -684,11 +730,15 @@ def time_stressors() -> dict:
     out["stress_hbm"] = time_stressor(call, f"x {tuple(x.shape)} f32 ({x.numel() * 4} B), one pass",
                                       2 * x.numel() * 4, 0.0, F32,
                                       library=lambda i: y.copy_(x))
+    # two reads and a write of every element an iteration, a warp's 32
+    # accesses in as many wavefronts as the stride's bank conflicts make
     call = _stressor_call(StressorSpec("smem", 0.9), DEV)
-    x, it = call.args[0], call.kwargs["iters"]
-    out["stress_vmem"] = time_stressor(call, f"x {tuple(x.shape)} f32, iters {it}, stride {call.kwargs['stride']}",
+    x, it, stride = call.args[0], call.kwargs["iters"], call.kwargs["stride"]
+    degree = st_mod.vmem_conflict_degree(stride, min(512, x.shape[0]))
+    out["stress_vmem"] = time_stressor(call, f"x {tuple(x.shape)} f32, iters {it}, stride {stride}",
                                        2 * x.numel() * 4, 0.0, F32,
-                                       smem_bytes=it * 3 * 4.0 * x.numel())
+                                       smem_wavefronts=it * 3 * x.numel() / 32 * degree)
+    out["stress_vmem"]["conflict_degree"] = degree
     return out
 
 
@@ -1186,13 +1236,20 @@ def main() -> int:
     built = ptxas_summary()
     emit(phase="build", seconds=time.perf_counter() - t0,
          sources=[s.name for s in _build.sources()], **built)
-    spilled = [k for k in built["kernels_with_spills"] if "flash_attention" in k or "decode_" in k]
+    spilled = [k for k in built["kernels_with_spills"]
+               if any(n in k for n in ("flash_attention", "decode_", "stress_mxu", "ssm_scan"))]
     if spilled:
-        raise AssertionError(f"attention kernels spill registers: {spilled}")
-    hmma = sass_hmma_counts("flash_attention_mma_kernel")
-    emit(phase="sass", hmma_in_flash_attention_mma_kernel=hmma)
+        raise AssertionError(f"attention, stress_mxu or ssm_scan kernels spill registers: {spilled}")
+    if any("stress_mxu" in ln for ln in built["wgmma_serialized"]):
+        raise AssertionError(f"ptxas serialised stress_mxu's wgmma: {built['wgmma_serialized']}")
+    hmma = sass_opcode_counts("flash_attention_mma_kernel", "HMMA")
+    hgmma = sass_opcode_counts("stress_mxu_bf16_kernel", "HGMMA")
+    emit(phase="sass", hmma_in_flash_attention_mma_kernel=hmma,
+         hgmma_in_stress_mxu_bf16_kernel=hgmma)
     if not hmma or not all(hmma.values()):
         raise AssertionError(f"the bf16 attention body has no HMMA in its SASS: {hmma}")
+    if not hgmma or not all(hgmma.values()):
+        raise AssertionError(f"the bf16 stress_mxu body has no HGMMA in its SASS: {hgmma}")
 
     t0 = time.perf_counter()
     records = phase_kernels()

@@ -1,8 +1,9 @@
 // Shared device helpers for the repro_torch kernels: element types, 16-byte
 // global loads/stores converted to float, warp reductions, the strided
 // global -> shared tile copy, cp.async, and the tensor-core fragments
-// (mma.sync m16n8k16 bf16, ldmatrix). No PyTorch headers: the kernels are built by
-// nvcc into a plain C library and bound with ctypes.
+// (mma.sync m16n8k16 bf16, ldmatrix, and wgmma with A from registers). No
+// PyTorch headers: the kernels are built by nvcc into a plain C library and
+// bound with ctypes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -174,6 +175,73 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
     const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// ---------------------------------------------------------------------- //
+//  warpgroup matrix multiply (wgmma, sm_90a)                             //
+// ---------------------------------------------------------------------- //
+// Descriptor of a K-major bf16 operand in shared memory in the 128-byte
+// swizzle: rows of 128 bytes (64 values of k), 8-row atoms of 1,024 bytes
+// one after the other (the stride byte offset), the 16-byte chunk c of row
+// r stored at chunk c ^ (r % 8). The atoms must be 1,024-byte aligned; a
+// k-slice of 16 further into the row starts 32 bytes on.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* smem) {
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    return (uint64_t)((addr & 0x3FFFF) >> 4)          // start address / 16
+           | ((uint64_t)1 << 16)                       // leading offset: unused here
+           | ((uint64_t)(1024 >> 4) << 32)             // stride offset: one atom
+           | ((uint64_t)1 << 62);                      // 128-byte swizzle
+}
+
+// orders this thread's earlier register writes before the wgmma that follow
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of r across a wgmma
+// issue or wait
+template <int R>
+__device__ __forceinline__ void wgmma_fence_operand(float (&r)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d (+)= a b on a 64 x 128 x 16 tile of one warpgroup: a (64 x 16 bf16) in
+// registers, in the layout of mma_bf16_16816's A for the warp's 16 rows
+// (warp w of the warpgroup holds rows 16w..16w+15); b (16 x 128 bf16,
+// K-major) in shared memory behind `desc`; d in f32, thread (g, t) of warp
+// w holding d[4j..4j+1] at row 16w + g, columns 8j + 2t, 8j + 2t + 1 and
+// d[4j+2..4j+3] the same columns of row 16w + g + 8. scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t* a,
+                                                    uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
 // two floats rounded to bf16 (to nearest even) in one register, the first

@@ -15,19 +15,25 @@
 // Replaces src/repro/kernels/stressors.py:_mxu_kernel / stress_mxu. Per
 // tile, `iters` times c <- c @ b, then c <- c / max(max|c|, 1); the output
 // is c in the input type. One block owns one 128 x 128 tile for the whole
-// loop; c and b never leave shared memory.
+// loop, so a dispatch of n tiles holds n SMs.
 //
-// bf16 (what the calibration drives): the products run on the tensor cores
-// through mma.sync m16n8k16 with f32 accumulation, and c is rounded to bf16
-// as the next A operand on every iteration, as the TPU's MXU does at default
-// precision. Bound by the tensor cores in principle; in practice by the
-// shared-memory reads of the operand fragments (each warp re-reads its
-// 32 x 128 slab of c and 128 x 64 slab of b per iteration: 192 KB per
-// block per iteration against 2 M multiply-adds). The warp tile (32 x 64,
-// eight warps) reuses every B fragment for two m-tiles and every A fragment
-// for eight n-tiles; the fragments come four matrices at a time through
-// ldmatrix, and the rows are padded by 8 elements so that its eight row
-// addresses hit 32 distinct banks.
+// bf16 (what the calibration drives): bound by the tensor cores, 2 * 128^3
+// FLOPs an iteration, about 0.56 us at one SM's share of 989 TFLOP/s. The
+// products run on wgmma m64n128k16 (bf16 in, f32 out), the only way to the
+// card's full tensor-core rate. Two warpgroups each own 64 rows of c, and
+// c never leaves their registers: the f32 accumulator of one product is,
+// fragment for fragment, the A operand of the next (columns 16s..16s+15 of
+// c are k-slice s of the next product), so it is scaled and rounded to
+// bf16 (cvt.rn.bf16x2, as the TPU's MXU takes its operand at default
+// precision) in place. b is written once into shared memory, transposed
+// to K-major in the 128-byte swizzle that the B descriptor names. Per
+// iteration a warpgroup waits for its product, takes its threads' max (a
+// tree of eight chains) and its warps' (one redux.sync), exchanges the
+// eight warps' maxima through a double-buffered red[2][8] behind one
+// barrier, then converts k-slice s and issues its wgmma before it converts
+// slice s + 1, into a second accumulator, so the conversion overlaps the
+// tensor cores. What is left between two products is latency: the last
+// wgmma's drain, the max, the barrier and slice 0's conversion.
 //
 // f32: the reference test holds f32 to 1e-4, which TF32 (about 1e-3 per
 // product) cannot meet, so the same loop runs exactly in FFMA: each thread
@@ -40,11 +46,12 @@
 // division is about ten instructions, and 64 of them per thread cost more
 // issue slots than the products themselves.
 constexpr int MXU_T = 128;
-constexpr int MXU_THREADS = 256;
+constexpr int MXU_THREADS = 256;          // f32: 16 x 16 threads; bf16: two warpgroups
+constexpr int MXU_WARPS = MXU_THREADS / 32;
 constexpr int MXU_LD_F32 = MXU_T + 1;     // floats per shared row (odd: no conflicts)
-constexpr int MXU_LD_BF16 = MXU_T + 8;    // bf16 per shared row (68 words: no conflicts)
 constexpr int MXU_SMEM_F32 = 2 * MXU_T * MXU_LD_F32 * 4;
-constexpr int MXU_SMEM_BF16 = 2 * MXU_T * MXU_LD_BF16 * 2;
+constexpr int MXU_B_KBLOCK = MXU_T * 128;                  // bytes of 64 k for all n
+constexpr int MXU_SMEM_BF16 = 2 * MXU_B_KBLOCK + 1024;     // b, and slack to align it
 
 // max over the block of every thread's v; the first barrier also orders
 // every read of the tile in this iteration before any write of the next
@@ -110,76 +117,142 @@ stress_mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
         out[tile + e] = cs[(e / MXU_T) * MXU_LD_F32 + e % MXU_T];
 }
 
-__global__ void __launch_bounds__(MXU_THREADS)
+// byte offset of b[k][n] in bᵀ (n rows of k), K-major in the 128-byte
+// swizzle: two blocks of 64 k, each n rows of 128 bytes in 8-row atoms
+__device__ __forceinline__ int mxu_b_offset(int k, int n) {
+    const int kk = k & 63;
+    return (k >> 6) * MXU_B_KBLOCK + n * 128 + ((((kk >> 3) ^ (n & 7)) << 4) | ((kk & 7) << 1));
+}
+
+// the B descriptor of k-slice s (16 values of k) from that of slice 0
+__device__ __forceinline__ uint64_t mxu_b_desc(uint64_t desc0, int s) {
+    return desc0 + (uint64_t)((((s >> 2) * MXU_B_KBLOCK) + (s & 3) * 32) >> 4);
+}
+
+// max |c[i]| over a thread's accumulator, as a tree of eight chains
+template <int R>
+__device__ __forceinline__ float max_abs(const float (&c)[R]) {
+    float m[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) m[i] = fabsf(c[i]);
+#pragma unroll
+    for (int i = 8; i < R; ++i) m[i % 8] = fmaxf(m[i % 8], fabsf(c[i]));
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+        for (int i = 0; i < w; ++i) m[i] = fmaxf(m[i], m[i + w]);
+    return m[0];
+}
+
+// 1 / max(max|c|, 1) over the tile: the thread's 64 values, the warp's in
+// one redux.sync on the bits (which order non-negative floats as integers),
+// then the eight warps' through red[parity], behind one barrier. The two
+// halves of red alternate, so a warp that runs ahead writes the other half
+// while the rest still read this one.
+__device__ __forceinline__ float mxu_inv_scale(const float (&c)[64],
+                                               float (&red)[2][MXU_WARPS], int parity) {
+    float m = __uint_as_float(__reduce_max_sync(0xffffffffu, __float_as_uint(max_abs(c))));
+    if ((threadIdx.x & 31) == 0) red[parity][threadIdx.x >> 5] = m;
+    __syncthreads();
+    const float4 lo = *reinterpret_cast<const float4*>(&red[parity][0]);
+    const float4 hi = *reinterpret_cast<const float4*>(&red[parity][4]);
+    m = fmaxf(fmaxf(fmaxf(lo.x, hi.x), fmaxf(lo.y, hi.y)),
+              fmaxf(fmaxf(lo.z, hi.z), fmaxf(lo.w, hi.w)));
+    return 1.f / fmaxf(m, 1.f);
+}
+
+// k-slice s of the next A operand: columns 16s..16s+15 of c, scaled and
+// rounded to bf16 (accumulator n-tiles 2s and 2s + 1)
+__device__ __forceinline__ void mxu_to_a(const float (&c)[64], uint32_t (&a)[32], int s,
+                                         float inv) {
+    a[4 * s + 0] = pack_bf16x2(c[8 * s + 0] * inv, c[8 * s + 1] * inv);
+    a[4 * s + 1] = pack_bf16x2(c[8 * s + 2] * inv, c[8 * s + 3] * inv);
+    a[4 * s + 2] = pack_bf16x2(c[8 * s + 4] * inv, c[8 * s + 5] * inv);
+    a[4 * s + 3] = pack_bf16x2(c[8 * s + 6] * inv, c[8 * s + 7] * inv);
+}
+
+// one iteration: wait for the product in `src`, scale it into the A
+// registers and issue the next product into `dst`, k-slice by k-slice
+__device__ __forceinline__ void mxu_step(float (&src)[64], float (&dst)[64], uint32_t (&a)[32],
+                                         uint64_t desc0, float (&red)[2][MXU_WARPS],
+                                         int& parity) {
+    wgmma_wait<0>();
+    wgmma_fence_operand(src);
+    const float inv = mxu_inv_scale(src, red, parity);
+    parity ^= 1;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+        mxu_to_a(src, a, s, inv);
+        wgmma_fence();
+        wgmma_m64n128k16_rs(dst, &a[4 * s], mxu_b_desc(desc0, s), s > 0);
+    }
+    wgmma_commit();
+    wgmma_fence_operand(dst);
+}
+
+// the last iteration's scale: wait for `src` and leave c in the A registers
+__device__ __forceinline__ void mxu_finish(float (&src)[64], uint32_t (&a)[32],
+                                           float (&red)[2][MXU_WARPS], int parity) {
+    wgmma_wait<0>();
+    wgmma_fence_operand(src);
+    const float inv = mxu_inv_scale(src, red, parity);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) mxu_to_a(src, a, s, inv);
+}
+
+__global__ void __launch_bounds__(MXU_THREADS, 1)
 stress_mxu_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
                        bf16* __restrict__ out, int iters) {
-    extern __shared__ __align__(16) unsigned char mxu_bf16_smem[];
-    bf16* cs = reinterpret_cast<bf16*>(mxu_bf16_smem);   // c, row-major: [m][k]
-    bf16* bt = cs + MXU_T * MXU_LD_BF16;                 // b transposed: [n][k]
-    __shared__ float red[MXU_THREADS / 32];
-    const int64_t tile = (int64_t)blockIdx.x * MXU_T * MXU_T;
-    for (int e = threadIdx.x; e < MXU_T * MXU_T; e += MXU_THREADS) {
-        const int r = e / MXU_T, c = e % MXU_T;
-        cs[r * MXU_LD_BF16 + c] = a[tile + e];
-        bt[c * MXU_LD_BF16 + r] = b[e];
-    }
-    __syncthreads();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;             // mma fragment coordinates
-    const int row0 = (warp >> 1) * 32;                 // this warp's 32 x 64 tile of c
-    const int col0 = (warp & 1) * 64;
-    const int q = lane >> 3, rr = lane & 7;            // ldmatrix: matrix, row
-    // A of m-tile mt: matrices (rows +0/+8) x (k +0/+8); B of n-tiles nt,
-    // nt + 1: (n-tile) x (k +0/+8), from b transposed
-    const bf16* a_ld = cs + (row0 + rr + (q & 1) * 8) * MXU_LD_BF16 + (q >> 1) * 8;
-    const bf16* b_ld = bt + (col0 + rr + (q >> 1) * 8) * MXU_LD_BF16 + (q & 1) * 8;
-    float acc[2][8][4];
-    for (int it = 0; it < iters; ++it) {
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-                for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-#pragma unroll 2
-        for (int k0 = 0; k0 < MXU_T; k0 += 16) {
-            uint32_t af[2][4];
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-                ldsm_x4(af[mt], a_ld + mt * 16 * MXU_LD_BF16 + k0);
-#pragma unroll
-            for (int nt = 0; nt < 8; nt += 2) {
-                uint32_t bf[4];
-                ldsm_x4(bf, b_ld + nt * 8 * MXU_LD_BF16 + k0);
-#pragma unroll
-                for (int mt = 0; mt < 2; ++mt) {
-                    mma_bf16_16816(acc[mt][nt], af[mt], bf[0], bf[1]);
-                    mma_bf16_16816(acc[mt][nt + 1], af[mt], bf[2], bf[3]);
-                }
-            }
-        }
-        float m = 0.f;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-                for (int q = 0; q < 4; ++q) m = fmaxf(m, fabsf(acc[mt][nt][q]));
-        const float inv = 1.f / fmaxf(block_max<MXU_THREADS>(m, red), 1.f);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 8; ++nt) {
-                bf16* cr = cs + (row0 + mt * 16 + g) * MXU_LD_BF16 + col0 + nt * 8 + 2 * t;
-                *reinterpret_cast<__nv_bfloat162*>(cr) =
-                    __floats2bfloat162_rn(acc[mt][nt][0] * inv, acc[mt][nt][1] * inv);
-                *reinterpret_cast<__nv_bfloat162*>(cr + 8 * MXU_LD_BF16) =
-                    __floats2bfloat162_rn(acc[mt][nt][2] * inv, acc[mt][nt][3] * inv);
-            }
-        __syncthreads();
-    }
+    extern __shared__ __align__(1024) unsigned char mxu_bf16_smem[];
+    __shared__ __align__(16) float red[2][MXU_WARPS];
+    const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(mxu_bf16_smem));
+    unsigned char* bs = mxu_bf16_smem + ((1024 - (raw & 1023)) & 1023);
     for (int e = threadIdx.x; e < MXU_T * MXU_T; e += MXU_THREADS)
-        out[tile + e] = cs[(e / MXU_T) * MXU_LD_BF16 + e % MXU_T];
+        *reinterpret_cast<bf16*>(bs + mxu_b_offset(e / MXU_T, e % MXU_T)) = b[e];
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // for wgmma's reads
+    __syncthreads();
+    // warp w (of either warpgroup) holds rows 16w + g and 16w + g + 8
+    const int lane = threadIdx.x & 31;
+    const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+    const int64_t tile = (int64_t)blockIdx.x * MXU_T * MXU_T;
+    const uint32_t* a32 = reinterpret_cast<const uint32_t*>(a + tile);
+    uint32_t af[32];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            af[4 * s + q] = a32[((r0 + 8 * (q & 1)) * MXU_T + 16 * s + 8 * (q >> 1) + c0) / 2];
+    }
+    const uint64_t desc0 = wgmma_desc_sw128(bs);
+    if (iters > 0) {
+        float c0acc[64], c1acc[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) c0acc[i] = c1acc[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 8; ++s)
+            wgmma_m64n128k16_rs(c0acc, &af[4 * s], mxu_b_desc(desc0, s), s > 0);
+        wgmma_commit();
+        wgmma_fence_operand(c0acc);
+        int parity = 0, left = iters - 1;
+        for (; left >= 2; left -= 2) {
+            mxu_step(c0acc, c1acc, af, desc0, red, parity);
+            mxu_step(c1acc, c0acc, af, desc0, red, parity);
+        }
+        if (left) {
+            mxu_step(c0acc, c1acc, af, desc0, red, parity);
+            mxu_finish(c1acc, af, red, parity);
+        } else {
+            mxu_finish(c0acc, af, red, parity);
+        }
+    }
+    uint32_t* o32 = reinterpret_cast<uint32_t*>(out + tile);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            o32[((r0 + 8 * (q & 1)) * MXU_T + 16 * s + 8 * (q >> 1) + c0) / 2] = af[4 * s + q];
+    }
 }
 
 // a: (n_tiles, T, T), b: (T, T), out like a, all contiguous. Only T = 128.
@@ -195,9 +268,6 @@ extern "C" int rt_stress_mxu(const void* a, const void* b, void* out, int n_tile
             static_cast<const float*>(a), static_cast<const float*>(b),
             static_cast<float*>(out), iters);
     } else if (dtype == RT_BF16) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            stress_mxu_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MXU_SMEM_BF16);
-        if (err != cudaSuccess) return (int)err;
         stress_mxu_bf16_kernel<<<n_tiles, MXU_THREADS, MXU_SMEM_BF16, s>>>(
             static_cast<const bf16*>(a), static_cast<const bf16*>(b),
             static_cast<bf16*>(out), iters);

@@ -5,9 +5,10 @@ Replaces the TPU kernel ``src/repro/kernels/ssm_scan.py``
 (``ssm_scan_pallas``). Per batch row and channel d,
 ``h_t = exp(dt_t * A[d]) * h_{t-1} + (dt_t * x_t) * B_t`` and
 ``y_t = <h_t, C_t>`` over the N states, with h in f32. On the card the state
-stays in registers (one thread per (batch, channel)) and the time loop runs
-inside the kernel; bound by its exps (one per (b, t, d, n)) at falcon-mamba's
-prefill. Beyond the Pallas kernel it takes an initial state and returns the
+stays in registers (four lanes share two channels of a batch row, each lane
+a quarter of their states) and the time loop runs inside the kernel; bound
+by its exps (one per (b, t, d, n), ``ex2.approx`` on the multi-function
+units) at falcon-mamba's prefill. Beyond the Pallas kernel it takes an initial state and returns the
 final one, as the model's scan does, and returns y in f32 (the model's
 scan's type; ``kernels/ops.py:ssm_scan`` casts to ``x.dtype`` as the Pallas
 kernel does).

@@ -15,6 +15,8 @@ kernel or raises.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from repro_torch.kernels import _build
@@ -209,3 +211,19 @@ def stress_vmem(x: torch.Tensor, iters: int = 64, stride: int = 8) -> torch.Tens
 
 
 stress_vmem.launches = 0
+
+
+def vmem_conflict_degree(stride: int, br: int) -> float:
+    """Wavefronts of one warp's shared-memory access in the kernel of
+    ``stress_vmem``, on average over the block's warps: its bound counts
+    them. Lane j of a block of ``br`` rows takes row ``(j s + floor(j s /
+    br)) mod br`` of its column when ``s = stride mod br`` divides br (else
+    row j), a column's rows lie in consecutive words, and a warp's 32 rows
+    take as many wavefronts as the most of them that share a bank (row mod
+    32): 1 at stride 1, 8 at 8 and 16 at 32 when br is 512."""
+    shift = stride % br
+    permute = shift > 0 and br % shift == 0
+    rows = [(j * shift + j * shift // br) % br if permute else j for j in range(br)]
+    worst = [max(Counter(r % 32 for r in rows[w:w + 32]).values())
+             for w in range(0, br, 32)]
+    return sum(worst) / len(worst)

@@ -76,6 +76,32 @@ def test_scan_plain_matches_pallas(S, di, N, chunk, block_d):
     close(ssm_scan(*as_torch(*arrays))[0], want, **SCAN_TOL)
 
 
+def falcon_scan_inputs(Bb, S, di, N, seed=0):
+    """falcon-mamba's own A, -(1..N) in every channel (A_log = log(1..N)),
+    and dt = softplus(u), u uniform in [-4, 3]: the steepest decays its
+    initialisation gives. chip_smoke.py holds the CUDA kernel against the
+    plain version on this draw (``falcon_scan_inputs`` there)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((Bb, S, di), dtype=np.float32) * 0.5
+    u = rng.uniform(-4.0, 3.0, (Bb, S, di)).astype(np.float32)
+    dt = np.log1p(np.exp(u)).astype(np.float32)
+    A = -np.broadcast_to(np.arange(1, N + 1, dtype=np.float32), (di, N)).copy()
+    B = rng.standard_normal((Bb, S, N), dtype=np.float32) * 0.5
+    C = rng.standard_normal((Bb, S, N), dtype=np.float32) * 0.5
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("S,di,N,chunk,block_d", [
+    (64, 64, 16, 32, 32), (32, 200, 16, 32, 200), (40, 130, 3, 40, 130)])
+def test_scan_plain_matches_pallas_at_falcon_mambas_decays(S, di, N, chunk, block_d):
+    arrays = falcon_scan_inputs(2, S, di, N, seed=S)
+    assert arrays[1].max() > 2.9                       # dt reaches softplus(3)
+    want = ssm_scan_pallas(*as_jax(*arrays), chunk=chunk, block_d=block_d,
+                           interpret=True)
+    y, _ = ssm_scan_plain(*as_torch(*arrays))
+    close(y, want, **SCAN_TOL)
+
+
 def test_scan_in_bf16_returns_f32_and_ops_casts():
     """x in bf16: the scan's y stays f32 (the model's scan), ``ops.ssm_scan``
     casts it to bf16 (the Pallas kernel's output type)."""

@@ -171,6 +171,27 @@ def test_stressor_blocks_cover_lambda_of_the_sms():
     assert stressor_blocks(0.0, 132) == 1 and stressor_blocks(1.5, 132) == 132
 
 
+@pytest.mark.parametrize("br", [512, 96])
+@pytest.mark.parametrize("stride", [1, 2, 4, 8, 16, 32])
+def test_vmem_conflict_degree_follows_the_kernels_lane_map(stride, br):
+    """The bank conflicts that bound ``stress_vmem`` on the card: lane j of
+    the block reads row (j s + floor(j s / br)) mod br of a column
+    (``csrc/stressors.cu:stress_vmem_kernel``), whose rows lie in
+    consecutive 4-byte words of 32 banks; a warp's access takes as many
+    wavefronts as the most of its 32 rows in one bank."""
+    shift = stride % br
+    lanes = np.arange(br)
+    rows = (lanes * shift + lanes * shift // br) % br if br % shift == 0 else lanes
+    assert sorted(rows) == list(range(br))             # every row once
+    col = 7 * (br + 1)                                  # any column's first word
+    ways = [np.bincount((col + rows[w:w + 32]) % 32, minlength=32).max()
+            for w in range(0, br, 32)]
+    assert st.vmem_conflict_degree(stride, br) == pytest.approx(np.mean(ways))
+    if br == 512:                                       # the kernel's comment
+        assert st.vmem_conflict_degree(stride, br) == {1: 1, 8: 8, 32: 16}.get(
+            stride, min(stride, 16))
+
+
 def test_stressor_call_sizes_for_the_card():
     """The sizes the card gets (132 SMs, about a millisecond a dispatch),
     computed without making them: one iteration of a block's time budget,
