@@ -13,7 +13,8 @@ give them, and drives four paths, counting the kernels' launches on each:
     stressor kernels on their own CUDA streams beside two full-width
     attention victims replayed from CUDA graphs
     (``repro_torch.launch.gpu_native.interference_sweep``), each colocated
-    run bracketed by its background's events;
+    run bracketed by its background's events, after a reading of the
+    registers and shared memory each stressor block leaves the victims;
   * the solver: the same qwen3-1.7b serve with every prefill chunk priced
     by the torch solver backend on the card (cache_share), against the
     NumPy backend's chunks, and a batch of the interference phase's
@@ -981,6 +982,64 @@ def _leaves(tree):
         yield tree
 
 
+# what the resident blocks of one H100 SM share (CUDA C programming guide,
+# compute capability 9.0); each block also reserves 1 KB of shared memory
+SM_LIMITS = {"registers": 65536, "threads": 2048, "blocks": 32, "smem_bytes": 233472}
+
+
+def block_use(k: dict) -> dict:
+    """What one block of a kernel holds on its SM: registers in units of
+    256 a warp, threads in whole warps, shared memory in 128-byte units
+    with the block's reserved 1 KB."""
+    warps = -(-k["threads"] // 32)
+    return {"registers": warps * -(-k["registers"] * 32 // 256) * 256,
+            "threads": 32 * warps, "blocks": 1,
+            "smem_bytes": -(-(k["smem_bytes"] + 1024) // 128) * 128}
+
+
+def phase_residency() -> None:
+    """Registers a thread, shared memory a block and threads a block of the
+    stressor and victim kernels of the interference phase, as the CUDA
+    profiler (CUPTI) recorded their launches, and how many blocks of each
+    victim kernel fit on an SM that holds one stressor block: 0 means the
+    stressor withholds its SMs from that kernel. Fails if a ``stress_mxu``
+    block leaves a victim kernel no room, so that the mxu axis measures
+    tensor cores shared, not SMs withheld."""
+    from torch.profiler import ProfilerActivity, profile
+    victims = gpu_native.attention_victims(DEV, n_layers=1)
+    calls = [v.fn for v in victims.values()]
+    calls += [_stressor_call(StressorSpec(axis, 0.1), DEV) for axis in gpu_native.AXES]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    trace = _build.library_path().parent / "residency_trace.json"
+    prof.export_chrome_trace(str(trace))
+    seen = {}
+    for ev in json.loads(trace.read_text()).get("traceEvents", []):
+        a = ev.get("args", {})
+        if ev.get("cat") == "kernel" and "registers per thread" in a:
+            seen[ev["name"].replace("void ", "").split("(")[0]] = {
+                "registers": a["registers per thread"], "smem_bytes": a["shared memory"],
+                "threads": int(np.prod(a["block"]))}
+    held = {n: k for n, k in seen.items() if n.startswith("stress_")}
+    victim = {n: k for n, k in seen.items() if not n.startswith("stress_")}
+    if not held or not victim:
+        emit(phase="residency", kernels="not measured: the trace holds no kernel resources")
+        return
+    use = {n: block_use(k) for n, k in seen.items()}
+    beside = {s: {v: min((SM_LIMITS[r] - use[s][r]) // use[v][r] for r in SM_LIMITS)
+                  for v in victim} for s in held}
+    emit(phase="residency", kernels=seen, victim_blocks_alone={
+        v: min(SM_LIMITS[r] // use[v][r] for r in SM_LIMITS) for v in victim},
+        victim_blocks_beside=beside)
+    shut = [(s, v) for s, row in beside.items() if "stress_mxu" in s
+            for v, n in row.items() if n < 1]
+    if shut:
+        raise AssertionError(f"a stress_mxu block leaves no room for a victim block: {shut}")
+
+
 # --------------------------------------------------------------------- #
 #  phase 6: interference, the §4 loop on CUDA streams                    #
 # --------------------------------------------------------------------- #
@@ -1267,6 +1326,10 @@ def main() -> int:
     t0 = time.perf_counter()
     params = phase_serve_full(records)
     emit(phase="serve_full_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_residency()
+    emit(phase="residency_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     scenarios = phase_interference(records)

@@ -287,13 +287,13 @@ class SyntheticBackend:
 # ------------------------------------------------------------------ #
 # One block's time per loop iteration on an H100 SM, which sizes a dispatch
 # to about ``target_s`` (the backend then times what it really takes):
-# stress_mxu bf16 as measured, 0.86 us an iteration of its wgmma body at 119
+# stress_mxu bf16 as measured, 0.93 us an iteration of its wgmma body at 119
 # tiles (chip_smoke.py's stress_mxu time over its iterations, NVIDIA H100
 # 80GB HBM3 at 700 W); the others design estimates: stress_vpu at ilp 4,
 # 256·128·4 FFMA at 128 a clock and 1.755 GHz; stress_vmem at stride 8,
 # 512·32·3 accesses in 8-way-conflicted wavefronts of 32; stress_hbm at an
 # SM's share of 3.35 TB/s.
-_S_PER_ITER = {"mxu": 0.86e-6,
+_S_PER_ITER = {"mxu": 0.93e-6,
                "vpu": 256 * 128 * 4 / (128 * 1.755e9),
                "smem": 512 * 32 * 3 / 32 * 8 / 1.755e9}
 _HBM_BYTES_PER_S_PER_SM = 3.35e12 / 132

@@ -30,10 +30,17 @@
 // iteration a warpgroup waits for its product, takes its threads' max (a
 // tree of eight chains) and its warps' (one redux.sync), exchanges the
 // eight warps' maxima through a double-buffered red[2][8] behind one
-// barrier, then converts k-slice s and issues its wgmma before it converts
-// slice s + 1, into a second accumulator, so the conversion overlaps the
-// tensor cores. What is left between two products is latency: the last
-// wgmma's drain, the max, the barrier and slice 0's conversion.
+// barrier, converts all eight k-slices and issues the next product into
+// the same accumulator.
+//
+// The block stays within 144 registers a thread (36 K of an SM's 64 K), so
+// that a victim's blocks still fit on the SMs it holds (one block of the
+// tensor-core attention body, 220 registers x 128 threads, fits exactly)
+// and the stressor shares them as the other three do. Converting slice
+// s + 1 while the product of slice s runs hides the conversion (0.86
+// against 0.93 us an iteration on an H100), but it needs a second
+// accumulator: 230 registers a thread, which leaves no victim block room,
+// so the mxu axis then measures SMs withheld, not tensor cores shared.
 //
 // f32: the reference test holds f32 to 1e-4, which TF32 (about 1e-3 per
 // product) cannot meet, so the same loop runs exactly in FFMA: each thread
@@ -171,36 +178,28 @@ __device__ __forceinline__ void mxu_to_a(const float (&c)[64], uint32_t (&a)[32]
     a[4 * s + 3] = pack_bf16x2(c[8 * s + 6] * inv, c[8 * s + 7] * inv);
 }
 
-// one iteration: wait for the product in `src`, scale it into the A
-// registers and issue the next product into `dst`, k-slice by k-slice
-__device__ __forceinline__ void mxu_step(float (&src)[64], float (&dst)[64], uint32_t (&a)[32],
-                                         uint64_t desc0, float (&red)[2][MXU_WARPS],
-                                         int& parity) {
+// wait for the product in c and leave it, scaled, in the A registers
+__device__ __forceinline__ void mxu_scale_to_a(float (&c)[64], uint32_t (&a)[32],
+                                               float (&red)[2][MXU_WARPS], int parity) {
     wgmma_wait<0>();
-    wgmma_fence_operand(src);
-    const float inv = mxu_inv_scale(src, red, parity);
-    parity ^= 1;
+    wgmma_fence_operand(c);
+    const float inv = mxu_inv_scale(c, red, parity);
 #pragma unroll
-    for (int s = 0; s < 8; ++s) {
-        mxu_to_a(src, a, s, inv);
-        wgmma_fence();
-        wgmma_m64n128k16_rs(dst, &a[4 * s], mxu_b_desc(desc0, s), s > 0);
-    }
+    for (int s = 0; s < 8; ++s) mxu_to_a(c, a, s, inv);
+}
+
+// c = a b, k-slice by k-slice, on the tensor cores (asynchronous)
+__device__ __forceinline__ void mxu_issue(float (&c)[64], const uint32_t (&a)[32],
+                                          uint64_t desc0) {
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+        wgmma_m64n128k16_rs(c, &a[4 * s], mxu_b_desc(desc0, s), s > 0);
     wgmma_commit();
-    wgmma_fence_operand(dst);
+    wgmma_fence_operand(c);
 }
 
-// the last iteration's scale: wait for `src` and leave c in the A registers
-__device__ __forceinline__ void mxu_finish(float (&src)[64], uint32_t (&a)[32],
-                                           float (&red)[2][MXU_WARPS], int parity) {
-    wgmma_wait<0>();
-    wgmma_fence_operand(src);
-    const float inv = mxu_inv_scale(src, red, parity);
-#pragma unroll
-    for (int s = 0; s < 8; ++s) mxu_to_a(src, a, s, inv);
-}
-
-__global__ void __launch_bounds__(MXU_THREADS, 1)
+__global__ void __maxnreg__(144)     // room for a victim block beside it
 stress_mxu_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
                        bf16* __restrict__ out, int iters) {
     extern __shared__ __align__(1024) unsigned char mxu_bf16_smem[];
@@ -225,25 +224,13 @@ stress_mxu_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
     }
     const uint64_t desc0 = wgmma_desc_sw128(bs);
     if (iters > 0) {
-        float c0acc[64], c1acc[64];
+        float c[64];
 #pragma unroll
-        for (int i = 0; i < 64; ++i) c0acc[i] = c1acc[i] = 0.f;
-        wgmma_fence();
-#pragma unroll
-        for (int s = 0; s < 8; ++s)
-            wgmma_m64n128k16_rs(c0acc, &af[4 * s], mxu_b_desc(desc0, s), s > 0);
-        wgmma_commit();
-        wgmma_fence_operand(c0acc);
-        int parity = 0, left = iters - 1;
-        for (; left >= 2; left -= 2) {
-            mxu_step(c0acc, c1acc, af, desc0, red, parity);
-            mxu_step(c1acc, c0acc, af, desc0, red, parity);
-        }
-        if (left) {
-            mxu_step(c0acc, c1acc, af, desc0, red, parity);
-            mxu_finish(c1acc, af, red, parity);
-        } else {
-            mxu_finish(c0acc, af, red, parity);
+        for (int i = 0; i < 64; ++i) c[i] = 0.f;
+        for (int it = 1; ; ++it) {      // one issue site: with two, ptxas serialises
+            mxu_issue(c, af, desc0);
+            mxu_scale_to_a(c, af, red, it & 1);
+            if (it == iters) break;
         }
     }
     uint32_t* o32 = reinterpret_cast<uint32_t*>(out + tile);

@@ -61,21 +61,6 @@ def as_torch(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
-# ------------------------------ the scan ------------------------------- #
-@pytest.mark.parametrize("S,di,N,chunk,block_d", [
-    (128, 64, 8, 32, 32), (64, 128, 16, 64, 128), (96, 32, 4, 16, 32)])
-def test_scan_plain_matches_pallas(S, di, N, chunk, block_d):
-    arrays = scan_inputs(2, S, di, N)
-    want = ssm_scan_pallas(*as_jax(*arrays), chunk=chunk, block_d=block_d,
-                           interpret=True)
-    y, hT = ssm_scan_plain(*as_torch(*arrays))
-    assert y.dtype == torch.float32 and hT.shape == (2, di, N)
-    close(y, want, **SCAN_TOL)
-    close(ops.ssm_scan(*as_torch(*arrays)), want, **SCAN_TOL)
-    # the wrapper takes the plain version for a CPU tensor
-    close(ssm_scan(*as_torch(*arrays))[0], want, **SCAN_TOL)
-
-
 def falcon_scan_inputs(Bb, S, di, N, seed=0):
     """falcon-mamba's own A, -(1..N) in every channel (A_log = log(1..N)),
     and dt = softplus(u), u uniform in [-4, 3]: the steepest decays its
@@ -91,15 +76,28 @@ def falcon_scan_inputs(Bb, S, di, N, seed=0):
     return x, dt, A, B, C
 
 
-@pytest.mark.parametrize("S,di,N,chunk,block_d", [
-    (64, 64, 16, 32, 32), (32, 200, 16, 32, 200), (40, 130, 3, 40, 130)])
-def test_scan_plain_matches_pallas_at_falcon_mambas_decays(S, di, N, chunk, block_d):
-    arrays = falcon_scan_inputs(2, S, di, N, seed=S)
-    assert arrays[1].max() > 2.9                       # dt reaches softplus(3)
+# ------------------------------ the scan ------------------------------- #
+# the reference kernel test's draw, and falcon-mamba's decays (seeded by S)
+# at its ragged widths and N
+SCAN_CASES = [pytest.param(scan_inputs, 0, *c, id="-".join(map(str, c))) for c in [
+    (128, 64, 8, 32, 32), (64, 128, 16, 64, 128), (96, 32, 4, 16, 32)]] + [
+    pytest.param(falcon_scan_inputs, c[0], *c, id="falcon-" + "-".join(map(str, c)))
+    for c in [(64, 64, 16, 32, 32), (32, 200, 16, 32, 200), (40, 130, 3, 40, 130)]]
+
+
+@pytest.mark.parametrize("draw,seed,S,di,N,chunk,block_d", SCAN_CASES)
+def test_scan_plain_matches_pallas(draw, seed, S, di, N, chunk, block_d):
+    arrays = draw(2, S, di, N, seed=seed)
+    if draw is falcon_scan_inputs:
+        assert arrays[1].max() > 2.9                   # dt reaches softplus(3)
     want = ssm_scan_pallas(*as_jax(*arrays), chunk=chunk, block_d=block_d,
                            interpret=True)
-    y, _ = ssm_scan_plain(*as_torch(*arrays))
+    y, hT = ssm_scan_plain(*as_torch(*arrays))
+    assert y.dtype == torch.float32 and hT.shape == (2, di, N)
     close(y, want, **SCAN_TOL)
+    close(ops.ssm_scan(*as_torch(*arrays)), want, **SCAN_TOL)
+    # the wrapper takes the plain version for a CPU tensor
+    close(ssm_scan(*as_torch(*arrays))[0], want, **SCAN_TOL)
 
 
 def test_scan_in_bf16_returns_f32_and_ops_casts():

@@ -171,25 +171,34 @@ def test_stressor_blocks_cover_lambda_of_the_sms():
     assert stressor_blocks(0.0, 132) == 1 and stressor_blocks(1.5, 132) == 132
 
 
+# Wavefronts of each warp's access in ``stress_vmem``, worked by hand from
+# the kernel's lane map (``csrc/stressors.cu:stress_vmem_kernel``): lane j
+# reads row (j s + floor(j s / br)) mod br of a column whose rows are
+# consecutive 4-byte words, so its bank is that row mod 32 (br is a multiple
+# of 32), and a warp takes as many wavefronts as the most of its lanes in one
+# bank. br 512: floor(j s / 512) is constant within a warp up to s = 16, so
+# s lanes share a bank; at s = 32 every lane's j s is 0 mod 32 and the bank
+# is floor(j / 16): two banks of 16. br 96, s = 2: warp 1's lanes 32-47 take
+# the even banks once each and lanes 48-63 (floor(2j / 96) = 1) the odd
+# ones, while warps 0 and 2 take each even / odd bank twice; s = 4: lanes
+# 0-23 of warp 0 take 8 banks three times; s >= 8: three lanes a bank.
+VMEM_WAYS = {
+    512: {1: [1] * 16, 2: [2] * 16, 4: [4] * 16, 8: [8] * 16, 16: [16] * 16,
+          32: [16] * 16},
+    96: {1: [1, 1, 1], 2: [2, 1, 2], 4: [3, 2, 3], 8: [3, 3, 3], 16: [3, 3, 3],
+         32: [3, 3, 3]},
+}
+
+
 @pytest.mark.parametrize("br", [512, 96])
 @pytest.mark.parametrize("stride", [1, 2, 4, 8, 16, 32])
 def test_vmem_conflict_degree_follows_the_kernels_lane_map(stride, br):
-    """The bank conflicts that bound ``stress_vmem`` on the card: lane j of
-    the block reads row (j s + floor(j s / br)) mod br of a column
-    (``csrc/stressors.cu:stress_vmem_kernel``), whose rows lie in
-    consecutive 4-byte words of 32 banks; a warp's access takes as many
-    wavefronts as the most of its 32 rows in one bank."""
-    shift = stride % br
-    lanes = np.arange(br)
-    rows = (lanes * shift + lanes * shift // br) % br if br % shift == 0 else lanes
-    assert sorted(rows) == list(range(br))             # every row once
-    col = 7 * (br + 1)                                  # any column's first word
-    ways = [np.bincount((col + rows[w:w + 32]) % 32, minlength=32).max()
-            for w in range(0, br, 32)]
-    assert st.vmem_conflict_degree(stride, br) == pytest.approx(np.mean(ways))
-    if br == 512:                                       # the kernel's comment
-        assert st.vmem_conflict_degree(stride, br) == {1: 1, 8: 8, 32: 16}.get(
-            stride, min(stride, 16))
+    """The bank conflicts that bound ``stress_vmem`` on the card: the
+    helper's degree is the mean over the block's warps of the wavefronts
+    worked out by hand above."""
+    ways = VMEM_WAYS[br][stride]
+    assert len(ways) == br // 32
+    assert st.vmem_conflict_degree(stride, br) == pytest.approx(sum(ways) / len(ways))
 
 
 def test_stressor_call_sizes_for_the_card():
