@@ -8,7 +8,10 @@ its plain PyTorch version on the card, times them at the shapes their paths
 give them, and drives four paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
-    continuous-batching engine (rmsnorm, flash_attention, flash_decode);
+    continuous-batching engine (rmsnorm, flash_attention, flash_decode),
+    whose decode and extend steps replay CUDA graphs captured when the
+    engine is built (``repro_torch.graphs``), against the same serve on the
+    steps' bodies run uncaptured;
   * interference: the paper's §4 measure → fit → validate loop, the four
     stressor kernels on their own CUDA streams beside two full-width
     attention victims replayed from CUDA graphs
@@ -16,7 +19,8 @@ give them, and drives four paths, counting the kernels' launches on each:
     run bracketed by its background's events, after a reading of the
     registers and shared memory each stressor block leaves the victims;
   * the solver: the same qwen3-1.7b serve with every prefill chunk priced
-    by the torch solver backend on the card (cache_share), against the
+    by the torch solver backend on the card (cache_share, the solve
+    replayed from a CUDA graph), against the
     NumPy backend's chunks, and a batch of the interference phase's
     scenarios on both backends;
   * falcon-mamba-7b at full width and depth through the model facade:
@@ -25,6 +29,9 @@ give them, and drives four paths, counting the kernels' launches on each:
 
 Every phase prints JSON lines; any failure ends the run with a non-zero
 exit code. Without a CUDA device the script fails: nothing runs on the CPU.
+
+A captured step's kernels are counted by their wrappers at its capture;
+the launches on the card are those counts times the step's replays.
 
 The last three lines of its standard output are the ``kernels`` record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -46,12 +53,13 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import graphs  # noqa: E402
 from repro_torch.calib import FIT_LAMBDAS, StressorSpec, median_iqr_time  # noqa: E402
 from repro_torch.calib.measure import _stressor_call  # noqa: E402
 from repro_torch.calib import fit as fit_mod  # noqa: E402
 from repro_torch.configs.registry import get_config, tiny_config  # noqa: E402
 from repro_torch.core import estimator_torch  # noqa: E402
-from repro_torch.core.backend import solver_backend  # noqa: E402
+from repro_torch.core.backend import get_solver_device, solver_backend  # noqa: E402
 from repro_torch.core.estimator import solve_scenarios  # noqa: E402
 from repro_torch.core.resources import H100, TPU_V5E  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -66,6 +74,7 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.core.scenario import Scenario  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig  # noqa: E402
+from repro_torch.serve.engine import chunk_bucket  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
 HBM_BYTES_PER_S = 3.35e12
@@ -171,6 +180,40 @@ def reset_counts() -> None:
 def counts(names=None) -> dict:
     return {name: getattr(mod, name).launches for mod, name in WRAPPERS
             if names is None or name in names}
+
+
+@contextlib.contextmanager
+def uncaptured():
+    """Make every new step run its body on each call, as on the CPU: the
+    uncaptured bodies, which the graphs are held against. Only this script
+    does so."""
+    saved = graphs.capture
+    graphs.capture = lambda body, device, name: graphs.Step(body, name)
+    try:
+        yield
+    finally:
+        graphs.capture = saved
+
+
+def replayed(steps, since=None) -> dict:
+    """Kernel launches of captured steps on the card: each step's launches
+    of one call, as its capture counted them, times its calls (since the
+    ``since`` count of calls by step, where given)."""
+    out = {}
+    for step in steps:
+        calls = step.calls - (since or {}).get(id(step), 0)
+        for name, n in step.launches.items():
+            out[name] = out.get(name, 0) + n * calls
+    return out
+
+
+def at_capture(steps) -> dict:
+    """What the warm-ups and captures of ``steps`` launched, by wrapper."""
+    out = {}
+    for step in steps:
+        for name, n in step.capture_launches.items():
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def randn(rng, shape, dtype):
@@ -356,6 +399,27 @@ def check_flash_attention(rng) -> float:
             f"flash_attention S{S} H{H} D{D} pos0={pos0}",
             fa_mod.flash_attention(q, k, v, "causal", 0, pos0),
             fa_mod.flash_attention_plain(q, k, v, "causal", 0, pos0), kd))
+    # slot, pos0 and c read from device memory, over the whole cache (8
+    # slots x 1,025 positions), as a captured extend step passes them: the
+    # path's chunk at pos0 0 and 512, a last chunk of 100 padded to 128
+    # whose bucket reaches past the cache, one token at 16, and the small
+    # model's f32 queries over a bf16 cache. Against the plain version with
+    # the same offsets, and the real rows against the integer-offset call.
+    for S, c, pos0, slot, H, KVH, D, qd in [
+            (128, 128, 0, 3, 16, 8, 128, BF), (128, 128, 512, 3, 16, 8, 128, BF),
+            (128, 100, 900, 5, 16, 8, 128, BF), (16, 1, 40, 0, 16, 8, 128, BF),
+            (32, 23, 9, 1, 4, 2, 16, F32)]:
+        q = randn(rng, (1, S, H, D), qd)
+        ck, cv = path_cache(rng, 1, 8, 1025, KVH, D, BF)
+        off = torch.tensor([slot, pos0, c], device=DEV)
+        got = fa_mod.flash_attention(q, ck[0], cv[0], "causal", offsets=off)
+        name = f"flash_attention offsets slot {slot} pos0 {pos0} c {c} S {S} {qd}"
+        worst = max(worst, check_close(
+            name, got, fa_mod.flash_attention_plain(q, ck[0], cv[0], "causal", offsets=off), BF))
+        view = (ck[0, slot:slot + 1, :pos0 + c], cv[0, slot:slot + 1, :pos0 + c])
+        worst = max(worst, check_close(
+            name + " vs integer offset", got[:, :c],
+            fa_mod.flash_attention(q[:, :c], *view, "causal", 0, pos0), BF))
     return worst
 
 
@@ -426,6 +490,38 @@ def time_flash_attention(rng, S, pos0) -> dict:
             "plain_ms": time_ms(lambda i: fa_mod.flash_attention_plain(q, *views[i], "causal", 0, pos0), L)["ms"],
             "library_ms": time_ms(library, L)["ms"],
             "bound_ms": b_ms, "bound_by": by}
+
+
+def time_flash_attention_offsets(rng, pos0) -> dict:
+    """Row 2 on the captured extend step's path: 128 queries at pos0 with
+    slot, pos0 and c read from device memory over the whole cache (8 slots
+    x 1,025 positions, the splits planned for 1,025 keys), beside the
+    integer-offset call over the slot's view, in the same run."""
+    S, H, KVH, D, L, slot = 128, 16, 8, 128, 4, 3
+    ck, cv = path_cache(rng, L, 8, 1025, KVH, D, BF)
+    q = randn(rng, (1, S, H, D), BF)
+    off = torch.tensor([slot, pos0, S], device=DEV)
+    T = pos0 + S
+    pairs = sum(min(T, s + pos0 + 1) for s in range(S))
+    b_ms, by = bound((2 * q.numel() + 2 * T * KVH * D) * 2, 4 * pairs * H * D, BF)
+    return {"shape": f"S={S} c={S} pos0={pos0} over a (8, 1025, {KVH}, {D}) cache, device offsets",
+            "dtype": "bfloat16",
+            **time_ms(lambda i: fa_mod.flash_attention(q, ck[i], cv[i], "causal", offsets=off), L),
+            "integer_offset_ms": time_ms(lambda i: fa_mod.flash_attention(
+                q, ck[i, slot:slot + 1, :T], cv[i, slot:slot + 1, :T], "causal", 0, pos0), L)["ms"],
+            "plain_ms": time_ms(lambda i: fa_mod.flash_attention_plain(
+                q, ck[i], cv[i], "causal", offsets=off), L)["ms"],
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def launch_floor_ms() -> float:
+    """The empty kernel ``rt_empty`` through ``time_ms``: what one launch
+    costs in a CUDA-graph replay, whatever the kernel does."""
+    lib = _build.load()
+
+    def launch(i):
+        _build.check_launch(lib.rt_empty(_build.stream_ptr()), "rt_empty")
+    return time_ms(launch)["ms"]
 
 
 def cache_share_cases(rng) -> list:
@@ -579,6 +675,8 @@ def phase_kernels() -> dict:
         "flash_attention": [time_flash_attention(rng, 128, 512),
                             time_flash_attention(rng, 128, 0),
                             time_flash_attention(rng, 768, 0)],
+        "flash_attention_device_offsets": [time_flash_attention_offsets(rng, 0),
+                                           time_flash_attention_offsets(rng, 512)],
         "cache_share": [time_cache_share(rng, 8, 2), time_cache_share(rng, 4096, 6)],
         "ssm_scan": [time_ssm_scan(rng, 4, 1024, False), time_ssm_scan(rng, 4, 1, True)],
     }
@@ -805,8 +903,8 @@ def phase_stressors(records: dict) -> None:
 # --------------------------------------------------------------------- #
 def phase_serve_small() -> None:
     """tiny_config(qwen3-1.7b) itself (head_dim 16, d_model 64) in f32: the
-    engine on the kernels gives the tokens of greedy full-forward
-    generation on the plain versions."""
+    engine on the kernels, its steps replayed from CUDA graphs, gives the
+    tokens of greedy full-forward generation on the plain versions."""
     cfg = tiny_config(get_config("qwen3-1.7b")).with_overrides(param_dtype="float32")
     reset_counts()
     eng = Engine(cfg, ecfg=EngineConfig(max_slots=2, max_len=96, prefill_chunk=16,
@@ -815,7 +913,12 @@ def phase_serve_small() -> None:
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (9, 23, 40)]
     ids = [eng.submit(p, max_new=6) for p in prompts]
     metrics = eng.run_until_done()
-    used = counts(SERVING)
+    steps = list(eng.steps.values())
+    captured = at_capture(steps)
+    if (not all(step.graph is not None for step in steps)
+            or counts(SERVING) != {name: captured.get(name, 0) for name in SERVING}):
+        raise AssertionError(f"small serve: a step ran uncaptured: {counts(SERVING)}")
+    used = {name: replayed(steps).get(name, 0) for name in SERVING}
     if not all(used.values()):
         raise AssertionError(f"small serve skipped a kernel: {used}")
     with plain_versions(), torch.no_grad():
@@ -874,6 +977,33 @@ def serve_prompts(cfg, rng) -> list:
             for n in rng.integers(64, 769, size=8)]
 
 
+def serve_graphed(cfg, ecfg, prompts, max_new, params) -> tuple:
+    """``serve`` on the captured steps (counts of this serve only), with
+    the gates of the replay: every step of the engine is a CUDA graph and
+    the wrappers launched nothing besides the warm-ups and captures, so no
+    step ran eagerly. Returns (engine, metrics, seconds, the launches on
+    the card: each step's captured launches times its replays)."""
+    reset_counts()
+    eng, metrics, seconds = serve(cfg, ecfg, prompts, max_new, device=DEV, params=params)
+    steps = list(eng.steps.values())
+    if not all(step.graph is not None for step in steps):
+        raise AssertionError("serve: a step of the engine was not captured")
+    raw, captured = counts(SERVING), at_capture(steps)
+    if raw != {name: captured.get(name, 0) for name in SERVING}:
+        raise AssertionError(f"serve: the wrappers launched {raw}, the captures {captured}")
+    used = replayed(steps)
+    return eng, metrics, seconds, {name: used.get(name, 0) for name in SERVING}
+
+
+def padding(eng) -> dict:
+    """The extend steps' rows: the chunks' tokens and the padding up to
+    their buckets."""
+    chunks = [e.detail["chunk"] for e in eng.events if e.kind == "prefill_chunk"]
+    real, rows = sum(chunks), sum(chunk_bucket(c) for c in chunks)
+    return {"prefill_tokens": real, "prefill_rows_padded": rows - real,
+            "padding_share_of_rows": (rows - real) / rows if rows else 0.0}
+
+
 def phase_serve_full(records: dict) -> dict:
     """Returns the model's parameters, which the solver phase serves again."""
     cfg = get_config("qwen3-1.7b")
@@ -896,18 +1026,36 @@ def phase_serve_full(records: dict) -> dict:
     for mode in ("interference_aware", "serial"):
         ecfg = EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128, mode=mode)
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()                     # counts of the main path only
-        eng, metrics, seconds = serve(cfg, ecfg, prompts, max_new, device=DEV,
-                                      params=params)
-        used = counts(SERVING)
+        eng, metrics, seconds, used = serve_graphed(cfg, ecfg, prompts, max_new, params)
         stats = serve_stats(eng, metrics, seconds, max_new)
         stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         stats["launches"] = used
+        stats["capture_s"] = sum(step.capture_s for step in eng.steps.values())
+        stats.update(padding(eng))
         n_dec, n_ext = stats["decode_steps"], stats["prefill_chunks"]
         want = {"rmsnorm": (2 * L + 1) * (n_dec + n_ext),
                 "flash_attention": L * n_ext, "flash_decode": L * n_dec}
         if used != want or not all(used.values()):
             raise AssertionError(f"serve {mode}: launches {used}, the steps imply {want}")
+        # the same serve on the steps' bodies, uncaptured: the same tokens
+        # and chunks, each kernel launched from Python once a call
+        reset_counts()
+        with uncaptured():
+            eng_u, metrics_u, seconds_u = serve(cfg, ecfg, prompts, max_new, device=DEV,
+                                                params=params)
+        if counts(SERVING) != want:
+            raise AssertionError(f"serve {mode} uncaptured: launches {counts(SERVING)}, "
+                                 f"the steps imply {want}")
+        plain = serve_stats(eng_u, metrics_u, seconds_u, max_new)
+        if ({i: m["output"] for i, m in metrics_u.items()}
+                != {i: m["output"] for i, m in metrics.items()}
+                or plain["chunk_sizes"] != stats["chunk_sizes"]):
+            raise AssertionError(f"serve {mode}: the uncaptured steps gave other tokens or chunks")
+        stats["uncaptured"] = {k: plain[k] for k in ("seconds", "tokens_per_s", "decode_steps",
+                                                      "worst_decode_gap_ms",
+                                                      "median_decode_gap_ms", "mean_ttft_s")}
+        stats["uncaptured"]["tokens_and_chunks_equal"] = True
+        del eng_u
         runs[mode] = stats
         emit(phase="serve_full", config=cfg.name, **stats)
         if mode == "interference_aware":
@@ -916,59 +1064,85 @@ def phase_serve_full(records: dict) -> dict:
             records["rmsnorm"]["launches_per_step"] = 2 * L + 1
             records["flash_attention"]["launches_per_prefill_chunk"] = L
             records["flash_decode"]["launches_per_decode_step"] = L
-            del eng
-    # one extend and one decode step, kernels against plain versions
+        del eng
+    # one extend (three chunks: the path's 128 at pos0 0 and 128, and 100
+    # tokens padded to 128) and one decode step, each replayed against its
+    # body run uncaptured on the plain versions, on the same static input
     eng = Engine(cfg, params=params, ecfg=EngineConfig(max_slots=8, max_len=1024),
                  device=DEV)
-    tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, 256))).to(DEV)
+    tok = rng.integers(1, cfg.vocab_size, size=512)
     errs = {}
-    for pos0 in (0, 128):
-        chunk = tok[:, pos0:pos0 + 128]
-        got = eng._extend(chunk, 3, pos0)
+    for pos0, c in ((0, 128), (128, 128), (256, 100)):
+        got = eng._extend(tok[pos0:pos0 + c], 3, pos0).clone()
         with plain_versions():
-            want = eng._extend(chunk, 3, pos0)
-        errs[f"extend_pos0_{pos0}"] = logits_close(f"extend pos0={pos0}", got, want)
-    dtok = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(8, 1))).to(DEV)
-    pos = torch.full((8,), 1024, device=DEV)
-    pos[3] = 256
-    got = eng._decode(dtok, pos)
+            want = eng.steps[chunk_bucket(c)].body()
+        errs[f"extend_pos0_{pos0}_c{c}"] = logits_close(f"extend pos0={pos0} c={c}", got, want)
+    dtok = rng.integers(1, cfg.vocab_size, size=8)
+    pos = np.full(8, 1024)
+    pos[3] = 356
+    got = eng._decode(dtok, pos).clone()
     with plain_versions():
-        want = eng._decode(dtok, pos)
+        want = eng.steps["decode"].body()
     errs["decode"] = logits_close("decode", got[3], want[3])
     emit(phase="serve_full_logits", max_abs_err=errs,
          tolerance={"rtol": 0.15, "atol": 0.3})
-    emit(phase="step_profile", decode=profile_step(lambda: eng._decode(dtok, pos).argmax(-1).tolist()),
-         extend_128=profile_step(lambda: eng._extend(tok[:, 128:256], 3, 128).argmax(-1).tolist()))
+    emit(phase="step_profile",
+         decode=profile_step(lambda: eng._decode(dtok, pos).argmax(-1).tolist(),
+                             eng.steps["decode"]),
+         extend_128=profile_step(lambda: eng._extend(tok[128:256], 3, 128).argmax(-1).tolist(),
+                                 eng.steps[128]))
     return params
 
 
-def profile_step(step, n: int = 4) -> dict:
+# the first kernel each serving wrapper launches, by the name the trace gives it
+KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_attention_mma_kernel",
+                  "flash_decode": "decode_partial_kernel"}
+
+
+def profile_step(step_fn, step=None, n: int = 4) -> dict:
     """Where one engine step's time goes: its wall time (host clock, ending
     when the sampled ids are on the host, no profiler attached) beside the
     time the device was busy in it (kernel times summed from a
-    torch.profiler trace of the same steps), and the kernels that took most."""
+    torch.profiler trace of the same steps), and the kernels that took most.
+    For a captured ``step``, the trace's kernels of each serving wrapper a
+    replay must number what the capture counted; a trace that shows none
+    of them does not resolve the graph, and then nothing is reported as
+    measured on the device."""
     from torch.profiler import ProfilerActivity, profile
-    step()
+    step_fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        step()
+        step_fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            step()
+            step_fn()
         torch.cuda.synchronize()
     kernels = {}
     for ev in prof.events():
         if ev.device_type.name == "CUDA":
             t, c = kernels.get(ev.name, (0.0, 0))
             kernels[ev.name] = (t + ev.device_time, c + 1)
+    per_call = {name: sum(c for k, (_, c) in kernels.items() if sym in k) / n
+                for name, sym in KERNEL_SYMBOLS.items()}
+    out = {"wall_ms": wall_ms}
+    if step is not None:
+        out["replay_kernels"] = per_call
+        out["captured_launches"] = step.launches
+        if not any(per_call.values()):
+            out["device_busy_ms"] = "not measured: the trace does not resolve the graph's kernels"
+            return out
+        if any(per_call[name] != step.launches.get(name, 0) for name in KERNEL_SYMBOLS):
+            raise AssertionError(f"{step.name}: a replay ran {per_call}, the capture "
+                                 f"counted {step.launches}")
     busy_ms = sum(t for t, _ in kernels.values()) / 1e3 / n
     if not busy_ms:
-        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+        out["device_busy_ms"] = "not measured"
+        return out
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {**out, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "kernels_per_step": sum(c for _, c in kernels.values()) / n,
             "top_kernels_ms_per_step": {name[:60]: round(t / 1e3 / n, 4) for name, (t, _) in top}}
@@ -1127,10 +1301,11 @@ def solve_ms(scenarios, n: int = 20) -> float:
 def phase_solver(params, scenarios, records: dict) -> None:
     """The full-width qwen3-1.7b interference-aware serve on the NumPy
     backend, then on the torch backend on the card: the same prefill chunks
-    and tokens, and one ``cache_share`` launch for every solve. Then one
+    and tokens, every solve a replay of a captured step with one
+    ``cache_share`` launch, and no launch outside the captures. Then one
     batch of the interference phase's scenarios through both backends, at
     rtol = atol = 1e-9 with the same bottlenecks, and the time of a solve
-    on each."""
+    on each, the torch one replayed and with its body run uncaptured."""
     cfg = get_config("qwen3-1.7b")
     prompts = serve_prompts(cfg, np.random.default_rng(0))
     ecfg = EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128)
@@ -1144,6 +1319,7 @@ def phase_solver(params, scenarios, records: dict) -> None:
     solve_gathered = estimator_torch.solve_gathered
     for backend in ("numpy", "torch"):
         with solver_backend(backend, device=DEV):
+            before = {id(step): step.calls for step in estimator_torch.captured_steps()}
             reset_counts()                 # counts of this path only
             estimator_torch.solve_gathered = counting
             try:
@@ -1152,18 +1328,32 @@ def phase_solver(params, scenarios, records: dict) -> None:
             finally:
                 estimator_torch.solve_gathered = solve_gathered
             used = counts()
+            steps = estimator_torch.captured_steps()
         stats = serve_stats(eng, metrics, seconds, 32)
+        new = [step for step in steps if id(step) not in before]
+        ran = [step for step in steps if step.calls > before.get(id(step), 0)]
+        solver = {"replayed_cache_share": replayed(steps, before).get("cache_share", 0),
+                  "cache_share_at_capture": at_capture(new).get("cache_share", 0),
+                  "graphs_replayed": sorted(step.name for step in ran),
+                  "all_replayed_from_graphs": all(step.graph is not None for step in ran),
+                  "replays": sum(step.calls - before.get(id(step), 0) for step in ran)}
         runs[backend] = {**stats, "outputs": [m["output"] for m in metrics.values()],
-                         "launches": used}
+                         "launches": used, **solver}
         emit(phase="solver_serve", backend=backend, solves=solves[0] if backend == "torch" else 0,
              **{k: v for k, v in stats.items() if k != "chunk_sizes"},
-             chunk_sizes=stats["chunk_sizes"], launches=used)
+             chunk_sizes=stats["chunk_sizes"], launches=used, **solver)
     np_run, t_run = runs["numpy"], runs["torch"]
     if t_run["chunk_sizes"] != np_run["chunk_sizes"] or t_run["outputs"] != np_run["outputs"]:
         raise AssertionError("solver: the torch backend picked other chunks or tokens")
-    n_cs = t_run["launches"]["cache_share"]
-    if np_run["launches"]["cache_share"] or not solves[0] or n_cs != solves[0]:
-        raise AssertionError(f"solver: {n_cs} cache_share launches for {solves[0]} solves")
+    n_cs = t_run["replayed_cache_share"]
+    if (np_run["launches"]["cache_share"] or np_run["replays"] or not solves[0]
+            or n_cs != solves[0] or t_run["replays"] != solves[0]
+            or not t_run["all_replayed_from_graphs"]):
+        raise AssertionError(f"solver: {n_cs} cache_share launches in {t_run['replays']} "
+                             f"replays for {solves[0]} solves")
+    if t_run["launches"]["cache_share"] != t_run["cache_share_at_capture"]:
+        raise AssertionError(f"solver: {t_run['launches']['cache_share']} cache_share launches "
+                             f"besides the captures' {t_run['cache_share_at_capture']}")
     records["cache_share"]["launches"] = n_cs
     records["cache_share"]["launches_per_solve"] = 1
 
@@ -1178,9 +1368,19 @@ def phase_solver(params, scenarios, records: dict) -> None:
             want, np_ms = solve_scenarios(batch, H100), solve_ms(batch)
         with solver_backend("torch", device=DEV):
             got, t_ms = solve_scenarios(batch, H100), solve_ms(batch)
-        out[name] = {"scenarios": len(batch), "width": int(want.mask.shape[1]),
+            # the same solves with the step's body run uncaptured
+            K = int(want.mask.shape[1])
+            _, step = estimator_torch._step(estimator_torch._bucket(len(batch)), K, H100,
+                                            get_solver_device())
+            graph, step.graph = step.graph, None
+            try:
+                body_ms = solve_ms(batch, n=5)
+            finally:
+                step.graph = graph
+        out[name] = {"scenarios": len(batch), "width": K,
                      "max_rel_err_slowdowns": results_equal(name, want, got),
-                     "numpy_ms": np_ms, "torch_ms": t_ms}
+                     "numpy_ms": np_ms, "torch_ms": t_ms, "graph": step.name,
+                     "captured": step.graph is not None, "torch_uncaptured_ms": body_ms}
     emit(phase="solver_parity", tolerance={"rtol": 1e-9, "atol": 1e-9}, **out)
 
 
@@ -1312,6 +1512,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     records = phase_kernels()
+    floor_us = launch_floor_ms() * 1e3
+    emit(phase="launch_floor", floor_us=floor_us,
+         how="rt_empty (one block of one thread) through time_ms: 20 a CUDA graph")
     emit(phase="kernels", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
@@ -1346,6 +1549,12 @@ def main() -> int:
     emit(phase="falcon_mamba_done", seconds=time.perf_counter() - t0)
 
     emit(phase="total", seconds=time.perf_counter() - t_all)
+    for rec in records.values():
+        # rule 2's ranking: what a kernel's launches lose to the larger of
+        # its bound and the launch floor
+        rec["floor_us"] = floor_us
+        rec["launches_x_gap_ms"] = rec["launches"] * max(
+            0.0, rec["ms"] - max(rec["bound_ms"], floor_us / 1e3))
     emit(kernels=list(records.values()))
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

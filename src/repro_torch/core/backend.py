@@ -87,6 +87,12 @@ def solver_backend(name: str, device="cuda") -> Iterator[str]:
 
 def warmup_solver(dev, ks=(2, 3), buckets=None) -> int:
     """The reference compiles its jitted solver's shapes here; the torch
-    solver runs eagerly and compiles nothing, so this returns 0 on either
-    backend (schedulers may call it unconditionally)."""
-    return 0
+    solver captures the CUDA graphs of the same (bucket, K) shapes for the
+    device model ``dev`` (``estimator_torch.warmup``). Returns the number of
+    new graphs captured: 0 on the NumPy backend and on the CPU, so callers
+    may call it unconditionally."""
+    if get_solver_backend() != "torch":
+        return 0
+    from repro_torch.core import estimator_torch
+    kwargs = {} if buckets is None else {"buckets": tuple(buckets)}
+    return estimator_torch.warmup(dev, ks=tuple(ks), **kwargs)

@@ -18,14 +18,24 @@ equal to the NumPy oracle at 1e-9. The tensors live on the device that
 runs on the ``cache_share`` kernel (`repro_torch.kernels.cache_share`),
 on the CPU on its plain version. Batch sizes are bucketed up to powers of
 two, as in the reference, so a caller sees the same padded shapes.
+
+The reference jits the whole solve (``estimator_jax.py:_solve_padded``);
+here one solve of each (bucket, K, DeviceModel) is a step
+(``repro_torch.graphs``): its seven inputs packed into one static f64
+buffer, its five outputs into one, the device model's capacities baked in.
+On a CUDA device the step is captured into a CUDA graph at its first use
+(or by ``warmup``) and replayed; on the CPU the same body runs directly.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+import json
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import graphs
 from repro_torch.core.backend import get_solver_device
 from repro_torch.core.estimator import (CAP_REMAIN_FLOOR, DEMAND_EPS,
                                         FRACTION_FLOOR, OVERSUB_RTOL,
@@ -77,11 +87,12 @@ def _pick(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _solve(demand, duration, ws, hit, slots, frac, mask, cap_vec, cache_cap,
-           n_slots):
+           n_slots, per_slot):
     """The whole batch solve: exclusion zeroing, the cache-share stage, the
     freeze rounds and the epilogue. demand (S, K, A); the rest (S, K);
-    cap_vec (A,). Returns (speeds, slowdowns, frozen, axis_load, feasible)
-    as tensors."""
+    cap_vec (A,) f64 and per_slot (A,) bool (the axes that scale with the
+    slot fraction) on the device. Returns (speeds, slowdowns, frozen,
+    axis_load, feasible) as tensors."""
     S, K = mask.shape
     dev = mask.device
     excluded = mask & (frac <= FRACTION_FLOOR)
@@ -101,7 +112,6 @@ def _solve(demand, duration, ws, hit, slots, frac, mask, cap_vec, cache_cap,
     u = torch.where(t_col[..., None] > 0, (eff_col / t_col[..., None]) / cap_vec, zero)
     slot_scale = torch.where(frac < 1.0, torch.clamp(frac, min=FRACTION_FLOOR),
                              torch.ones_like(frac))
-    per_slot = torch.from_numpy(_PER_SLOT_MASK).to(dev)
     u = torch.where(per_slot, u / slot_scale[..., None], u)
     axis_load = u.sum(1)
 
@@ -175,12 +185,89 @@ def _solve(demand, duration, ws, hit, slots, frac, mask, cap_vec, cache_cap,
     return speeds, slowdowns, frozen, axis_load, feasible
 
 
+# the packed input: demand (S, K, A), then these (S, K) fields, the mask as 0 / 1
+_FIELDS = ("duration", "ws", "hit", "slots", "frac", "mask")
+
+
+def pack(mask, frac, demand, duration, ws, hit, slots) -> np.ndarray:
+    """The seven padded NumPy inputs of a solve as one flat f64 array, in
+    the order ``solve_packed`` reads them."""
+    return np.concatenate([demand.ravel(), duration.ravel(), ws.ravel(), hit.ravel(),
+                           slots.ravel(), frac.ravel(), mask.ravel()]).astype(np.float64)
+
+
+def solve_packed(buf, S, K, cap_vec, cache_cap, n_slots, per_slot) -> torch.Tensor:
+    """The solve's step body: ``buf`` as ``pack`` lays it out -> (S, 3K + A +
+    1) f64, the columns speeds, slowdowns, frozen axis, axis_load and
+    feasible (frozen and feasible exact as f64)."""
+    n = S * K
+    demand = buf[:n * _N_AXES].view(S, K, _N_AXES)
+    duration, ws, hit, slots, frac, mask = buf[n * _N_AXES:].view(len(_FIELDS), S, K).unbind(0)
+    speeds, slowdowns, frozen, axis_load, feasible = _solve(
+        demand, duration, ws, hit, slots, frac, mask != 0, cap_vec, cache_cap,
+        n_slots, per_slot)
+    return torch.cat([speeds, slowdowns, frozen.to(F64), axis_load,
+                      feasible.to(F64)[:, None]], 1)
+
+
+def unpack(out: np.ndarray, S: int, K: int) -> Tuple[np.ndarray, ...]:
+    """The first S rows of ``solve_packed``'s output as (speeds, slowdowns,
+    bottleneck, axis_load, feasible_slots), in the types the NumPy solver
+    returns."""
+    out = out[:S]
+    return (out[:, :K].copy(), out[:, K:2 * K].copy(),
+            out[:, 2 * K:3 * K].astype(np.int64), out[:, 3 * K:3 * K + _N_AXES].copy(),
+            out[:, -1] != 0)
+
+
+_steps: Dict[tuple, tuple] = {}    # (bucket, K, DeviceModel, device) -> (input, step)
+
+
+def _step(S: int, K: int, dev: DeviceModel, device: torch.device) -> tuple:
+    """The static input and the step of one (bucket, K, device model) on
+    ``device``, captured on a CUDA device at the first call (the capture's
+    time is printed as a JSON line)."""
+    key = (S, K, dev, device)
+    if key not in _steps:
+        inp = graphs.StaticInput(S * K * (_N_AXES + len(_FIELDS)), F64, device)
+        body = functools.partial(
+            solve_packed, inp.tensor, S, K,
+            torch.from_numpy(dev.capacity_vector()).to(device),
+            float(dev.cache_capacity), float(dev.n_slots),
+            torch.from_numpy(_PER_SLOT_MASK).to(device))
+        step = graphs.capture(body, device, f"solve_{S}x{K}_{dev.name}")
+        if step.graph is not None:
+            print(json.dumps({"graph_captured": step.name, "seconds": step.capture_s}),
+                  flush=True)
+        _steps[key] = (inp, step)
+    return _steps[key]
+
+
+def captured_steps() -> list:
+    """Every solver step made so far in this process."""
+    return [step for _, step in _steps.values()]
+
+
+def warmup(dev: DeviceModel, ks=(2, 3), buckets=(_MIN_BUCKET,)) -> int:
+    """Make the steps of the (bucket, K) shapes a scheduler will hit ahead
+    of time, on the backend's device; returns the number of new graphs
+    captured (0 on the CPU, where nothing is captured)."""
+    device = get_solver_device()
+    new = 0
+    for K in ks:
+        for S in buckets:
+            key = (_bucket(int(S)), int(K), dev, device)
+            if key not in _steps:
+                new += _step(*key)[1].graph is not None
+    return new
+
+
 def solve_gathered(mask, frac, demand, duration, ws, hit, slots,
                    dev: DeviceModel) -> Tuple[np.ndarray, ...]:
     """Entry point for `estimator.solve_batch`'s torch dispatch: takes the
     NumPy-gathered padded arrays, pads the batch up to its size bucket
-    (masked rows solve to no-ops), solves on the backend's device and
-    returns NumPy (speeds, slowdowns, bottleneck, axis_load,
+    (masked rows solve to no-ops), runs the bucket's step on the backend's
+    device and returns NumPy (speeds, slowdowns, bottleneck, axis_load,
     feasible_slots)."""
     S, K = mask.shape
     pad = _bucket(S) - S
@@ -193,12 +280,6 @@ def solve_gathered(mask, frac, demand, duration, ws, hit, slots,
         ws = np.pad(ws, z)
         hit = np.pad(hit, z)
         slots = np.pad(slots, z)
-    device = get_solver_device()
-
-    def t(a, dtype=F64):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
-
-    out = _solve(t(demand), t(duration), t(ws), t(hit), t(slots), t(frac),
-                 t(mask, torch.bool), t(dev.capacity_vector()),
-                 float(dev.cache_capacity), float(dev.n_slots))
-    return tuple(o.cpu().numpy()[:S] for o in out)
+    inp, step = _step(S + pad, K, dev, get_solver_device())
+    inp.write(pack(mask, frac, demand, duration, ws, hit, slots))
+    return unpack(step().cpu().numpy(), S, K)

@@ -60,6 +60,15 @@
 // The mask compares k_pos with q_pos + q_offset. With q_offset = 0 this is
 // the reference kernel; with q_offset = pos0 the S queries are a prefill
 // chunk at absolute positions pos0 .. pos0 + S - 1 over a cache prefix.
+//
+// A prefill step captured into a CUDA graph cannot bake the slot, pos0 or
+// the chunk's length into its launches: it passes `offsets`, a device array
+// [slot, pos0, c] written before each replay (attn_resolve). The queries are
+// then a chunk padded to its bucket, the keys and values are row `slot` of
+// the whole cache, T = pos0 + c of them valid; the number of splits is the
+// one planned at capture, their key ranges follow from this T inside the
+// kernels. A padded query sits at a position >= T and sees every valid key,
+// so no row is empty; its output is written and never read.
 #include "common.cuh"
 
 constexpr int FA_THREADS = 128;
@@ -77,12 +86,31 @@ struct AttnParams {
     float* part_m;               // (B, H, n_splits, S_pad), n_splits > 1 only
     float* part_l;
     float* part_acc;             // (B, H, n_splits, S_pad, D)
+    const long long* offsets;    // device [slot, pos0, c], or null
+    int kv_b0;                   // the k / v row of batch 0: the slot
     int S, T, H, KVH;
     int64_t q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh;
     int kind, window, q_offset;
     int chunk, n_splits;         // keys per split, splits (tensor-core body)
     float scale;
 };
+
+// The parameters as the kernels use them: with device offsets, the slot,
+// q_offset = pos0, T = pos0 + c (at most the view's length) and the keys of
+// a split, whole tiles, so that n_splits of them cover T. Every kernel of one
+// call reads the same offsets and so resolves the same values.
+__device__ __forceinline__ AttnParams attn_resolve(const AttnParams& in) {
+    AttnParams p = in;
+    if (p.offsets != nullptr) {
+        const long long slot = p.offsets[0], pos0 = p.offsets[1], c = p.offsets[2];
+        p.kv_b0 = (int)slot;
+        p.q_offset = (int)pos0;
+        p.T = (int)min((long long)p.T, pos0 + c);
+        const int n_tiles = max(1, (p.T + FA_BN - 1) / FA_BN);
+        p.chunk = (n_tiles + p.n_splits - 1) / p.n_splits * FA_BN;
+    }
+    return p;
+}
 
 // keys [n_lo, n_hi) that some query of the tile q0 .. q0 + bm - 1 may see;
 // n_lo is a multiple of the tile
@@ -107,7 +135,8 @@ constexpr int attn_smem_floats() {
 
 template <typename TQ, typename TK, int D, int BM>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const AttnParams p) {
+flash_attention_kernel(const AttnParams p_in) {
+    const AttnParams p = attn_resolve(p_in);
     constexpr int NT = FA_THREADS, BN = FA_BN;
     constexpr int RM = BM / 16;                    // query rows per thread
     constexpr int CN = BN / 8;                     // score columns per thread
@@ -129,8 +158,8 @@ flash_attention_kernel(const AttnParams p) {
     const int S = p.S, T = p.T;
 
     const TQ* qb = static_cast<const TQ*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const TK* kb = static_cast<const TK*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-    const TK* vb = static_cast<const TK*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+    const TK* kb = static_cast<const TK*>(p.k) + (b + p.kv_b0) * p.k_sb + kvh * p.k_sh;
+    const TK* vb = static_cast<const TK*>(p.v) + (b + p.kv_b0) * p.v_sb + kvh * p.v_sh;
     TQ* ob = static_cast<TQ*>(p.o) + b * p.o_sb + h * p.o_sh;
 
     load_tile<TQ, D, BM, NT>(Qs, LDQ, qb, p.q_ss, q0, S);
@@ -287,7 +316,8 @@ __device__ __forceinline__ void attn_used_splits(const AttnParams& p, int q0,
 
 template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attention_mma_kernel(const AttnParams p) {
+flash_attention_mma_kernel(const AttnParams p_in) {
+    const AttnParams p = attn_resolve(p_in);
     constexpr int BM = FA_MMA_BM, BN = FA_BN, NT = FA_THREADS;
     constexpr int CH = D / 8;                      // 16-byte chunks per row
     constexpr int KSTEPS = D / 16;                 // k-steps of Q Kᵀ
@@ -321,8 +351,8 @@ flash_attention_mma_kernel(const AttnParams p) {
     const int n_tiles = s_hi > s_lo ? (s_hi - s_lo + BN - 1) / BN : 0;
 
     const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-    const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+    const bf16* kb = static_cast<const bf16*>(p.k) + (b + p.kv_b0) * p.k_sb + kvh * p.k_sh;
+    const bf16* vb = static_cast<const bf16*>(p.v) + (b + p.kv_b0) * p.v_sb + kvh * p.v_sh;
 
     // Q with the first K / V tile in one group, then the next STAGES - 2
     // tiles; rows past S or T are zeros
@@ -509,7 +539,8 @@ flash_attention_mma_kernel(const AttnParams p) {
 // columns), each split's loads issued before any is used.
 template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attention_merge_kernel(const AttnParams p) {
+flash_attention_merge_kernel(const AttnParams p_in) {
+    const AttnParams p = attn_resolve(p_in);
     constexpr int TPR = D / 4;                     // threads a row
     constexpr int RPB = FA_THREADS / TPR;          // rows a block
     const int h = blockIdx.y, b = blockIdx.z;
@@ -604,11 +635,15 @@ static int dispatch_mma(const AttnParams& p, int B, int D, cudaStream_t stream) 
 // with 1 < n_splits <= 4, part_m / part_l (B, H, n_splits, S_pad) and part_acc
 // (B, H, n_splits, S_pad, D), S_pad = S rounded up to 64, are f32 scratch
 // the caller allocates); f32 queries run the FMA body with bm = 32 or 64
-// and no split. Returns cudaGetLastError(), or -1 for a shape or plan the
-// kernels do not take.
+// and no split. offsets: null, or a device int64 array [slot, pos0, c]
+// (q_offset 0): batch b reads k / v row slot + b, the mask takes q_offset =
+// pos0 and the keys end at min(T, pos0 + c), T being the view's length (the
+// cache's positions), and the plan's n_splits stays while each split's keys
+// are worked out from that end. Returns cudaGetLastError(), or -1 for a shape
+// or plan the kernels do not take.
 extern "C" int rt_flash_attention(
         const void* q, const void* k, const void* v, void* o,
-        void* part_m, void* part_l, void* part_acc,
+        void* part_m, void* part_l, void* part_acc, const void* offsets,
         int B, int S, int T, int H, int KVH, int D,
         long long q_sb, long long q_ss, long long q_sh,
         long long k_sb, long long k_st, long long k_sh,
@@ -618,11 +653,14 @@ extern "C" int rt_flash_attention(
         int bm, int chunk, int n_splits, void* stream) {
     if (KVH <= 0 || H % KVH != 0) return -1;
     if (kind != RT_CAUSAL && kind != RT_LOCAL && kind != RT_BIDIRECTIONAL) return -1;
+    if (offsets != nullptr && q_offset != 0) return -1;
     AttnParams p;
     p.q = q; p.k = k; p.v = v; p.o = o;
     p.part_m = static_cast<float*>(part_m);
     p.part_l = static_cast<float*>(part_l);
     p.part_acc = static_cast<float*>(part_acc);
+    p.offsets = static_cast<const long long*>(offsets);
+    p.kv_b0 = 0;
     p.S = S; p.T = T; p.H = H; p.KVH = KVH;
     p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
     p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;

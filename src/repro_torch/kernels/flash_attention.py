@@ -16,6 +16,15 @@ partial ``(m, l, acc)`` a second kernel merges as ``flash_decode`` does.
 (``k_pos <= q_pos + q_offset``). At 0 this is the reference kernel; at
 ``pos0`` the S queries are a prefill chunk at absolute positions
 ``pos0 .. pos0 + S - 1`` over the first ``pos0 + S`` rows of a cache.
+
+``offsets`` is the same chunk in a step captured into a CUDA graph, where no
+host value may change between replays: a device int64 tensor ``[slot,
+pos0, c]``. Batch b of q then reads row ``slot + b`` of k and v (the whole
+cache), the mask takes ``q_offset = pos0``, and only the first ``T = pos0 +
+c`` keys are valid; q is the chunk padded to its bucket (rows past c sit at
+positions >= T, see every valid key, and are never read). The split of the
+keys is planned from the cache's length and fixed; the kernels work out
+each split's keys from T.
 """
 from __future__ import annotations
 
@@ -69,15 +78,22 @@ def _sm_count(device: torch.device) -> int:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kind: str = "causal", window: int = 0,
-                          q_offset: int = 0) -> torch.Tensor:
+                          q_offset: int = 0, offsets=None) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, T, KVH, D). Scores and softmax in f32,
     masked scores set to -1e30, the weights cast to ``v.dtype`` before the
     weighted sum, which comes out in ``v.dtype``. Returns (B, S, H, D) in
-    ``q.dtype``."""
+    ``q.dtype``. With ``offsets`` (a tensor ``[slot, pos0, c]``) k and v are
+    the whole cache and the values are read on the device, as the kernel
+    reads them: rows ``slot ..`` of k and v, ``q_offset = pos0``, keys at
+    ``pos0 + c`` and beyond masked."""
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
+    if offsets is not None:
+        rows = offsets[0] + torch.arange(B, device=q.device)
+        k, v = k.index_select(0, rows), v.index_select(0, rows)
+        q_offset = offsets[1]
     qg = q.reshape(B, S, KVH, H // KVH, D).float()
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(D)
     q_pos = torch.arange(S, device=q.device)[:, None] + q_offset
@@ -88,6 +104,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ok = (k_pos <= q_pos) & (k_pos > q_pos - window)
     else:
         ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if offsets is not None:
+        ok = ok & (k_pos < offsets[1] + offsets[2])
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1).to(v.dtype).float()
     o = torch.einsum("bkgst,btkd->bskgd", w, v.float())
@@ -96,20 +114,32 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kind: str = "causal", window: int = 0,
-                    q_offset: int = 0, kv_splits: int = 0) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, T, KVH, D), possibly strided views. A
+                    q_offset: int = 0, kv_splits: int = 0,
+                    offsets=None) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, T, KVH, D), possibly strided views, or
+    with ``offsets`` (a device int64 tensor ``[slot, pos0, c]``, q_offset 0)
+    the whole cache, of which rows ``slot .. slot + B - 1`` are read. A
     tensor on the CPU takes the plain version; a CUDA tensor launches the
     kernel or raises. ``kv_splits`` overrides the plan's split of the keys
     (bf16 only; 0: the plan's own)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kind, window, q_offset)
+        return flash_attention_plain(q, k, v, kind, window, q_offset, offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
-    if k.shape != (B, T, KVH, D) or v.shape != k.shape:
+    if offsets is not None:
+        if (offsets.shape != (3,) or offsets.dtype != torch.int64
+                or offsets.device != q.device or q_offset != 0):
+            raise ValueError("flash_attention: offsets must be a (3,) int64 tensor "
+                             "[slot, pos0, c] on q's device, with q_offset 0")
+        offsets = offsets.contiguous()
+    elif k.shape[0] != B:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} do not fit")
+    if k.shape[1:] != (T, KVH, D) or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} do not fit")
     _build.check_dtypes("flash_attention", q, k, v)
@@ -141,6 +171,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         *((part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr())
           if n_splits > 1 else (None, None, None)),
+        None if offsets is None else offsets.data_ptr(),
         B, S, T, H, KVH, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),

@@ -13,13 +13,15 @@ from repro_torch.kernels import ssm_scan as _ssm
 
 
 def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
-                    softcap: float = 0.0, q_offset: int = 0):
+                    softcap: float = 0.0, q_offset: int = 0, offsets=None):
     """q (B,S,H,D); k/v (B,T,KVH,D) -> (B,S,H,D). The mask compares
-    ``k_pos`` with ``q_pos + q_offset``. (softcap is not in the kernel and
-    is refused.)"""
+    ``k_pos`` with ``q_pos + q_offset``; ``offsets``, a device tensor
+    ``[slot, pos0, c]``, puts slot, pos0 and the valid keys in device memory
+    (``kernels/flash_attention.py``). (softcap is not in the kernel and is
+    refused.)"""
     if softcap:
         raise NotImplementedError("softcap is not implemented in the kernel")
-    return _fa.flash_attention(q, k, v, kind, window, q_offset)
+    return _fa.flash_attention(q, k, v, kind, window, q_offset, offsets=offsets)
 
 
 def flash_decode(q, k, v, kv_len):

@@ -21,8 +21,10 @@ from repro_torch.serve import Engine, EngineConfig
 def serve(cfg, ecfg: EngineConfig, prompts, max_new: int, device="cuda",
           params=None):
     """Run ``prompts`` through a fresh engine to completion.
-    Returns (engine, metrics, seconds); the clock stops after the device
-    has finished."""
+    Returns (engine, metrics, seconds); the clock starts after the engine
+    is built (on the card its steps are captured then, as the reference
+    compiles them before its clock) and stops after the device has
+    finished."""
     eng = Engine(cfg, params=params, ecfg=ecfg, device=device)
     for prompt in prompts:
         eng.submit(prompt, max_new=max_new)

@@ -119,17 +119,16 @@ def decode_attention(q, cache_k, cache_v, kv_len) -> torch.Tensor:
     return ops.flash_decode(q, cache_k, cache_v, kv_len)
 
 
-def chunk_attention(q, cache_k, cache_v, pos0: int, softcap: float = 0.0
-                    ) -> torch.Tensor:
-    """Chunked-prefill attention: C new queries (absolute positions
-    pos0..pos0+C-1) over a cache whose first pos0+C rows are valid, on the
-    flash-attention kernel with ``q_offset = pos0``. The rows beyond
-    pos0+C-1 are masked for every query, so only the valid prefix is handed
-    over (a strided view, not a copy).
-    q: (B, C, H, D); cache_{k,v}: (B, Smax, KVH, D); pos0: int."""
-    n = pos0 + q.shape[1]
-    return ops.flash_attention(q, cache_k[:, :n], cache_v[:, :n],
-                               kind="causal", softcap=softcap, q_offset=pos0)
+def chunk_attention(q, cache_k, cache_v, offsets: torch.Tensor,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Chunked-prefill attention: the queries of a chunk of c tokens at
+    absolute positions pos0.. (padded to C >= c rows) over the first pos0 +
+    c rows of the cache row ``slot``, on the flash-attention kernel, which
+    reads ``offsets = [slot, pos0, c]`` from device memory. A padded query
+    sees every valid key and its output is never read.
+    q: (1, C, H, D); cache_{k,v}: (B_slots, Smax, KVH, D), a layer's cache."""
+    return ops.flash_attention(q, cache_k, cache_v, kind="causal",
+                               softcap=softcap, offsets=offsets)
 
 
 def self_attention_block(p: Params, a: AttentionConfig, x: torch.Tensor, *,
@@ -145,17 +144,34 @@ def self_attention_block(p: Params, a: AttentionConfig, x: torch.Tensor, *,
     return o.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
+def chunk_rows(offsets: torch.Tensor, C: int, smax: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The positions (1, C) of a chunk's C rows, ``pos0 + i``, and the flat
+    cache rows (C,) that take their keys and values: row ``pos0 + i`` of
+    slot ``slot`` for the c real tokens, the trash position ``smax - 1`` for
+    the padding (so that a chunk whose bucket reaches past the cache writes
+    nothing out of bounds). offsets: ``[slot, pos0, c]`` on the device."""
+    i = torch.arange(C, device=offsets.device)
+    pos = offsets[1] + i
+    rows = offsets[0] * smax + torch.where(i < offsets[2], pos, smax - 1)
+    return pos[None, :], rows
+
+
 def extend_self_attention(p: Params, a: AttentionConfig, x: torch.Tensor,
-                          cache_k, cache_v, pos0: int) -> torch.Tensor:
-    """Chunked-prefill step for one self-attn block: project C tokens,
-    write their k/v into the caches at [pos0:pos0+C] in place, attend over
-    the whole prefix. cache_{k,v}: (B, Smax, KVH, D) views of the cache."""
+                          cache_k, cache_v, offsets: torch.Tensor,
+                          positions: torch.Tensor, rows: torch.Tensor
+                          ) -> torch.Tensor:
+    """Chunked-prefill step for one self-attn block: project the chunk's C
+    rows (x (1, C, d)), write their k/v into the cache rows ``rows`` in
+    place, attend over the valid prefix of the slot. cache_{k,v}: (B_slots,
+    Smax, KVH, D), a layer's cache; offsets, positions and rows as
+    ``chunk_rows`` gives them."""
     B, C = x.shape[:2]
-    positions = (pos0 + torch.arange(C, device=x.device))[None, :].expand(B, C)
     q, k, v = project_qkv(p, a, x, positions=positions)
-    cache_k[:, pos0:pos0 + C] = k.to(cache_k.dtype)
-    cache_v[:, pos0:pos0 + C] = v.to(cache_v.dtype)
-    o = chunk_attention(q, cache_k, cache_v, pos0, softcap=a.softcap)
+    KVH, D = cache_k.shape[-2:]
+    cache_k.view(-1, KVH, D).index_copy_(0, rows, k[0].to(cache_k.dtype))
+    cache_v.view(-1, KVH, D).index_copy_(0, rows, v[0].to(cache_v.dtype))
+    o = chunk_attention(q, cache_k, cache_v, offsets, softcap=a.softcap)
     return o.reshape(B, C, -1) @ p["wo"]
 
 

@@ -87,14 +87,19 @@ def uniform_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = Fal
 
 
 def uniform_stack_extend(sp: Params, cfg: ModelConfig, x, cache_k, cache_v,
-                         pos0: int):
-    """Chunked prefill: run C tokens through the stack, extending the
-    caches in place (the engine's path for continuous batching).
-    cache_{k,v}: (L, B, Smax, KVH, D) views of the cache."""
+                         offsets: torch.Tensor):
+    """Chunked prefill: run a chunk through the stack, extending the caches
+    in place (the engine's path for continuous batching). x (1, C, d): c
+    tokens padded to C rows; cache_{k,v}: (L, B_slots, Smax, KVH, D), the
+    whole cache; offsets: an int64 tensor ``[slot, pos0, c]`` on the
+    cache's device, read there, so that one captured step serves every
+    chunk of C rows (the reference traces slot and pos0 the same way). The
+    padding's keys and values go to the trash position Smax - 1."""
+    positions, rows = attn.chunk_rows(offsets, x.shape[1], cache_k.shape[2])
     for i, lp in enumerate(unstack(sp)):
         x = x + attn.extend_self_attention(
             lp["attn"], cfg.attn, rmsnorm(lp["ln1"], x, cfg.norm_eps),
-            cache_k[i], cache_v[i], pos0)
+            cache_k[i], cache_v[i], offsets, positions, rows)
         x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg.act)
     return x
 

@@ -11,10 +11,15 @@ The paper's findings drive the scheduler:
 
 Supported family: dense decoders with global attention. The two steps
 (decode, extend) update the KV cache in place and run, on a CUDA device,
-on the RMSNorm, flash-decode and flash-attention kernels.
+on the RMSNorm, flash-decode and flash-attention kernels. As the reference
+jits them, the port captures them (``repro_torch.graphs``): on a CUDA
+device the decode step and one extend step for each chunk bucket are CUDA
+graphs over static buffers, captured when the engine is built and replayed
+on every step; on the CPU the same bodies run directly.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -22,9 +27,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (H100, DeviceModel, KernelProfile, Scenario,
-                              solve_scenarios)
+                              solve_scenarios, warmup_solver)
 from repro_torch.core.resources import RESOURCE_AXES
 from repro_torch.models import build_model
 from repro_torch.models import transformer as tfm
@@ -33,6 +39,41 @@ from repro_torch.serve.kvcache import Sequence, SlotAllocator
 
 
 _MIN_CHUNK = 16      # smallest prefill chunk the scheduler will schedule
+
+
+def chunk_bucket(c: int) -> int:
+    """The rows a prefill chunk of c tokens is padded to: the next power of
+    two, at least ``_MIN_CHUNK``. One extend step serves each bucket."""
+    b = _MIN_CHUNK
+    while b < c:
+        b <<= 1
+    return b
+
+
+# The two step bodies take what they use, not the engine: a step that held
+# the engine would make a cycle, and a dropped engine would keep its cache
+# and graphs on the card until the garbage collector ran.
+@torch.no_grad()
+def decode_body(model, params, cache, inp: torch.Tensor) -> torch.Tensor:
+    """inp (2B,): the slots' tokens, then their positions -> logits
+    (B,1,V) f32. One token for every slot; the cache is updated in place."""
+    B = inp.shape[0] // 2
+    logits, _ = model.decode_step(params, inp[:B, None], cache, inp[B:])
+    return logits
+
+
+@torch.no_grad()
+def extend_body(cfg: ModelConfig, params, cache, bucket: int,
+                inp: torch.Tensor) -> torch.Tensor:
+    """inp: ``[slot, pos0, c]`` and the chunk's tokens, padded to
+    ``bucket`` -> logits of the chunk's last real position (1,1,V) f32.
+    The chunk's keys and values go into the slot's rows of the cache in
+    place, the padding's to the trash position."""
+    offsets = inp[:3]
+    x = embed(params["embed"], inp[3:3 + bucket][None], scale_by_dim=cfg.embed_scale)
+    x = tfm.uniform_stack_extend(params["stack"], cfg, x, cache["k"], cache["v"], offsets)
+    x = rmsnorm(params["final_ln"], x.index_select(1, offsets[2:] - 1), cfg.norm_eps)
+    return unembed(params["embed"], x)
 
 
 @dataclass
@@ -86,6 +127,10 @@ class Engine:
         self.metrics: Dict[int, dict] = {}
         self._next_id = 0
         self.degraded = False
+        self._build_steps()
+        # the chunk pricing's solve (one scenario per candidate, 2 members)
+        # is captured ahead of time where the solver runs on the card
+        warmup_solver(self.dev, ks=(2,), buckets=(8,))
 
     def set_degraded(self, flag: bool, reason: str = "") -> None:
         """Fleet hook: the engine's device is oversubscribed (straggling,
@@ -100,26 +145,51 @@ class Engine:
                 time.perf_counter(), {"reason": reason}))
 
     # -------------------------- the two steps --------------------- #
-    @torch.no_grad()
-    def _decode(self, tokens: torch.Tensor, pos_vec: torch.Tensor) -> torch.Tensor:
-        """One token for every slot; the cache is updated in place.
-        tokens (B,1), pos_vec (B,) -> logits (B,1,V) f32."""
-        logits, _ = self.model.decode_step(self.params, tokens, self.cache,
-                                           pos_vec)
-        return logits
+    def _build_steps(self) -> None:
+        """The twins of the reference's ``_build_steps``: the decode step,
+        and the extend step once for every chunk bucket from ``_MIN_CHUNK``
+        up to the cache's length, over two static inputs. On a CUDA device
+        each is captured here, before any request is admitted; the warm-up
+        before each capture writes only the trash position."""
+        B, n = self.ecfg.max_slots, self.ecfg.max_len
+        self._decode_in = graphs.StaticInput(2 * B, torch.int64, self.device)
+        self._decode_in.write(np.r_[np.zeros(B, np.int64), np.full(B, n, np.int64)])
+        self.steps = {"decode": graphs.capture(
+            functools.partial(decode_body, self.model, self.params, self.cache,
+                              self._decode_in.tensor), self.device, "decode")}
+        buckets = [chunk_bucket(n)]
+        while buckets[0] > _MIN_CHUNK:
+            buckets.insert(0, buckets[0] // 2)
+        self._extend_in = graphs.StaticInput(3 + buckets[-1], torch.int64, self.device)
+        self._extend_in.write([0, n, 1])             # one token at the trash position
+        for b in buckets:
+            self.steps[b] = graphs.capture(
+                functools.partial(extend_body, self.cfg, self.params, self.cache, b,
+                                  self._extend_in.tensor), self.device, f"extend_{b}")
 
-    @torch.no_grad()
-    def _extend(self, tokens: torch.Tensor, slot: int, pos0: int) -> torch.Tensor:
-        """One prefill chunk of one slot, written into the slot's rows of
-        the cache in place (views, no copy of the cache).
-        tokens (1,C) -> logits of the chunk's last position (1,1,V) f32."""
-        cfg, params = self.cfg, self.params
-        x = embed(params["embed"], tokens, scale_by_dim=cfg.embed_scale)
-        ck = self.cache["k"][:, slot:slot + 1]
-        cv = self.cache["v"][:, slot:slot + 1]
-        x = tfm.uniform_stack_extend(params["stack"], cfg, x, ck, cv, pos0)
-        x = rmsnorm(params["final_ln"], x[:, -1:], cfg.norm_eps)
-        return unembed(params["embed"], x)
+    def _decode(self, tokens, pos) -> torch.Tensor:
+        """tokens (B,) or (B,1) and positions (B,), host integers -> logits
+        (B,1,V) f32 on the device: the decode step's output buffer, which
+        the next step overwrites (``step`` samples from it first)."""
+        self._decode_in.write(np.r_[np.asarray(tokens, np.int64).reshape(-1),
+                                    np.asarray(pos, np.int64).reshape(-1)])
+        return self.steps["decode"]()
+
+    def _extend(self, tokens, slot: int, pos0: int) -> torch.Tensor:
+        """One prefill chunk of c tokens (host integers) of one slot, from
+        position pos0, run by the step of its bucket -> logits of its last
+        position (1,1,V) f32 on the device, in the step's output buffer."""
+        tokens = np.asarray(tokens, np.int64).reshape(-1)
+        c = tokens.size
+        if c < 1 or pos0 < 0 or pos0 + c > self.ecfg.max_len:
+            raise ValueError(f"extend: {c} tokens at {pos0} do not fit "
+                             f"max_len {self.ecfg.max_len}")
+        b = chunk_bucket(c)
+        inp = np.zeros(3 + b, np.int64)
+        inp[:3] = slot, pos0, c
+        inp[3:3 + c] = tokens
+        self._extend_in.write(inp)
+        return self.steps[b]()
 
     # ------------------------------------------------------------- #
     def submit(self, prompt: List[int], max_new: int = 16) -> int:
@@ -209,19 +279,17 @@ class Engine:
         if prefilling:
             seq = prefilling[0]
             chunk = self._pick_chunk(seq, len(decoding))
-            tok = np.asarray(seq.tokens[seq.pos:seq.pos + chunk],
-                             np.int64)[None, :]
-            logits = self._extend(torch.from_numpy(tok).to(self.device),
-                                  seq.slot, seq.pos)
-            last_chunk = seq.pos + tok.shape[1] >= seq.prompt_len
+            tok = seq.tokens[seq.pos:seq.pos + chunk]
+            logits = self._extend(tok, seq.slot, seq.pos)
+            last_chunk = seq.pos + len(tok) >= seq.prompt_len
             # the host waits for the device only where it needs a value:
             # the first generated token, after the prompt's last chunk
             nxt = self._sample(logits[:, -1])[0] if last_chunk else None
             self.events.append(StepEvent(
                 "prefill_chunk", now(),
-                {"seq": seq.seq_id, "chunk": int(tok.shape[1]),
+                {"seq": seq.seq_id, "chunk": len(tok),
                  "colocated_decodes": len(decoding)}))
-            seq.pos += tok.shape[1]
+            seq.pos += len(tok)
             if last_chunk:
                 seq.tokens.append(nxt)
                 seq.first_token_time = now()
@@ -235,8 +303,7 @@ class Engine:
             for s in decoding:
                 tokens[s.slot, 0] = s.tokens[-1]
                 pos[s.slot] = s.pos - 1   # position of the token being fed
-            logits = self._decode(torch.from_numpy(tokens).to(self.device),
-                                  torch.from_numpy(pos).to(self.device))
+            logits = self._decode(tokens, pos)
             # the sampled ids reach the host before the event is stamped, so
             # the gap between decode events measures the device's work and
             # not the enqueueing of its launches

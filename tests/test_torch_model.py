@@ -188,7 +188,8 @@ def _extend_in_chunks(m, p, tt, cache, chunks):
     x = None
     for pos0, n in chunks:
         x = layers.embed(p["embed"], tt[:, pos0:pos0 + n])
-        x = tfm.uniform_stack_extend(p["stack"], m.cfg, x, cache["k"], cache["v"], pos0)
+        offsets = torch.tensor([0, pos0, n])            # slot, pos0, c
+        x = tfm.uniform_stack_extend(p["stack"], m.cfg, x, cache["k"], cache["v"], offsets)
     return x
 
 

@@ -287,20 +287,28 @@ def test_temperature_sampling_keeps_the_reference_s_behaviour():
 
 
 # ----------------------------- cross-package --------------------------- #
-@pytest.mark.parametrize("mode", ["serial", "interference_aware"])
-def test_both_engines_give_the_same_tokens_and_chunks(mode):
+@pytest.mark.parametrize("mode,chunk,lengths", [
+    pytest.param("serial", 32, (9, 70, 41, 120), id="serial"),
+    pytest.param("interference_aware", 32, (9, 70, 41, 120), id="interference_aware"),
+    pytest.param("fixed_chunk", 32, (9, 70, 41, 120), id="fixed_chunk"),
+    # the 150-token prompt's last chunk, 50 tokens at position 100, runs at
+    # the 64-row bucket: past the cache's 161 rows
+    pytest.param("fixed_chunk", 100, (9, 150, 41, 120), id="capacity_crossing"),
+])
+def test_both_engines_give_the_same_tokens_and_chunks(mode, chunk, lengths):
     """Same converted f32 weights, same prompts, same DeviceModel: the same
-    output tokens and the same sequence of prefill_chunk sizes."""
+    output tokens and the same sequence of prefill_chunk sizes (the port
+    pads every chunk to its bucket; the events carry the real sizes)."""
     jcfg = jax_tiny_config(jax_get_config("qwen3-1.7b")).with_overrides(
         param_dtype="float32", attn_impl="reference")
     cfg = CFG.with_overrides(param_dtype="float32")
-    kw = dict(max_slots=2, max_len=160, prefill_chunk=32, mode=mode, tbt_slo_ms=1e-6)
+    kw = dict(max_slots=2, max_len=160, prefill_chunk=chunk, mode=mode, tbt_slo_ms=1e-6)
     jeng = JaxEngine(jcfg, ecfg=JaxEngineConfig(**kw), dev=JAX_H100,
                      key=jax.random.PRNGKey(0))
     params = from_jax_params(jax.tree.map(np.asarray, jeng.params), device="cpu")
     eng = Engine(cfg, params=params, ecfg=EngineConfig(**kw), dev=H100)
     rng = np.random.default_rng(5)
-    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (9, 70, 41, 120)]
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in lengths]
     for e in (jeng, eng):
         e.submit(prompts[0], max_new=12)
         for _ in range(3):                    # the first request is decoding ...
@@ -319,7 +327,9 @@ def test_both_engines_give_the_same_tokens_and_chunks(mode):
 
     assert trace(eng) == trace(jeng)
     chunks = [c for kind, c, _, _ in trace(eng) if kind == "prefill_chunk"]
-    assert len(chunks) >= (4 if mode == "serial" else 8)
+    want = {"serial": 4, "interference_aware": 8}.get(
+        mode, sum(-(-n // chunk) for n in lengths))
+    assert len(chunks) >= want
 
 
 def test_token_out_of_vocabulary_raises():
