@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, times them at the shapes their paths
-give them, and drives four paths, counting the kernels' launches on each:
+give them, and drives five paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
     continuous-batching engine (rmsnorm, flash_attention, flash_decode),
@@ -25,7 +25,12 @@ give them, and drives four paths, counting the kernels' launches on each:
     scenarios on both backends;
   * falcon-mamba-7b at full width and depth through the model facade:
     prefill and greedy decode steps on the selective scan (ssm_scan,
-    rmsnorm).
+    rmsnorm);
+  * zamba2-1.2b at full width and depth through the model facade: Mamba-2
+    layers (the SSD in f32 products, the gated norm on rmsnorm) and the one
+    shared attention block at head_dim 64 (flash_attention in prefill,
+    flash_decode in decode), with the three kernels checked and timed at
+    the path's shapes.
 
 Every phase prints JSON lines; any failure ends the run with a non-zero
 exit code. Without a CUDA device the script fails: nothing runs on the CPU.
@@ -72,6 +77,7 @@ from repro_torch.kernels import stressors as st_mod  # noqa: E402
 from repro_torch.launch import gpu_native  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.hybrid import hybrid_split  # noqa: E402
 from repro_torch.core.scenario import Scenario  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig  # noqa: E402
 from repro_torch.serve.engine import chunk_bucket  # noqa: E402
@@ -423,22 +429,27 @@ def check_flash_attention(rng) -> float:
     return worst
 
 
-def time_rmsnorm(rng, shape) -> dict:
-    x = randn(rng, shape, BF)
+def time_rmsnorm(rng, shape, copies: int = 1) -> dict:
+    """``copies`` > 1 walks over that many inputs, so that a shape whose
+    bytes fit in the L2 cache (50 MB) is read cold, as its bound counts."""
+    xs = [randn(rng, shape, BF) for _ in range(copies)]
     s = randn(rng, (shape[-1],), F32)
     sb = s.to(BF)
-    n = x.numel()
+    n = xs[0].numel()
     b_ms, by = bound(2 * n * 2 + s.numel() * 4, 4 * n, F32)
-    return {"shape": list(shape), "dtype": "bfloat16",
-            **time_ms(lambda i: rms_mod.rmsnorm(x, s)),
-            "plain_ms": time_ms(lambda i: rms_mod.rmsnorm_plain(x, s))["ms"],
-            "library_ms": time_ms(lambda i: F.rms_norm(x, (shape[-1],), sb, 1e-6))["ms"],
+    return {"shape": list(shape), "dtype": "bfloat16", "copies": copies,
+            **time_ms(lambda i: rms_mod.rmsnorm(xs[i], s), copies),
+            "plain_ms": time_ms(lambda i: rms_mod.rmsnorm_plain(xs[i], s), copies)["ms"],
+            "library_ms": time_ms(lambda i: F.rms_norm(xs[i], (shape[-1],), sb, 1e-6),
+                                  copies)["ms"],
             "bound_ms": b_ms, "bound_by": by}
 
 
-def time_flash_decode(rng, kv_len, label) -> dict:
-    B, H, KVH, D, T, L = 8, 16, 8, 128, 1025, 6       # 6 layers of cache: 200 MB,
-    ck, cv = path_cache(rng, L, B, T, KVH, D, BF)      # so the L2 cache is cold
+def time_flash_decode(rng, kv_len, label, B=8, H=16, KVH=8, D=128, T=1025) -> dict:
+    """One decode step's attention over ``L`` layers' caches (qwen3-1.7b's
+    serve by default: 200 MB, so the L2 cache is cold)."""
+    L = 6
+    ck, cv = path_cache(rng, L, B, T, KVH, D, BF)
     q = randn(rng, (B, 1, H, D), BF)
     lens = torch.tensor(kv_len, device=DEV)
     valid = (torch.arange(T, device=DEV)[None] < lens[:, None])[:, None, None, :]
@@ -1385,32 +1396,35 @@ def phase_solver(params, scenarios, records: dict) -> None:
 
 
 # --------------------------------------------------------------------- #
-#  phase 8: falcon-mamba-7b at full width                                #
+#  phases 8 and 9: the model facade at full width (falcon-mamba, zamba2) #
 # --------------------------------------------------------------------- #
-def phase_falcon_mamba(records: dict) -> None:
-    """falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192, N 16, vocab
-    65024, bf16, seeded random weights) through the model facade: a
-    prefill of 4 prompts of 1,024 tokens and 32 greedy decode steps, each
-    step timed by the host clock until its ids are on the host; the launches
-    of the run; a decode step's profile; and the logits checked at the
-    reference's bf16 tolerance against the plain versions (a 128-token
-    prefill and one step) and decode against forward."""
-    cfg = get_config("falcon-mamba-7b")
-    L, B, S, n_dec = cfg.n_layers, 4, 1024, 32
+def facade_weights(cfg):
+    """The model at full width and depth on the card, bf16 weights drawn
+    from seed 0. Returns (model, params, the weights' record)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     t0 = time.perf_counter()
     m = build_model(cfg, device=DEV)
     params = m.init(gen)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    emit(phase="falcon_weights", config=cfg.name, n_params=n_params, dtype=cfg.param_dtype,
-         bytes=sum(t.numel() * t.element_size() for t in _leaves(params)),
-         seconds=time.perf_counter() - t0)
+    return m, params, {
+        "config": cfg.name, "n_params": sum(t.numel() for t in _leaves(params)),
+        "dtype": cfg.param_dtype,
+        "bytes": sum(t.numel() * t.element_size() for t in _leaves(params)),
+        "seconds": time.perf_counter() - t0}
+
+
+def facade_generate(m, params, B: int, S: int, n_dec: int) -> tuple:
+    """A prefill of B seeded prompts of S tokens and ``n_dec`` greedy decode
+    steps (positions S .. S + n_dec - 1, a cache of S + n_dec), each step
+    timed by the host clock until its ids are on the host, the kernels'
+    launches counted over the run (after one short unmeasured run: the
+    first launches load code). Returns (the run's record, the launches,
+    the prompt, the last ids, the cache)."""
+    cfg = m.cfg
     rng = np.random.default_rng(1)
     prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, S))).to(DEV)
     with torch.no_grad():
-        # one short unmeasured run first: the first launches load code
         logits, cache = m.prefill(params, {"tokens": prompt[:, :64]}, S)
         m.decode_step(params, logits.argmax(-1), cache, 64)
         torch.cuda.synchronize()
@@ -1431,18 +1445,57 @@ def phase_falcon_mamba(records: dict) -> None:
         used = counts()
     ids = torch.cat(ids, 1)
     if not torch.isfinite(logits).all() or not ((ids >= 0) & (ids < cfg.vocab_size)).all():
-        raise AssertionError("falcon-mamba: logits not finite or an id out of range")
+        raise AssertionError(f"{cfg.name}: logits not finite or an id out of range")
+    run = {"config": cfg.name, "batch": B, "prompt_tokens": S, "decode_steps": n_dec,
+           "prefill_ms": prefill_s * 1e3, "prefill_tokens_per_s": B * S / prefill_s,
+           "decode_step_ms_median": statistics.median(steps) * 1e3,
+           "decode_step_ms_max": max(steps) * 1e3,
+           "decode_tokens_per_s": B * n_dec / sum(steps),
+           "tokens_per_s": B * (1 + n_dec) / (prefill_s + sum(steps)),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": used,
+           "ids_of_request_0": ids[0].tolist()}
+    return run, used, prompt, tok, cache
+
+
+def facade_logits(m, params, prompt) -> dict:
+    """The kernels against the plain versions through the facade, at the
+    reference's bf16 tolerance: a 128-token prefill and one decode step;
+    then prefill and decode against forward at their positions."""
+    name, short, errs = m.cfg.name, prompt[:, :128], {}
+    with torch.no_grad():
+        got, got_cache = m.prefill(params, {"tokens": short}, 129)
+        with plain_versions():
+            plain, plain_cache = m.prefill(params, {"tokens": short}, 129)
+        errs["prefill_128"] = logits_close(f"{name} prefill", got, plain)
+        nxt = got.argmax(-1)
+        got_d, _ = m.decode_step(params, nxt, got_cache, 128)
+        with plain_versions():
+            plain_d, _ = m.decode_step(params, nxt, plain_cache, 128)
+        errs["decode"] = logits_close(f"{name} decode", got_d, plain_d)
+        full = m.forward(params, {"tokens": torch.cat([short, nxt], 1)})
+        errs["prefill_vs_forward"] = logits_close(f"{name} prefill vs forward",
+                                                  got[:, 0], full[:, 127])
+        errs["decode_vs_forward"] = logits_close(f"{name} decode vs forward",
+                                                 got_d[:, 0], full[:, 128])
+    return errs
+
+
+def phase_falcon_mamba(records: dict) -> None:
+    """falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192, N 16, vocab
+    65024, bf16, seeded random weights) through the model facade: a
+    prefill of 4 prompts of 1,024 tokens and 32 greedy decode steps; the
+    launches of the run; a decode step's profile; and the logits against
+    the plain versions and decode against forward (``facade_logits``)."""
+    cfg = get_config("falcon-mamba-7b")
+    L, B, S, n_dec = cfg.n_layers, 4, 1024, 32
+    m, params, weights = facade_weights(cfg)
+    emit(phase="falcon_weights", **weights)
+    run, used, prompt, tok, cache = facade_generate(m, params, B, S, n_dec)
     want = {name: 0 for name in used}
     want.update(ssm_scan=L * (1 + n_dec), rmsnorm=(L + 1) * (1 + n_dec))
     if used != want:
         raise AssertionError(f"falcon-mamba: launches {used}, the steps imply {want}")
-    emit(phase="falcon_mamba", config=cfg.name, batch=B, prompt_tokens=S, decode_steps=n_dec,
-         prefill_ms=prefill_s * 1e3, prefill_tokens_per_s=B * S / prefill_s,
-         decode_step_ms_median=statistics.median(steps) * 1e3,
-         decode_step_ms_max=max(steps) * 1e3, decode_tokens_per_s=B * n_dec / sum(steps),
-         tokens_per_s=B * (1 + n_dec) / (prefill_s + sum(steps)),
-         peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=used,
-         ids_of_request_0=ids[0].tolist())
+    emit(phase="falcon_mamba", **run)
     records["ssm_scan"]["launches"] = used["ssm_scan"]
     records["ssm_scan"]["launches_per_step"] = L
     records["rmsnorm"]["launches_falcon_mamba"] = used["rmsnorm"]
@@ -1450,26 +1503,111 @@ def phase_falcon_mamba(records: dict) -> None:
          decode=profile_step(lambda: m.decode_step(params, tok, cache, S + n_dec)[0]
                              .argmax(-1).tolist()))
     del cache
-    # kernels against plain versions: one 128-token prefill, one step
-    short = prompt[:, :128]
-    errs = {}
-    with torch.no_grad():
-        got, got_cache = m.prefill(params, {"tokens": short}, 129)
-        with plain_versions():
-            plain, plain_cache = m.prefill(params, {"tokens": short}, 129)
-        errs["prefill_128"] = logits_close("falcon-mamba prefill", got, plain)
-        nxt = got.argmax(-1)
-        got_d, _ = m.decode_step(params, nxt, got_cache, 128)
-        with plain_versions():
-            plain_d, _ = m.decode_step(params, nxt, plain_cache, 128)
-        errs["decode"] = logits_close("falcon-mamba decode", got_d, plain_d)
-        # decode at t against forward at t
-        full = m.forward(params, {"tokens": torch.cat([short, nxt], 1)})
-        errs["prefill_vs_forward"] = logits_close("falcon-mamba prefill vs forward",
-                                                  got[:, 0], full[:, 127])
-        errs["decode_vs_forward"] = logits_close("falcon-mamba decode vs forward",
-                                                 got_d[:, 0], full[:, 128])
-    emit(phase="falcon_mamba_logits", max_abs_err=errs, tolerance={"rtol": 0.15, "atol": 0.3})
+    emit(phase="falcon_mamba_logits", max_abs_err=facade_logits(m, params, prompt),
+         tolerance={"rtol": 0.15, "atol": 0.3})
+
+
+def time_flash_attention_prefill(rng, B, S, H, KVH, D) -> dict:
+    """Causal attention over a whole prompt, S = T, with fresh k and v as
+    the projections give them (``L`` copies, so the L2 cache is cold)."""
+    L = 4
+    qkv = [(randn(rng, (B, S, H, D), BF), randn(rng, (B, S, KVH, D), BF),
+            randn(rng, (B, S, KVH, D), BF)) for _ in range(L)]
+
+    def library(i):
+        q, k, v = (t.transpose(1, 2) for t in qkv[i])
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    pairs = S * (S + 1) // 2
+    b_ms, by = bound((2 * B * S * H * D + 2 * B * S * KVH * D) * 2, 4 * pairs * B * H * D, BF)
+    plan = fa_mod.split_plan(B, S, H, S, BF, torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"shape": f"B={B} S=T={S} H={H} KVH={KVH} D={D} causal", "dtype": "bfloat16", **plan,
+            **time_ms(lambda i: fa_mod.flash_attention(*qkv[i], "causal"), L),
+            "plain_ms": time_ms(lambda i: fa_mod.flash_attention_plain(*qkv[i], "causal"), L)["ms"],
+            "library_ms": time_ms(library, L)["ms"], "bound_ms": b_ms, "bound_by": by}
+
+
+ZAMBA2_NORMS = [(4096, 4096), (4, 4096), (4096, 2048), (4, 2048)]   # gated, per-layer
+
+
+def check_zamba2_kernels(rng, B, S, n_dec, H, KVH, D) -> dict:
+    """The three kernels of the zamba2 path against their plain versions at
+    its shapes: the norms of a 4 x 1,024 prefill and of a decode step, the
+    shared block's prefill attention, and its decode over the cache of S +
+    n_dec positions at the first, a middle and the last step's lengths
+    (kv_len S + i), and at four lengths in one batch."""
+    errs = {"rmsnorm": 0.0, "flash_decode": 0.0}
+    for shape in ZAMBA2_NORMS:
+        x, s = randn(rng, shape, BF), randn(rng, (shape[-1],), F32)
+        errs["rmsnorm"] = max(errs["rmsnorm"], check_close(
+            f"rmsnorm{shape} zamba2", rms_mod.rmsnorm(x, s), rms_mod.rmsnorm_plain(x, s), BF))
+    q, k, v = (randn(rng, (B, S, h, D), BF) for h in (H, KVH, KVH))
+    errs["flash_attention"] = check_close(
+        "flash_attention zamba2 prefill", fa_mod.flash_attention(q, k, v, "causal"),
+        fa_mod.flash_attention_plain(q, k, v, "causal"), BF)
+    T = S + n_dec
+    ck, cv = path_cache(rng, 1, B, T, KVH, D, BF)
+    q = randn(rng, (B, 1, H, D), BF)
+    for lens in ([S + 1] * B, [S + n_dec // 2] * B, [T] * B, [S + 1, S + 9, S + 20, T]):
+        lens = torch.tensor(lens, device=DEV)
+        errs["flash_decode"] = max(errs["flash_decode"], check_close(
+            f"flash_decode zamba2 kv_len {lens.tolist()}", dec_mod.flash_decode(q, ck[0], cv[0], lens),
+            dec_mod.flash_decode_plain(q, ck[0], cv[0], lens), BF))
+    return errs
+
+
+def phase_zamba2(records: dict) -> None:
+    """zamba2-1.2b (38 layers: 6 groups of 6 Mamba-2 layers, each followed
+    by the one shared attention block, and a tail of 2; d_model 2048,
+    d_inner 4096, 64 SSD heads of 64, N 64; 32 / 32 heads of 64; vocab
+    32000; bf16, seeded random weights) through the model facade, as
+    falcon-mamba: prefill of 4 x 1,024 tokens, 32 greedy decode steps (not
+    captured: the reference jits no step of its model facade), the launch
+    gate, a decode step's profile, the logits against the plain versions;
+    then the path's three kernels against their plain versions at its
+    shapes, timed beside their bounds and the library's call."""
+    cfg = get_config("zamba2-1.2b")
+    g, tail = hybrid_split(cfg)
+    a, B, S, n_dec = cfg.attn, 4, 1024, 32
+    m, params, weights = facade_weights(cfg)
+    emit(phase="zamba2_weights", groups=g, tail=tail, **weights)
+    run, used, prompt, tok, cache = facade_generate(m, params, B, S, n_dec)
+    norms = 2 * cfg.n_layers + 2 * g + 1          # ln and gated norm, ln1 and ln2, final
+    want = {name: 0 for name in used}
+    want.update(rmsnorm=norms * (1 + n_dec), flash_attention=g, flash_decode=g * n_dec)
+    if used != want:
+        raise AssertionError(f"zamba2: launches {used}, the steps imply {want}")
+    emit(phase="zamba2", **run)
+    for name in SERVING:
+        records[name]["launches_zamba2"] = used[name]
+    records["rmsnorm"]["launches_zamba2_per_pass"] = norms
+    emit(phase="zamba2_step_profile",
+         decode=profile_step(lambda: m.decode_step(params, tok, cache, S + n_dec - 1)[0]
+                             .argmax(-1).tolist()),
+         prefill=profile_step(lambda: m.prefill(params, {"tokens": prompt}, S + n_dec)[0]
+                              .argmax(-1).tolist(), n=2))
+    del cache
+    emit(phase="zamba2_logits", max_abs_err=facade_logits(m, params, prompt),
+         tolerance={"rtol": 0.15, "atol": 0.3})
+    del m, params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(2)
+    errs = check_zamba2_kernels(rng, B, S, n_dec, a.n_heads, a.n_kv_heads, a.head_dim)
+    T = S + n_dec
+    times = {
+        "rmsnorm": [time_rmsnorm(rng, shape, 4 if shape[0] > 4 else 1)
+                    for shape in ZAMBA2_NORMS],
+        "flash_attention": [time_flash_attention_prefill(rng, B, S, a.n_heads, a.n_kv_heads,
+                                                         a.head_dim)],
+        "flash_decode": [time_flash_decode(
+            rng, [S + n_dec // 2] * B,
+            f"B={B} H={a.n_heads} KVH={a.n_kv_heads} D={a.head_dim} T={T} kv_len {S + n_dec // 2}",
+            B=B, H=a.n_heads, KVH=a.n_kv_heads, D=a.head_dim, T=T)],
+    }
+    emit(phase="zamba2_kernels", max_abs_err=errs, tolerance={"bfloat16": TOL[BF]}, times=times)
+    for name in SERVING:
+        records[name]["max_abs_err_zamba2"] = errs[name]
+        records[name]["zamba2"] = times[name]
 
 
 # --------------------------------------------------------------------- #
@@ -1547,6 +1685,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_falcon_mamba(records)
     emit(phase="falcon_mamba_done", seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_zamba2(records)
+    emit(phase="zamba2_done", seconds=time.perf_counter() - t0)
 
     emit(phase="total", seconds=time.perf_counter() - t_all)
     for rec in records.values():

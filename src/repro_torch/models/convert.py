@@ -8,7 +8,8 @@ mlp.{w_up,w_gate,w_down}}`` stacked ``(L, ...)``) and the same
 compare leaf for leaf. This module imports neither JAX nor ml_dtypes: the
 caller hands over ``jax.tree.map(np.asarray, params)``, and a bf16 leaf
 arrives either as an ``ml_dtypes`` bfloat16 array or viewed as ``uint16``
-(pass ``bf16_as_uint16=True`` then).
+(pass ``bf16_as_uint16=True`` then). A ``None`` leaf (the hybrid
+stack's ``tail`` when the layers divide into whole groups) stays ``None``.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ def _leaf(a, device, bf16_as_uint16: bool) -> torch.Tensor:
 def from_jax_params(tree, device="cuda", bf16_as_uint16: bool = False):
     """tree: nested dict of NumPy arrays (the reference's parameters).
     Returns the same nesting with ``torch.Tensor`` leaves on ``device``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device, bf16_as_uint16)
                 for k, v in tree.items()}

@@ -133,6 +133,25 @@ def test_from_jax_params_keeps_the_tree():
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+def test_from_jax_params_carries_a_none_leaf():
+    """The hybrid stack's ``tail`` is None when the layers divide into whole
+    groups (tiny zamba2: 12 layers in groups of 6): it stays None, beside
+    the converted leaves."""
+    jcfg = jax_tiny_config(jax_get_config("zamba2-1.2b"))
+    jp = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    assert jp["stack"]["tail"] is None
+    p = from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
+    assert p["stack"]["tail"] is None
+    assert from_jax_params({"a": None, "b": np.ones(2, np.float32)}, device="cpu")["a"] is None
+    flat_j = jax.tree_util.tree_leaves_with_path(jp)
+    assert len(list(_leaves(p))) == len(flat_j) + 1          # + the None
+    for path, leaf in flat_j:
+        node = p
+        for k in path:
+            node = node[k.key]
+        np.testing.assert_array_equal(node.float().numpy(), np.asarray(leaf, np.float32))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -226,20 +245,20 @@ def test_extend_in_two_chunks_equals_prefill(param_dtype):
 
 
 def test_other_families_raise_naming_the_roadmap():
-    """Dense global attention and the Mamba-1 SSM family build; the hybrid,
-    moe, vlm and audio families and local/global dense raise, naming the
-    ROADMAP item that ports them."""
+    """Dense global attention, the SSM family and the hybrid family build;
+    the moe, vlm and audio families and local/global dense raise, naming
+    the ROADMAP item that ports them."""
     built = []
     for arch in list_archs():
         cfg = tiny_config(get_config(arch))
-        if (cfg.family == "dense" and cfg.attn.pattern == "global") or cfg.family == "ssm":
+        if (cfg.family == "dense" and cfg.attn.pattern == "global") or cfg.family in (
+                "ssm", "hybrid"):
             build_model(cfg, device="cpu")
             built.append(cfg.family)
             continue
-        item = "A6b" if cfg.family == "hybrid" else "A7"
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item} "):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item A7 "):
             build_model(cfg, device="cpu")
-    assert "ssm" in built and "dense" in built
+    assert {"ssm", "dense", "hybrid"} <= set(built)
 
 
 def test_entry_points_default_to_cuda_and_do_not_fall_back():
