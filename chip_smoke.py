@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, times them at the shapes their paths
-give them, and drives five paths, counting the kernels' launches on each:
+give them, and drives six paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
     continuous-batching engine (rmsnorm, flash_attention, flash_decode),
@@ -30,7 +30,13 @@ give them, and drives five paths, counting the kernels' launches on each:
     layers (the SSD in f32 products, the gated norm on rmsnorm) and the one
     shared attention block at head_dim 64 (flash_attention in prefill,
     flash_decode in decode), with the three kernels checked and timed at
-    the path's shapes.
+    the path's shapes;
+  * moonshot-v1-16b-a3b (the moe family: 64 experts, top 6, and 2 shared)
+    at full width and depth, 57 GB of weights, served through the engine
+    with its captured steps as qwen3-1.7b is, its logits held against the
+    plain versions with the MoE's routing replayed, and a 4 x 1,024 prefill
+    through the model facade, with the three kernels checked and timed at
+    its shapes (16 / 16 heads of 128).
 
 Every phase prints JSON lines; any failure ends the run with a non-zero
 exit code. Without a CUDA device the script fails: nothing runs on the CPU.
@@ -44,6 +50,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import shutil
 import statistics
@@ -77,6 +84,7 @@ from repro_torch.kernels import stressors as st_mod  # noqa: E402
 from repro_torch.launch import gpu_native  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.hybrid import hybrid_split  # noqa: E402
 from repro_torch.core.scenario import Scenario  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig  # noqa: E402
@@ -473,8 +481,10 @@ def time_flash_decode(rng, kv_len, label, B=8, H=16, KVH=8, D=128, T=1025) -> di
             "bound_ms": b_ms, "bound_by": by}
 
 
-def time_flash_attention(rng, S, pos0) -> dict:
-    B, H, KVH, D, L = 1, 16, 8, 128, 4
+def time_flash_attention(rng, S, pos0, KVH=8) -> dict:
+    """S queries at pos0 over slot 3 of L caches (8 x 1,025 positions; 16
+    query heads of 128 over ``KVH``), qwen3-1.7b's by default."""
+    B, H, D, L = 1, 16, 128, 4
     ck, cv = path_cache(rng, L, 8, 1025, KVH, D, BF)
     q = randn(rng, (B, S, H, D), BF)
     T = pos0 + S
@@ -503,12 +513,12 @@ def time_flash_attention(rng, S, pos0) -> dict:
             "bound_ms": b_ms, "bound_by": by}
 
 
-def time_flash_attention_offsets(rng, pos0) -> dict:
+def time_flash_attention_offsets(rng, pos0, KVH=8) -> dict:
     """Row 2 on the captured extend step's path: 128 queries at pos0 with
     slot, pos0 and c read from device memory over the whole cache (8 slots
     x 1,025 positions, the splits planned for 1,025 keys), beside the
     integer-offset call over the slot's view, in the same run."""
-    S, H, KVH, D, L, slot = 128, 16, 8, 128, 4, 3
+    S, H, D, L, slot = 128, 16, 128, 4, 3
     ck, cv = path_cache(rng, L, 8, 1025, KVH, D, BF)
     q = randn(rng, (1, S, H, D), BF)
     off = torch.tensor([slot, pos0, S], device=DEV)
@@ -670,6 +680,11 @@ def time_ssm_scan(rng, Bb, S, with_state) -> dict:
             "bytes_ms": bytes_moved / HBM_BYTES_PER_S * 1e3, "exp_ms": t_exp}
 
 
+# a decode batch's valid lengths over the engine's cache (8 x 1,025): two
+# idle slots read it all
+MIXED_LENS = [1025, 1025, 64, 200, 333, 512, 800, 1000]
+
+
 def phase_kernels() -> dict:
     rng = np.random.default_rng(0)
     errs = {"rmsnorm": check_rmsnorm(rng), "flash_decode": check_flash_decode(rng),
@@ -678,10 +693,9 @@ def phase_kernels() -> dict:
     emit(phase="kernels_checked", max_abs_err=errs,
          tolerance={"float32": TOL[F32], "bfloat16": TOL[BF], "cache_share": "bit-exact",
                     "ssm_scan": SCAN_TOL})
-    mixed = [1025, 1025, 64, 200, 333, 512, 800, 1000]    # two idle slots read it all
     times = {
         "rmsnorm": [time_rmsnorm(rng, (1, 128, 2048)), time_rmsnorm(rng, (8, 1, 2048))],
-        "flash_decode": [time_flash_decode(rng, mixed, "B=8 H=16 KVH=8 D=128 T=1025 mixed"),
+        "flash_decode": [time_flash_decode(rng, MIXED_LENS, "B=8 H=16 KVH=8 D=128 T=1025 mixed"),
                          time_flash_decode(rng, [1025] * 8, "B=8 H=16 KVH=8 D=128 T=1025 full")],
         "flash_attention": [time_flash_attention(rng, 128, 512),
                             time_flash_attention(rng, 128, 0),
@@ -1033,76 +1047,185 @@ def phase_serve_full(records: dict) -> dict:
     # library's first products of each shape load code, which is set-up
     serve(cfg, EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128),
           [p[:200] for p in prompts[:3]], 4, device=DEV, params=params)
-    runs = {}
     for mode in ("interference_aware", "serial"):
         ecfg = EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128, mode=mode)
-        torch.cuda.reset_peak_memory_stats()
-        eng, metrics, seconds, used = serve_graphed(cfg, ecfg, prompts, max_new, params)
-        stats = serve_stats(eng, metrics, seconds, max_new)
-        stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        stats["launches"] = used
-        stats["capture_s"] = sum(step.capture_s for step in eng.steps.values())
-        stats.update(padding(eng))
-        n_dec, n_ext = stats["decode_steps"], stats["prefill_chunks"]
-        want = {"rmsnorm": (2 * L + 1) * (n_dec + n_ext),
-                "flash_attention": L * n_ext, "flash_decode": L * n_dec}
-        if used != want or not all(used.values()):
-            raise AssertionError(f"serve {mode}: launches {used}, the steps imply {want}")
-        # the same serve on the steps' bodies, uncaptured: the same tokens
-        # and chunks, each kernel launched from Python once a call
-        reset_counts()
-        with uncaptured():
-            eng_u, metrics_u, seconds_u = serve(cfg, ecfg, prompts, max_new, device=DEV,
-                                                params=params)
-        if counts(SERVING) != want:
-            raise AssertionError(f"serve {mode} uncaptured: launches {counts(SERVING)}, "
-                                 f"the steps imply {want}")
-        plain = serve_stats(eng_u, metrics_u, seconds_u, max_new)
-        if ({i: m["output"] for i, m in metrics_u.items()}
-                != {i: m["output"] for i, m in metrics.items()}
-                or plain["chunk_sizes"] != stats["chunk_sizes"]):
-            raise AssertionError(f"serve {mode}: the uncaptured steps gave other tokens or chunks")
-        stats["uncaptured"] = {k: plain[k] for k in ("seconds", "tokens_per_s", "decode_steps",
-                                                      "worst_decode_gap_ms",
-                                                      "median_decode_gap_ms", "mean_ttft_s")}
-        stats["uncaptured"]["tokens_and_chunks_equal"] = True
-        del eng_u
-        runs[mode] = stats
+        stats = serve_checked(cfg, ecfg, prompts, max_new, params)
         emit(phase="serve_full", config=cfg.name, **stats)
         if mode == "interference_aware":
-            for name, n in used.items():
+            for name, n in stats["launches"].items():
                 records[name]["launches"] = n
             records["rmsnorm"]["launches_per_step"] = 2 * L + 1
             records["flash_attention"]["launches_per_prefill_chunk"] = L
             records["flash_decode"]["launches_per_decode_step"] = L
-        del eng
-    # one extend (three chunks: the path's 128 at pos0 0 and 128, and 100
-    # tokens padded to 128) and one decode step, each replayed against its
-    # body run uncaptured on the plain versions, on the same static input
     eng = Engine(cfg, params=params, ecfg=EngineConfig(max_slots=8, max_len=1024),
                  device=DEV)
-    tok = rng.integers(1, cfg.vocab_size, size=512)
-    errs = {}
-    for pos0, c in ((0, 128), (128, 128), (256, 100)):
-        got = eng._extend(tok[pos0:pos0 + c], 3, pos0).clone()
-        with plain_versions():
-            want = eng.steps[chunk_bucket(c)].body()
-        errs[f"extend_pos0_{pos0}_c{c}"] = logits_close(f"extend pos0={pos0} c={c}", got, want)
-    dtok = rng.integers(1, cfg.vocab_size, size=8)
-    pos = np.full(8, 1024)
-    pos[3] = 356
-    got = eng._decode(dtok, pos).clone()
-    with plain_versions():
-        want = eng.steps["decode"].body()
-    errs["decode"] = logits_close("decode", got[3], want[3])
+    errs, profiles, _ = step_logits_and_profiles(eng, rng)
     emit(phase="serve_full_logits", max_abs_err=errs,
          tolerance={"rtol": 0.15, "atol": 0.3})
-    emit(phase="step_profile",
-         decode=profile_step(lambda: eng._decode(dtok, pos).argmax(-1).tolist(),
-                             eng.steps["decode"]),
-         extend_128=profile_step(lambda: eng._extend(tok[128:256], 3, 128).argmax(-1).tolist(),
-                                 eng.steps[128]))
+    emit(phase="step_profile", **profiles)
     return params
+
+
+def serve_checked(cfg, ecfg, prompts, max_new, params) -> dict:
+    """One serve on the captured steps and its gates: every request's
+    tokens in range, the launches those of the steps run (``2 L + 1``
+    ``rmsnorm`` a step, ``L`` ``flash_attention`` a chunk and ``L``
+    ``flash_decode`` a decode step, from captures x replays), and the same
+    serve on the steps' bodies run uncaptured giving the same tokens and
+    chunks with the same launches from Python. Returns the serve's record,
+    its peak memory that of the captured serve."""
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    eng, metrics, seconds, used = serve_graphed(cfg, ecfg, prompts, max_new, params)
+    stats = serve_stats(eng, metrics, seconds, max_new)
+    stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    stats["launches"] = used
+    stats["capture_s"] = sum(step.capture_s for step in eng.steps.values())
+    stats.update(padding(eng))
+    del eng
+    n_dec, n_ext = stats["decode_steps"], stats["prefill_chunks"]
+    want = {"rmsnorm": (2 * L + 1) * (n_dec + n_ext),
+            "flash_attention": L * n_ext, "flash_decode": L * n_dec}
+    mode = f"{cfg.name} {ecfg.mode}"
+    if used != want or not all(used.values()):
+        raise AssertionError(f"serve {mode}: launches {used}, the steps imply {want}")
+    # the same serve on the steps' bodies, uncaptured: the same tokens
+    # and chunks, each kernel launched from Python once a call
+    reset_counts()
+    with uncaptured():
+        eng_u, metrics_u, seconds_u = serve(cfg, ecfg, prompts, max_new, device=DEV,
+                                            params=params)
+    if counts(SERVING) != want:
+        raise AssertionError(f"serve {mode} uncaptured: launches {counts(SERVING)}, "
+                             f"the steps imply {want}")
+    plain = serve_stats(eng_u, metrics_u, seconds_u, max_new)
+    del eng_u
+    if ({i: m["output"] for i, m in metrics_u.items()}
+            != {i: m["output"] for i, m in metrics.items()}
+            or plain["chunk_sizes"] != stats["chunk_sizes"]):
+        raise AssertionError(f"serve {mode}: the uncaptured steps gave other tokens or chunks")
+    stats["uncaptured"] = {k: plain[k] for k in ("seconds", "tokens_per_s", "decode_steps",
+                                                  "worst_decode_gap_ms",
+                                                  "median_decode_gap_ms", "mean_ttft_s")}
+    stats["uncaptured"]["tokens_and_chunks_equal"] = True
+    return stats
+
+
+def step_logits_and_profiles(eng, rng) -> tuple:
+    """One extend (three chunks of slot 3: the path's 128 at pos0 0 and
+    128, and 100 tokens padded to 128) and one decode step (slot 3 at
+    position 356, the other slots idle), each replayed against its body run
+    uncaptured on the plain versions, on the same static input, at the
+    reference's bf16 tolerance; then the profiles of a decode replay and of
+    a 128-token extend replay. For the moe family the body also runs
+    uncaptured on the kernels, recording each layer's routing, and must
+    equal the replay bit for bit; the plain run replays that routing
+    (``routing``): the kernels are held, not the discrete routing. Returns
+    (errors, profiles, agreement): ``agreement`` (None for a dense model)
+    is ``routing_agreement``'s tally of the plain run's own routing against
+    the kernels'."""
+    moe = eng.cfg.family == "moe"
+    tok = rng.integers(1, eng.cfg.vocab_size, size=512)
+    dtok = rng.integers(1, eng.cfg.vocab_size, size=8)
+    pos = np.full(8, 1024)
+    pos[3] = 356
+    errs, tally = {}, np.zeros((eng.cfg.n_layers, 2), np.int64)
+
+    def check(name, got, step, rows, tokens):
+        """``rows``: the logits compared; ``tokens``: the MoE's real rows."""
+        if not moe:
+            with plain_versions():
+                want = step.body()
+            errs[name] = logits_close(name, got[rows], want[rows])
+            return
+        kern, plain = [], []
+        with routing(record=kern):
+            ran = step.body()
+        with plain_versions(), routing(record=plain, replay=kern):
+            want = step.body()
+        errs[name] = logits_close(name, ran[rows], want[rows])
+        diff = (got - ran).abs().max().item()
+        if diff != 0.0:
+            raise AssertionError(f"{name}: the replay is {diff} from its body run uncaptured")
+        errs[name + "_graph_vs_uncaptured"] = diff
+        tally[:] += agreement(kern, plain, tokens, eng.cfg.n_layers)
+
+    for pos0, c in ((0, 128), (128, 128), (256, 100)):
+        got = eng._extend(tok[pos0:pos0 + c], 3, pos0).clone()
+        check(f"extend_pos0_{pos0}_c{c}", got, eng.steps[chunk_bucket(c)], slice(None),
+              slice(0, c))
+    got = eng._decode(dtok, pos).clone()
+    check("decode", got, eng.steps["decode"], slice(3, 4), slice(3, 4))
+    n = 2 if moe else 4             # a moe replay launches about 5,600 kernels
+    profiles = {"decode": profile_step(lambda: eng._decode(dtok, pos).argmax(-1).tolist(),
+                                       eng.steps["decode"], n),
+                "extend_128": profile_step(
+                    lambda: eng._extend(tok[128:256], 3, 128).argmax(-1).tolist(), eng.steps[128],
+                    n)}
+    return errs, profiles, routing_agreement(tally, "steps") if moe else None
+
+
+@contextlib.contextmanager
+def routing(record=None, replay=None):
+    """Within the block every call of the MoE router (``moe._route``)
+    appends its (gates, ids) to ``record``; with ``replay``, the record of
+    an earlier run of the same calls, each call returns that run's (gates,
+    ids) in place of its own (and its own aux). Only this script does so:
+    the kernels are held against their plain versions on one routing,
+    since one expert chosen otherwise moves a token's logits past any
+    tolerance."""
+    real = moe_mod._route
+    queue = iter(replay or ())
+
+    def wrapped(router, x_flat, cfg):
+        gates, ids, aux = real(router, x_flat, cfg)
+        if record is not None:
+            record.append((gates, ids))
+        if replay is not None:
+            gates, ids = next(queue)
+        return gates, ids, aux
+
+    moe_mod._route = wrapped
+    try:
+        yield
+    finally:
+        moe_mod._route = real
+
+
+def agreement(a, b, rows, L: int) -> np.ndarray:
+    """Two records of the same router calls, runs of an L-layer stack (L
+    calls a run, in layer order): for each layer, the rows in ``rows``
+    whose expert sets agree, and the rows compared, an (L, 2) array."""
+    out = np.zeros((L, 2), np.int64)
+    for i, ((_, ia), (_, ib)) in enumerate(zip(a, b, strict=True)):
+        same = (ia[rows].sort(dim=1).values == ib[rows].sort(dim=1).values).all(dim=1)
+        out[i % L] += (int(same.sum()), same.numel())
+    return out
+
+
+# the least share of the first layer's tokens whose experts the plain run's
+# router chooses as the kernels' run's did (the routing replayed): the first
+# router reads one attention and two norms, so a fault of a kernel there
+# moves it before anything has built up. moonshot's seeded run reads 0.978
+# in the steps and 0.976 in the prefill (PERF.md), 2.6 points above
+FIRST_LAYER_AGREEMENT = 0.95
+
+
+def routing_agreement(tally: np.ndarray, what: str) -> dict:
+    """``agreement``'s tally as shares: in all, by layer, and the first
+    layer's, which must be at least ``FIRST_LAYER_AGREEMENT``. With the
+    routing replayed, a layer's share counts the flips that the kernels'
+    numerical differences, built up to that layer, cause there; a flip does
+    not move the later layers' routing."""
+    share = tally[:, 0] / tally[:, 1]
+    out = {"pairs": int(tally[:, 1].sum()), "share": float(tally[:, 0].sum() / tally[:, 1].sum()),
+           "first_layer": float(share[0]), "first_layer_pairs": int(tally[0, 1]),
+           "by_layer": [round(float(x), 4) for x in share]}
+    if out["first_layer"] < FIRST_LAYER_AGREEMENT:
+        raise AssertionError(f"{what}: the first layer's routing agrees on {out['first_layer']} "
+                             f"of {out['first_layer_pairs']} tokens, under "
+                             f"{FIRST_LAYER_AGREEMENT}")
+    return out
 
 
 # the first kernel each serving wrapper launches, by the name the trace gives it
@@ -1110,16 +1233,34 @@ KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_attenti
                   "flash_decode": "decode_partial_kernel"}
 
 
+# empty launches that open every profile, for the trace to drop in place of
+# the steps' kernels
+PROFILE_PREFIX = 8192
+
+
 def profile_step(step_fn, step=None, n: int = 4) -> dict:
     """Where one engine step's time goes: its wall time (host clock, ending
     when the sampled ids are on the host, no profiler attached) beside the
     time the device was busy in it (kernel times summed from a
     torch.profiler trace of the same steps), and the kernels that took most.
-    For a captured ``step``, the trace's kernels of each serving wrapper a
-    replay must number what the capture counted; a trace that shows none
-    of them does not resolve the graph, and then nothing is reported as
-    measured on the device."""
+
+    The trace holds the ``n`` steps between ``n + 1`` launches of the empty
+    kernel ``rt_empty`` and counts them one by one; a marker the trace
+    lacks fails. For a captured ``step``, each replay's kernels of each
+    serving wrapper must number what the capture counted; a trace that
+    shows none of them does not resolve the graph, and then nothing is
+    reported as measured on the device.
+
+    A trace drops its first few device events, more of them the more
+    traces the process has taken (``lost_at_start``). So every trace opens
+    with ``PROFILE_PREFIX`` one-thread ``torch.cuda._sleep(0)`` launches,
+    and fails if it lost all of them."""
     from torch.profiler import ProfilerActivity, profile
+    lib = _build.load()
+
+    def mark():
+        _build.check_launch(lib.rt_empty(_build.stream_ptr()), "rt_empty")
+
     step_fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1128,30 +1269,60 @@ def profile_step(step_fn, step=None, n: int = 4) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PREFIX):
+            torch.cuda._sleep(0)
         for _ in range(n):
+            mark()
             step_fn()
+        mark()
         torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.events():
-        if ev.device_type.name == "CUDA":
-            t, c = kernels.get(ev.name, (0.0, 0))
-            kernels[ev.name] = (t + ev.device_time, c + 1)
-    per_call = {name: sum(c for k, (_, c) in kernels.items() if sym in k) / n
-                for name, sym in KERNEL_SYMBOLS.items()}
+    device = sorted((ev for ev in prof.events() if ev.device_type.name == "CUDA"),
+                    key=lambda ev: ev.time_range.start)
     out = {"wall_ms": wall_ms}
-    if step is not None:
-        out["replay_kernels"] = per_call
-        out["captured_launches"] = step.launches
-        if not any(per_call.values()):
-            out["device_busy_ms"] = "not measured: the trace does not resolve the graph's kernels"
-            return out
-        if any(per_call[name] != step.launches.get(name, 0) for name in KERNEL_SYMBOLS):
-            raise AssertionError(f"{step.name}: a replay ran {per_call}, the capture "
-                                 f"counted {step.launches}")
-    busy_ms = sum(t for t, _ in kernels.values()) / 1e3 / n
-    if not busy_ms:
+    if not device:
         out["device_busy_ms"] = "not measured"
         return out
+    what = step.name if step is not None else "profile"
+
+    def serving(name):
+        return {w: int(sym in name) for w, sym in KERNEL_SYMBOLS.items()}
+
+    if step is not None and not any(any(serving(ev.name).values()) for ev in device):
+        out["replay_kernels"] = {w: 0 for w in KERNEL_SYMBOLS}
+        out["captured_launches"] = step.launches
+        out["device_busy_ms"] = "not measured: the trace does not resolve the graph's kernels"
+        return out
+    marks = [i for i, ev in enumerate(device) if ev.name.startswith("empty_kernel")]
+    prefix = sum("spin_kernel" in ev.name for ev in device[:marks[0] if marks else None])
+    if not prefix:
+        raise AssertionError(f"{what}: the trace lost every one of its {PROFILE_PREFIX} "
+                             "opening launches")
+    out["lost_at_start"] = PROFILE_PREFIX - prefix
+    if len(marks) != n + 1:
+        at = [round(device[i].time_range.start / 1e3, 3) for i in marks]
+        raise AssertionError(f"{what}: the trace holds {len(marks)} of the {n + 1} markers, "
+                             f"at {at} ms of its window")
+    stray = [ev.name for ev in device[:marks[0]] + device[marks[-1] + 1:]
+             if any(serving(ev.name).values())]
+    if stray:
+        raise AssertionError(f"{what}: serving kernels outside the traced steps: {stray[:4]}")
+    kernels, per_step = {}, []
+    for a, b in zip(marks, marks[1:]):
+        c = dict.fromkeys(KERNEL_SYMBOLS, 0)
+        for ev in device[a + 1:b]:
+            t, k = kernels.get(ev.name, (0.0, 0))
+            kernels[ev.name] = (t + ev.device_time, k + 1)
+            for w, hit in serving(ev.name).items():
+                c[w] += hit
+        per_step.append(c)
+    if step is not None:
+        out["replay_kernels"] = {w: sum(c[w] for c in per_step) / n for w in KERNEL_SYMBOLS}
+        out["captured_launches"] = step.launches
+        want = {w: step.launches.get(w, 0) for w in KERNEL_SYMBOLS}
+        if any(c != want for c in per_step):
+            raise AssertionError(f"{what}: the traced replays ran {per_step}, the capture "
+                                 f"counted {step.launches}")
+    busy_ms = sum(t for t, _ in kernels.values()) / 1e3 / n
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     return {**out, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
@@ -1611,6 +1782,149 @@ def phase_zamba2(records: dict) -> None:
 
 
 # --------------------------------------------------------------------- #
+#  phase 10: moonshot-v1-16b-a3b, the moe family, served at full size    #
+# --------------------------------------------------------------------- #
+MOONSHOT_NORMS = [(128, 2048), (8, 2048), (4096, 2048)]   # a chunk, a decode step, prefill
+
+
+def check_moonshot_kernels(rng, H, KVH, D) -> dict:
+    """The three kernels of the moonshot path against their plain versions
+    at its shapes: the norms of a chunk, a decode step and the facade's
+    prefill; ``flash_attention`` with device offsets over the engine's
+    cache (8 slots x 1,025 positions) at the path's chunks (a last chunk of
+    100 whose bucket reaches past the cache, one token), and over the
+    facade's whole prompt (4 x 1,024); ``flash_decode`` over the engine's
+    cache at a decode batch's mixed lengths."""
+    errs = {"rmsnorm": 0.0, "flash_attention": 0.0}
+    for shape in MOONSHOT_NORMS:
+        x, s = randn(rng, shape, BF), randn(rng, (shape[-1],), F32)
+        errs["rmsnorm"] = max(errs["rmsnorm"], check_close(
+            f"rmsnorm{shape} moonshot", rms_mod.rmsnorm(x, s), rms_mod.rmsnorm_plain(x, s), BF))
+    ck, cv = path_cache(rng, 1, 8, 1025, KVH, D, BF)
+    for S, c, pos0 in ((128, 128, 0), (128, 128, 512), (128, 100, 900), (16, 1, 40)):
+        q = randn(rng, (1, S, H, D), BF)
+        off = torch.tensor([3, pos0, c], device=DEV)
+        errs["flash_attention"] = max(errs["flash_attention"], check_close(
+            f"flash_attention moonshot offsets pos0 {pos0} c {c}",
+            fa_mod.flash_attention(q, ck[0], cv[0], "causal", offsets=off),
+            fa_mod.flash_attention_plain(q, ck[0], cv[0], "causal", offsets=off), BF))
+    q, k, v = (randn(rng, (4, 1024, h, D), BF) for h in (H, KVH, KVH))
+    errs["flash_attention"] = max(errs["flash_attention"], check_close(
+        "flash_attention moonshot prefill", fa_mod.flash_attention(q, k, v, "causal"),
+        fa_mod.flash_attention_plain(q, k, v, "causal"), BF))
+    q = randn(rng, (8, 1, H, D), BF)
+    lens = torch.tensor(MIXED_LENS, device=DEV)
+    errs["flash_decode"] = check_close(
+        "flash_decode moonshot", dec_mod.flash_decode(q, ck[0], cv[0], lens),
+        dec_mod.flash_decode_plain(q, ck[0], cv[0], lens), BF)
+    return errs
+
+
+def moonshot_facade_prefill(m, params, B: int, S: int) -> dict:
+    """A prefill of B seeded prompts of S tokens through the model facade:
+    its time (host clock to the ids on the host, after one short unmeasured
+    prefill), its launches (``2 L + 1`` ``rmsnorm``, ``L``
+    ``flash_attention``), peak memory, profile, and its logits against the
+    plain versions with the routing replayed (``routing``), with the
+    routing's agreement (``routing_agreement``)."""
+    cfg, L = m.cfg, m.cfg.n_layers
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, S))).to(DEV)
+    batch = {"tokens": prompt}
+    with torch.no_grad():
+        m.prefill(params, {"tokens": prompt[:, :64]}, 64)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                     # counts of this prefill only
+        t0 = time.perf_counter()
+        logits, cache = m.prefill(params, batch, S)
+        logits.argmax(-1).tolist()
+        prefill_s = time.perf_counter() - t0
+        used, peak = counts(SERVING), torch.cuda.max_memory_allocated()
+        del cache
+        want = {"rmsnorm": 2 * L + 1, "flash_attention": L, "flash_decode": 0}
+        if used != want:
+            raise AssertionError(f"moonshot prefill: launches {used}, the stack implies {want}")
+        kern, plain = [], []
+        with routing(record=kern):
+            got = m.prefill(params, batch, S)[0]
+        with plain_versions(), routing(record=plain, replay=kern):
+            want_logits = m.prefill(params, batch, S)[0]
+        err = logits_close("moonshot facade prefill", got, want_logits)
+        agree = routing_agreement(agreement(kern, plain, slice(None), L), "moonshot prefill")
+        del kern, plain
+        profile = profile_step(lambda: m.prefill(params, batch, S)[0].argmax(-1).tolist(), n=2)
+    return {"batch": B, "prompt_tokens": S, "prefill_ms": prefill_s * 1e3,
+            "prefill_tokens_per_s": B * S / prefill_s, "peak_memory_bytes": peak,
+            "capacity_per_expert": moe_mod.capacity(B * S, cfg), "launches": used,
+            "max_abs_err_logits": err, "tolerance": {"rtol": 0.15, "atol": 0.3},
+            "routing_agreement": agree, "profile": profile}
+
+
+def phase_moonshot(records: dict) -> None:
+    """moonshot-v1-16b-a3b as the repo configures it (48 layers, d_model
+    2048, 16 / 16 heads of 128, 64 experts of width 1,408, top 6, and 2
+    shared; vocab 163,840; bf16, seeded random weights: 57.1 GB; not the
+    published Moonlight-16B-A3B, which has 27 layers and latent attention),
+    at full width and depth. Served through the engine with its captured
+    steps (the qwen3 serve's request mix, interference_aware) under
+    ``serve_checked``'s gates; the extend and decode steps' logits against
+    the plain versions with the routing replayed, and their profiles; a
+    prefill of 4 x 1,024 tokens through the model facade; then the path's
+    three kernels against their plain versions at its shapes, timed
+    beside their bounds and the library's call."""
+    cfg = get_config("moonshot-v1-16b-a3b")
+    a, L = cfg.attn, cfg.n_layers
+    emit(phase="moonshot_memory_before", allocated_bytes=torch.cuda.memory_allocated(),
+         reserved_bytes=torch.cuda.memory_reserved())
+    m, params, weights = facade_weights(cfg)
+    emit(phase="moonshot_weights", n_params_by_config=cfg.n_params(),
+         n_active_params_by_config=cfg.n_active_params(), **weights)
+    prompts = serve_prompts(cfg, np.random.default_rng(0))
+    stats = serve_checked(cfg, EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128),
+                          prompts, 32, params)
+    stats["capacity_decode"] = moe_mod.capacity(8, cfg)
+    emit(phase="moonshot_serve", config=cfg.name, **stats)
+    for name in SERVING:
+        records[name]["launches_moonshot"] = stats["launches"][name]
+    records["rmsnorm"]["launches_moonshot_per_step"] = 2 * L + 1
+    eng = Engine(cfg, params=params, ecfg=EngineConfig(max_slots=8, max_len=1024), device=DEV)
+    decode, chunk = eng._phase_profile("decode", 8), eng._phase_profile("prefill128", 128)
+    emit(phase="moonshot_price", device_model=eng.dev.name,
+         priced_params=cfg.n_active_params(), priced_decode_bytes=decode.demand["hbm"],
+         priced_decode_ms=decode.isolated_time(eng.dev) * 1e3,
+         priced_extend_128_ms=chunk.isolated_time(eng.dev) * 1e3,
+         weight_bytes=weights["bytes"])
+    errs, profiles, agree = step_logits_and_profiles(eng, np.random.default_rng(0))
+    del eng
+    emit(phase="moonshot_routing_agreement", steps=agree)
+    emit(phase="moonshot_serve_logits", max_abs_err=errs, tolerance={"rtol": 0.15, "atol": 0.3},
+         routing="the kernels' run's, replayed in the plain run")
+    emit(phase="moonshot_step_profile", **profiles)
+    emit(phase="moonshot_facade", **moonshot_facade_prefill(m, params, 4, 1024))
+    del m, params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(3)
+    errs = check_moonshot_kernels(rng, a.n_heads, a.n_kv_heads, a.head_dim)
+    kvh = a.n_kv_heads
+    times = {
+        "rmsnorm": [time_rmsnorm(rng, (1, 128, 2048)), time_rmsnorm(rng, (8, 1, 2048)),
+                    time_rmsnorm(rng, (4, 1024, 2048), 4)],
+        "flash_attention": [time_flash_attention(rng, 128, 512, KVH=kvh),
+                            time_flash_attention_offsets(rng, 512, KVH=kvh),
+                            time_flash_attention_prefill(rng, 4, 1024, a.n_heads, kvh,
+                                                         a.head_dim)],
+        "flash_decode": [time_flash_decode(rng, MIXED_LENS,
+                                           f"B=8 H={a.n_heads} KVH={kvh} D={a.head_dim} "
+                                           "T=1025 mixed", KVH=kvh)],
+    }
+    emit(phase="moonshot_kernels", max_abs_err=errs, tolerance={"bfloat16": TOL[BF]}, times=times)
+    for name in SERVING:
+        records[name]["max_abs_err_moonshot"] = errs[name]
+        records[name]["moonshot"] = times[name]
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script measures the GPU path "
@@ -1690,6 +2004,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_zamba2(records)
     emit(phase="zamba2_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_moonshot(records)
+    emit(phase="moonshot_done", seconds=time.perf_counter() - t0)
 
     emit(phase="total", seconds=time.perf_counter() - t_all)
     for rec in records.values():

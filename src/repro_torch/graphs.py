@@ -6,7 +6,7 @@ the batched solver (``src/repro/core/estimator_jax.py:215``). Here a step is
 a body over static buffers. On a CUDA device ``capture`` runs it once on a
 side stream (the warm-up: kernels built, library code loaded, scratch
 allocated), captures it into a ``torch.cuda.CUDAGraph`` in a memory pool
-that every graph of the process shares, and every call replays the graph:
+that the device's live graphs share, and every call replays the graph:
 the host enqueues one graph where it enqueued a launch for every kernel. On
 the CPU the same body runs directly on every call, so the CPU tests run
 what the card replays. A capture that fails raises; nothing falls back to
@@ -25,6 +25,7 @@ are ``launches`` x ``calls``.
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Callable, Dict
 
 import numpy as np
@@ -32,7 +33,23 @@ import torch
 
 WARMUPS = 1          # runs of a body on a side stream before its capture
 
-_pools: Dict[int, tuple] = {}     # CUDA device index -> the shared graph pool
+# CUDA device index -> (the graph pool its graphs share, those graphs)
+_pools: Dict[int, tuple] = {}
+
+
+def _shared_pool(idx: int) -> tuple:
+    """The pool that new graphs on device ``idx`` share, and the set of
+    the graphs in it. PyTorch releases a pool with the last graph captured
+    into it, and a released pool takes no further capture (the caching
+    allocator asserts), so once every graph of the pool has been dropped
+    (an engine freed before the next is built) a new pool takes its place;
+    the old one's memory goes back to the card at the allocator's next
+    release of cached blocks."""
+    pool, graphs = _pools.get(idx, (None, None))
+    if not graphs:
+        pool, graphs = torch.cuda.graph_pool_handle(), weakref.WeakSet()
+        _pools[idx] = (pool, graphs)
+    return pool, graphs
 
 
 def launch_counts() -> Dict[str, int]:
@@ -97,12 +114,11 @@ def capture(body: Callable, device, name: str) -> Step:
                 body()
         torch.cuda.current_stream().wait_stream(side)
         warm = launch_counts()
-        idx = torch.cuda.current_device()
-        if idx not in _pools:
-            _pools[idx] = torch.cuda.graph_pool_handle()
+        pool, pooled = _shared_pool(torch.cuda.current_device())
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=_pools[idx]):
+        with torch.cuda.graph(graph, pool=pool):
             out = body()
+        pooled.add(graph)
         after = launch_counts()
     step.graph, step.out = graph, out
     step.launches = _delta(after, warm)

@@ -21,7 +21,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm
 from repro_torch.models.layers import Params, rmsnorm, rmsnorm_init
-from repro_torch.models.transformer import _stack_trees, layer_decode, layer_fwd, layer_init, unstack
+from repro_torch.models.transformer import (layer_decode, layer_fwd, layer_init, stack_init,
+                                           unstack)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -93,7 +94,7 @@ def ssm_stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
                    n_layers: Optional[int] = None) -> Params:
     """Stacked (L, ...) parameters, the shape of the reference's tree."""
     n = cfg.n_layers if n_layers is None else n_layers
-    return _stack_trees([ssm_layer_init(gen, cfg, dtype) for _ in range(n)])
+    return stack_init(lambda: ssm_layer_init(gen, cfg, dtype), n)
 
 
 def ssm_stack_fwd(sp: Params, cfg: ModelConfig, x):
@@ -133,7 +134,7 @@ def hybrid_stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat
     None: the reference's tree."""
     g, tail = hybrid_split(cfg)
     k = cfg.hybrid_attn_every
-    return {"ssm": _stack_trees([ssm_stack_init(gen, cfg, dtype, k) for _ in range(g)]),
+    return {"ssm": stack_init(lambda: ssm_stack_init(gen, cfg, dtype, k), g),
             "shared_attn": layer_init(gen, cfg, dtype),
             "tail": ssm_stack_init(gen, cfg, dtype, tail) if tail else None}
 
@@ -141,7 +142,7 @@ def hybrid_stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat
 def hybrid_stack_fwd(sp: Params, cfg: ModelConfig, x):
     for gp in unstack(sp["ssm"]):
         x = ssm_stack_fwd(gp, cfg, x)
-        x, _ = layer_fwd(sp["shared_attn"], cfg, x, kind="causal")
+        x, _, _ = layer_fwd(sp["shared_attn"], cfg, x, kind="causal")
     if sp["tail"] is not None:
         x = ssm_stack_fwd(sp["tail"], cfg, x)
     return x
@@ -156,7 +157,7 @@ def hybrid_stack_prefill(sp: Params, cfg: ModelConfig, x, states: Cache,
     ks, vs = [], []
     for i, gp in enumerate(unstack(sp["ssm"])):
         x = ssm_stack_prefill(gp, cfg, x, _at(states, i))
-        x, (k, v) = layer_fwd(sp["shared_attn"], cfg, x, kind="causal")
+        x, (k, v), _ = layer_fwd(sp["shared_attn"], cfg, x, kind="causal")
         ks.append(k)
         vs.append(v)
     if sp["tail"] is not None:

@@ -1,5 +1,5 @@
-"""Model facade for the dense / global-attention family, the SSM family
-(Mamba-1 and Mamba-2) and the hybrid family (zamba2).
+"""Model facade for the dense and moe families with global attention, the
+SSM family (Mamba-1 and Mamba-2) and the hybrid family (zamba2).
 
   m = build_model(cfg)                      # device="cuda" unless told
   params = m.init(generator)
@@ -8,9 +8,11 @@
   logits, cache = m.decode_step(params, tokens, cache, pos)   # cache in place
   cache = m.init_cache(batch_size, max_len)
 
-Batches: {"tokens": (B, S) integer tensor}. The moe, vlm and audio families
-and local/global dense are not ported yet and raise ``NotImplementedError``
-(ROADMAP A7).
+Batches: {"tokens": (B, S) integer tensor}. ``forward`` returns the logits
+(the moe family's load-balance loss, which the reference's ``forward``
+also returns, is ``transformer.uniform_stack_fwd``'s second result). The
+vlm and audio families and local/global attention are not ported yet and
+raise ``NotImplementedError`` (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -53,7 +55,8 @@ def resolve_device(device) -> torch.device:
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     device = resolve_device(device)
     family = cfg.family
-    if family not in ("ssm", "hybrid") and (family != "dense" or cfg.attn.pattern != "global"):
+    if family not in ("ssm", "hybrid") and (family not in ("dense", "moe")
+                                            or cfg.attn.pattern != "global"):
         raise NotImplementedError(
             f"{cfg.name}: family {family!r} with attention pattern "
             f"{cfg.attn.pattern!r} is not ported yet (ROADMAP.md item A7 "
@@ -65,7 +68,8 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         if gen.device.type != device.type:
             raise ValueError(f"generator on {gen.device}, model on {device}")
         stack = {"ssm": hyb.ssm_stack_init, "hybrid": hyb.hybrid_stack_init,
-                 "dense": tfm.uniform_stack_init}[family](gen, cfg, dtype)
+                 "dense": tfm.uniform_stack_init,
+                 "moe": tfm.uniform_stack_init}[family](gen, cfg, dtype)
         return {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                                     cfg.tie_embeddings, dtype),
                 "final_ln": rmsnorm_init(cfg.d_model, device),
@@ -81,7 +85,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         elif family == "hybrid":
             x = hyb.hybrid_stack_fwd(p["stack"], cfg, x)
         else:
-            x, _ = tfm.uniform_stack_fwd(p["stack"], cfg, x)
+            x, _, _ = tfm.uniform_stack_fwd(p["stack"], cfg, x)
         return unembed(p["embed"], rmsnorm(p["final_ln"], x, cfg.norm_eps))
 
     def _states(lead: tuple, batch_size: int):
@@ -126,7 +130,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
                                                  cache.get("tail"))
             cache.update(attn_k=_pad_to(k, max_len), attn_v=_pad_to(v, max_len))
         else:
-            x, (k, v) = tfm.uniform_stack_fwd(p["stack"], cfg, x, collect_kv=True)
+            x, _, (k, v) = tfm.uniform_stack_fwd(p["stack"], cfg, x, collect_kv=True)
             cache = {"k": _pad_to(k, max_len), "v": _pad_to(v, max_len)}
         x = rmsnorm(p["final_ln"], x[:, -1:], cfg.norm_eps)
         return unembed(p["embed"], x), cache

@@ -9,9 +9,13 @@ The paper's findings drive the scheduler:
     (analytic resource profiles through repro_torch.core.estimator) and
     sizes the chunk to keep predicted TBT within the SLO.
 
-Supported family: dense decoders with global attention. The two steps
-(decode, extend) update the KV cache in place and run, on a CUDA device,
-on the RMSNorm, flash-decode and flash-attention kernels. As the reference
+Supported families: dense and moe decoders with global attention, as in the
+reference. The two steps (decode, extend) update the KV cache in place and
+run, on a CUDA device, on the RMSNorm, flash-decode and flash-attention
+kernels. The extend step routes only the chunk's real rows through the
+MoE, with the capacity of the chunk's length (``moe.moe_ffn_local``); the
+decode step routes every slot of its static batch, idle ones too, with the
+capacity of ``max_slots`` tokens, as the reference's does. As the reference
 jits them, the port captures them (``repro_torch.graphs``): on a CUDA
 device the decode step and one extend step for each chunk bucket are CUDA
 graphs over static buffers, captured when the engine is built and replayed
@@ -103,9 +107,9 @@ class Engine:
         against; ``device`` is where the tensors live. Without ``params``
         the weights are drawn from ``generator`` (default: a generator on
         ``device`` seeded with ``ecfg.seed``)."""
-        if cfg.family != "dense" or cfg.attn.pattern != "global":
+        if cfg.family not in ("dense", "moe") or cfg.attn.pattern != "global":
             raise NotImplementedError(
-                "engine supports dense decoders with global attention")
+                "engine supports dense and moe decoders with global attention")
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
         self.dev = dev
@@ -202,7 +206,9 @@ class Engine:
     # --------------------- interference model --------------------- #
     def _phase_profile(self, name: str, n_tokens: float) -> KernelProfile:
         """Analytic per-call resource vector for one engine phase: weight
-        reads dominate decode; matmul FLOPs dominate prefill chunks."""
+        reads dominate decode; matmul FLOPs dominate prefill chunks. Priced
+        from the active parameters, as the reference prices it, though a
+        moe step's batched expert products read every expert's weights."""
         n_active = self.cfg.n_active_params()
         flops = 2.0 * n_active * n_tokens
         bytes_ = 2.0 * n_active + 2e5 * n_tokens   # weights + kv traffic

@@ -245,20 +245,20 @@ def test_extend_in_two_chunks_equals_prefill(param_dtype):
 
 
 def test_other_families_raise_naming_the_roadmap():
-    """Dense global attention, the SSM family and the hybrid family build;
-    the moe, vlm and audio families and local/global dense raise, naming
+    """Dense and moe global attention, the SSM family and the hybrid family
+    build; the vlm and audio families and local/global dense raise, naming
     the ROADMAP item that ports them."""
     built = []
     for arch in list_archs():
         cfg = tiny_config(get_config(arch))
-        if (cfg.family == "dense" and cfg.attn.pattern == "global") or cfg.family in (
+        if (cfg.family in ("dense", "moe") and cfg.attn.pattern == "global") or cfg.family in (
                 "ssm", "hybrid"):
             build_model(cfg, device="cpu")
             built.append(cfg.family)
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP.md item A7 "):
             build_model(cfg, device="cpu")
-    assert {"ssm", "dense", "hybrid"} <= set(built)
+    assert {"ssm", "dense", "hybrid", "moe"} <= set(built)
 
 
 def test_entry_points_default_to_cuda_and_do_not_fall_back():

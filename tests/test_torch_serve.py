@@ -4,6 +4,8 @@ mitigation via chunked prefill, chunk pricing, slot allocation), and the
 cross-package test: the JAX engine and the port's, on the same weights,
 prompts and device model, give the same tokens and the same sequence of
 prefill chunk sizes."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -23,7 +25,8 @@ from repro_torch.serve import Engine as _Engine
 from repro_torch.serve import EngineConfig, SlotAllocator
 from repro_torch.serve.kvcache import Sequence
 
-CFG = tiny_config(get_config("qwen3-1.7b"))
+QWEN3 = "qwen3-1.7b"
+CFG = tiny_config(get_config(QWEN3))
 
 
 def Engine(cfg, **kw):
@@ -287,21 +290,35 @@ def test_temperature_sampling_keeps_the_reference_s_behaviour():
 
 
 # ----------------------------- cross-package --------------------------- #
-@pytest.mark.parametrize("mode,chunk,lengths", [
-    pytest.param("serial", 32, (9, 70, 41, 120), id="serial"),
-    pytest.param("interference_aware", 32, (9, 70, 41, 120), id="interference_aware"),
-    pytest.param("fixed_chunk", 32, (9, 70, 41, 120), id="fixed_chunk"),
+MOONSHOT = "moonshot-v1-16b-a3b"
+
+
+@pytest.mark.parametrize("arch,cf,mode,chunk,lengths", [
+    pytest.param(QWEN3, None, "serial", 32, (9, 70, 41, 120), id="serial"),
+    pytest.param(QWEN3, None, "interference_aware", 32, (9, 70, 41, 120),
+                 id="interference_aware"),
+    pytest.param(QWEN3, None, "fixed_chunk", 32, (9, 70, 41, 120), id="fixed_chunk"),
     # the 150-token prompt's last chunk, 50 tokens at position 100, runs at
     # the 64-row bucket: past the cache's 161 rows
-    pytest.param("fixed_chunk", 100, (9, 150, 41, 120), id="capacity_crossing"),
+    pytest.param(QWEN3, None, "fixed_chunk", 100, (9, 150, 41, 120), id="capacity_crossing"),
+    # the moe family: at capacity factor 0.3 experts drop tokens, and the
+    # padded buckets must route only the chunks' real rows
+    pytest.param(MOONSHOT, 8.0, "interference_aware", 32, (9, 70, 41, 120),
+                 id="moonshot_interference_aware"),
+    pytest.param(MOONSHOT, 0.3, "serial", 32, (9, 70, 41, 120), id="moonshot_serial_drops"),
+    pytest.param(MOONSHOT, 0.3, "interference_aware", 32, (9, 70, 41, 120),
+                 id="moonshot_interference_aware_drops"),
 ])
-def test_both_engines_give_the_same_tokens_and_chunks(mode, chunk, lengths):
+def test_both_engines_give_the_same_tokens_and_chunks(arch, cf, mode, chunk, lengths):
     """Same converted f32 weights, same prompts, same DeviceModel: the same
     output tokens and the same sequence of prefill_chunk sizes (the port
     pads every chunk to its bucket; the events carry the real sizes)."""
-    jcfg = jax_tiny_config(jax_get_config("qwen3-1.7b")).with_overrides(
+    jcfg = jax_tiny_config(jax_get_config(arch)).with_overrides(
         param_dtype="float32", attn_impl="reference")
-    cfg = CFG.with_overrides(param_dtype="float32")
+    cfg = tiny_config(get_config(arch)).with_overrides(param_dtype="float32")
+    if cf is not None:
+        jcfg = jcfg.with_overrides(moe=dataclasses.replace(jcfg.moe, capacity_factor=cf))
+        cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
     kw = dict(max_slots=2, max_len=160, prefill_chunk=chunk, mode=mode, tbt_slo_ms=1e-6)
     jeng = JaxEngine(jcfg, ecfg=JaxEngineConfig(**kw), dev=JAX_H100,
                      key=jax.random.PRNGKey(0))
@@ -316,7 +333,7 @@ def test_both_engines_give_the_same_tokens_and_chunks(mode, chunk, lengths):
         for p in prompts[1:]:                 # ... when the others arrive
             e.submit(p, max_new=6)
     jm, m = jeng.run_until_done(), eng.run_until_done()
-    assert sorted(m) == sorted(jm) == [0, 1, 2, 3]
+    assert sorted(m) == sorted(jm) == list(range(len(lengths)))
     for i in m:
         assert m[i]["output"] == jm[i]["output"], (mode, i)
         assert m[i]["new_tokens"] == jm[i]["new_tokens"]
@@ -330,6 +347,7 @@ def test_both_engines_give_the_same_tokens_and_chunks(mode, chunk, lengths):
     want = {"serial": 4, "interference_aware": 8}.get(
         mode, sum(-(-n // chunk) for n in lengths))
     assert len(chunks) >= want
+    assert any(c & (c - 1) for c in chunks)          # some chunk was padded
 
 
 def test_token_out_of_vocabulary_raises():
