@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, times them at the shapes their paths
-give them, and drives six paths, counting the kernels' launches on each:
+give them, and drives seven paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
     continuous-batching engine (rmsnorm, flash_attention, flash_decode),
@@ -31,6 +31,11 @@ give them, and drives six paths, counting the kernels' launches on each:
     shared attention block at head_dim 64 (flash_attention in prefill,
     flash_decode in decode), with the three kernels checked and timed at
     the path's shapes;
+  * gemma3-1b at full width and depth through the model facade: the
+    local:global stack (4 groups of 5 sliding-window layers and a global
+    one, a tail of 2 local layers; local decode over a ring of the window's
+    rows) at head_dim 256 with 4 / 1 heads, with flash_attention and
+    flash_decode checked and timed at its shapes;
   * moonshot-v1-16b-a3b (the moe family: 64 experts, top 6, and 2 shared)
     at full width and depth, 57 GB of weights, served through the engine
     with its captured steps as qwen3-1.7b is, its logits held against the
@@ -86,6 +91,7 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.hybrid import hybrid_split  # noqa: E402
+from repro_torch.models.transformer import lg_split  # noqa: E402
 from repro_torch.core.scenario import Scenario  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig  # noqa: E402
 from repro_torch.serve.engine import chunk_bucket  # noqa: E402
@@ -1678,23 +1684,34 @@ def phase_falcon_mamba(records: dict) -> None:
          tolerance={"rtol": 0.15, "atol": 0.3})
 
 
-def time_flash_attention_prefill(rng, B, S, H, KVH, D) -> dict:
-    """Causal attention over a whole prompt, S = T, with fresh k and v as
-    the projections give them (``L`` copies, so the L2 cache is cold)."""
+def time_flash_attention_prefill(rng, B, S, H, KVH, D, kind="causal", window=0,
+                                 splits=()) -> dict:
+    """Causal (or local, over a window) attention over a whole prompt, S =
+    T, with fresh k and v as the projections give them (``L`` copies, so
+    the L2 cache is cold). The bound counts the (query, key) pairs the mask
+    lets through; SDPA takes the local band as a boolean mask. ``splits``:
+    the key splits to time beside the plan's (``ms_by_kv_splits``)."""
     L = 4
     qkv = [(randn(rng, (B, S, H, D), BF), randn(rng, (B, S, KVH, D), BF),
             randn(rng, (B, S, KVH, D), BF)) for _ in range(L)]
+    pos = torch.arange(S, device=DEV)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
 
     def library(i):
         q, k, v = (t.transpose(1, 2) for t in qkv[i])
+        if kind == "local":
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=True)
         return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
-    pairs = S * (S + 1) // 2
+    pairs = sum(min(s + 1, window) for s in range(S)) if kind == "local" else S * (S + 1) // 2
     b_ms, by = bound((2 * B * S * H * D + 2 * B * S * KVH * D) * 2, 4 * pairs * B * H * D, BF)
     plan = fa_mod.split_plan(B, S, H, S, BF, torch.cuda.get_device_properties(0).multi_processor_count)
-    return {"shape": f"B={B} S=T={S} H={H} KVH={KVH} D={D} causal", "dtype": "bfloat16", **plan,
-            **time_ms(lambda i: fa_mod.flash_attention(*qkv[i], "causal"), L),
-            "plain_ms": time_ms(lambda i: fa_mod.flash_attention_plain(*qkv[i], "causal"), L)["ms"],
+    label = f"B={B} S=T={S} H={H} KVH={KVH} D={D} {kind}" + (f" window {window}" if window else "")
+    fills = {f"kv_splits={n}": time_ms(
+        lambda i, n=n: fa_mod.flash_attention(*qkv[i], kind, window, 0, n), L)["ms"] for n in splits}
+    return {"shape": label, "dtype": "bfloat16", **plan, **({"ms_by_kv_splits": fills} if splits else {}),
+            **time_ms(lambda i: fa_mod.flash_attention(*qkv[i], kind, window), L),
+            "plain_ms": time_ms(lambda i: fa_mod.flash_attention_plain(*qkv[i], kind, window), L)["ms"],
             "library_ms": time_ms(library, L)["ms"], "bound_ms": b_ms, "bound_by": by}
 
 
@@ -1782,7 +1799,156 @@ def phase_zamba2(records: dict) -> None:
 
 
 # --------------------------------------------------------------------- #
-#  phase 10: moonshot-v1-16b-a3b, the moe family, served at full size    #
+#  phase 10: gemma3-1b, the local:global stack at head_dim 256           #
+# --------------------------------------------------------------------- #
+def expect_refusal(what: str, call) -> str:
+    """``call`` must raise ValueError: a case the kernels are not built for
+    is refused, never computed some other way."""
+    try:
+        call()
+    except ValueError as exc:
+        return f"{what}: {exc}"
+    raise AssertionError(f"{what}: not refused")
+
+
+def check_gemma3_kernels(rng, B, S, n_dec, a, d_model) -> tuple:
+    """The kernels of the gemma3 path against their plain versions at head
+    dim 256: rmsnorm at d_model of a prefill and of a step; flash_attention
+    over the whole prompt, causal and local, then at the body's other cases
+    there (ragged, bidirectional, groups 2 and 8, the keys split over
+    blocks, device offsets over an engine's cache); flash_decode over the
+    global cache at the first, a middle and the last step's lengths and at
+    four lengths in one batch, over a local ring (every row valid), with 8
+    (gemma-2b) and 2 (gemma3-4b) query heads a KV head, over an f32 cache
+    (a ring of two stages) and under f32 queries over a bf16 cache. Then
+    the two cases the kernels are not built for must be refused: f32
+    queries in flash_attention, 16 query heads a KV head in flash_decode.
+    Returns (the largest errors by kernel, the refusals' messages)."""
+    H, KVH, D, W = a.n_heads, a.n_kv_heads, a.head_dim, a.local_window
+    errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "flash_decode": 0.0}
+
+    def hold(key, name, got, want, dtype=BF):
+        errs[key] = max(errs[key], check_close(name, got, want, dtype))
+
+    for shape in ((B * S, d_model), (B, d_model)):
+        x, s = randn(rng, shape, BF), randn(rng, (d_model,), F32)
+        hold("rmsnorm", f"rmsnorm{shape} gemma3", rms_mod.rmsnorm(x, s), rms_mod.rmsnorm_plain(x, s))
+    q, k, v = (randn(rng, (B, S, h, D), BF) for h in (H, KVH, KVH))
+    for kind in ("causal", "local"):
+        hold("flash_attention", f"flash_attention gemma3 prefill {kind}",
+             fa_mod.flash_attention(q, k, v, kind, W), fa_mod.flash_attention_plain(q, k, v, kind, W))
+    for S2, T2, g, kind in [(200, 200, 4, "causal"), (37, 300, 2, "bidirectional"),
+                            (130, 130, 8, "local")]:
+        q2, k2, v2 = bhsd_views(rng, 2, g, S2, T2, D, BF)
+        hold("flash_attention", f"flash_attention D{D} {kind} S{S2} T{T2} g{g}",
+             fa_mod.flash_attention(q2, k2, v2, kind, 64), fa_mod.flash_attention_plain(q2, k2, v2, kind, 64))
+    q2, k2, v2 = bhsd_views(rng, 1, 4, 128, 640, D, BF)
+    want = fa_mod.flash_attention_plain(q2, k2, v2, "causal", 0, 512)
+    for n in (2, 4):
+        hold("flash_attention", f"flash_attention D{D} pos0 512 kv_splits={n}",
+             fa_mod.flash_attention(q2, k2, v2, "causal", 0, 512, n), want)
+    ck, cv = path_cache(rng, 1, 8, 1025, 1, D, BF)
+    q2, off = randn(rng, (1, 128, 8, D), BF), torch.tensor([5, 900, 100], device=DEV)
+    hold("flash_attention", f"flash_attention D{D} offsets slot 5 pos0 900 c 100",
+         fa_mod.flash_attention(q2, ck[0], cv[0], "causal", offsets=off),
+         fa_mod.flash_attention_plain(q2, ck[0], cv[0], "causal", offsets=off))
+    T = S + n_dec
+    ck, cv = path_cache(rng, 1, B, T, KVH, D, BF)
+    q1 = randn(rng, (B, 1, H, D), BF)
+    for lens in ([S + 1] * B, [S + n_dec // 2] * B, [T] * B, [S + 1, S + 9, S + 20, T]):
+        lens = torch.tensor(lens, device=DEV)
+        hold("flash_decode", f"flash_decode gemma3 global kv_len {lens.tolist()}",
+             dec_mod.flash_decode(q1, ck[0], cv[0], lens), dec_mod.flash_decode_plain(q1, ck[0], cv[0], lens))
+    rk, rv = path_cache(rng, 1, B, W, KVH, D, BF)
+    lens = torch.full((B,), W, device=DEV)
+    hold("flash_decode", "flash_decode gemma3 local ring", dec_mod.flash_decode(q1, rk[0], rv[0], lens),
+         dec_mod.flash_decode_plain(q1, rk[0], rv[0], lens))
+    lens = torch.tensor([T, 3, 500, 1000], device=DEV)
+    for H2, KVH2 in ((8, 1), (8, 4)):
+        q2 = randn(rng, (B, 1, H2, D), BF)
+        k2, v2 = path_cache(rng, 1, B, T, KVH2, D, BF)
+        hold("flash_decode", f"flash_decode D{D} G{H2 // KVH2}",
+             dec_mod.flash_decode(q2, k2[0], v2[0], lens), dec_mod.flash_decode_plain(q2, k2[0], v2[0], lens))
+    lens = torch.tensor([300, 17], device=DEV)
+    for qd, kd in ((F32, F32), (F32, BF)):
+        q2 = randn(rng, (2, 1, 8, D), qd)
+        k2, v2 = path_cache(rng, 1, 2, 300, 2, D, kd)
+        hold("flash_decode", f"flash_decode D{D} {qd} queries over a {kd} cache",
+             dec_mod.flash_decode(q2, k2[0], v2[0], lens), dec_mod.flash_decode_plain(q2, k2[0], v2[0], lens),
+             kd)
+    refused = [expect_refusal("flash_attention, f32 queries at head_dim 256", lambda: fa_mod.flash_attention(
+                   q[:1, :64].float(), k[:1, :64], v[:1, :64], "causal")),
+               expect_refusal("flash_decode, 16 query heads a KV head at head_dim 256",
+                              lambda: dec_mod.flash_decode(randn(rng, (B, 1, 16, D), BF), ck[0], cv[0],
+                                                           torch.full((B,), T, device=DEV)))]
+    return errs, refused
+
+
+def phase_gemma3(records: dict) -> None:
+    """gemma3-1b as the repo configures it (26 layers: 4 groups of 5 local
+    layers, window 512, and a global one, then a tail of 2 local layers;
+    d_model 1,152, 4 / 1 heads of 256, d_ff 6,912 geglu, vocab 262,144 tied,
+    the embedding scaled; one RoPE theta, no qk-norm, no softcap; bf16,
+    seeded random weights) through the model facade, as zamba2: prefill of
+    4 x 1,024 tokens (past the window: the local rings wrap), 32 greedy
+    decode steps at positions 1,024 .. 1,055 (the rings wrap again), the
+    launch gate, the profiles of a decode step and a prefill, the logits
+    against the plain versions (a 128-token prefill: shorter than the
+    window); then the two attention kernels against their plain versions
+    at head_dim 256, timed beside their bounds and SDPA's."""
+    cfg = get_config("gemma3-1b")
+    g, tail = lg_split(cfg)
+    a, L, B, S, n_dec = cfg.attn, cfg.n_layers, 4, 1024, 32
+    m, params, weights = facade_weights(cfg)
+    emit(phase="gemma3_weights", groups=g, tail=tail, local_layers=g * a.local_ratio + tail,
+         n_params_by_config=cfg.n_params(), **weights)
+    run, used, prompt, tok, cache = facade_generate(m, params, B, S, n_dec)
+    norms = 2 * L + 1                              # ln1 and ln2 of every layer, final
+    want = {name: 0 for name in used}
+    want.update(rmsnorm=norms * (1 + n_dec), flash_attention=L, flash_decode=L * n_dec)
+    if used != want:
+        raise AssertionError(f"gemma3: launches {used}, the stack implies {want}")
+    emit(phase="gemma3", ring_rows=a.local_window,
+         cache_bytes=sum(t.numel() * t.element_size() for t in cache.values()), **run)
+    for name in SERVING:
+        records[name]["launches_gemma3"] = used[name]
+    records["rmsnorm"]["launches_gemma3_per_pass"] = norms
+    emit(phase="gemma3_step_profile",
+         decode=profile_step(lambda: m.decode_step(params, tok, cache, S + n_dec - 1)[0]
+                             .argmax(-1).tolist()),
+         prefill=profile_step(lambda: m.prefill(params, {"tokens": prompt}, S + n_dec)[0]
+                              .argmax(-1).tolist(), n=2))
+    del cache
+    emit(phase="gemma3_logits", max_abs_err=facade_logits(m, params, prompt),
+         tolerance={"rtol": 0.15, "atol": 0.3})
+    del m, params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(4)
+    errs, refused = check_gemma3_kernels(rng, B, S, n_dec, a, cfg.d_model)
+    T, mid = S + n_dec, S + n_dec // 2
+    times = {
+        "flash_attention": [time_flash_attention_prefill(rng, B, S, a.n_heads, a.n_kv_heads, a.head_dim,
+                                                         splits=(1, 4)),
+                            time_flash_attention_prefill(rng, B, S, a.n_heads, a.n_kv_heads, a.head_dim,
+                                                         "local", a.local_window, splits=(1, 4))],
+        "flash_decode": [time_flash_decode(
+            rng, [mid] * B, f"B={B} H={a.n_heads} KVH={a.n_kv_heads} D={a.head_dim} T={T} kv_len {mid}",
+            B=B, H=a.n_heads, KVH=a.n_kv_heads, D=a.head_dim, T=T),
+                         time_flash_decode(
+            rng, [a.local_window] * B, f"B={B} H={a.n_heads} KVH={a.n_kv_heads} D={a.head_dim} "
+            f"local ring T={a.local_window}, all valid",
+            B=B, H=a.n_heads, KVH=a.n_kv_heads, D=a.head_dim, T=a.local_window)],
+    }
+    emit(phase="gemma3_kernels", max_abs_err=errs, tolerance={"bfloat16": TOL[BF], "float32": TOL[F32]},
+         refused=refused, times=times)
+    records["rmsnorm"]["max_abs_err_gemma3"] = errs["rmsnorm"]
+    for name in ("flash_attention", "flash_decode"):
+        records[name]["max_abs_err_gemma3"] = errs[name]
+        records[name]["gemma3"] = times[name]
+
+
+# --------------------------------------------------------------------- #
+#  phase 11: moonshot-v1-16b-a3b, the moe family, served at full size    #
 # --------------------------------------------------------------------- #
 MOONSHOT_NORMS = [(128, 2048), (8, 2048), (4096, 2048)]   # a chunk, a decode step, prefill
 
@@ -2004,6 +2170,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_zamba2(records)
     emit(phase="zamba2_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_gemma3(records)
+    emit(phase="gemma3_done", seconds=time.perf_counter() - t0)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -25,19 +25,25 @@
 //   its own mma.sync, ldmatrix and exp chains) and how few blocks a chunk
 //   makes (B x H x S/64: 32 at the path's chunk on 132 SMs). The design:
 //   - Four warps own 16 query rows each and keep their Q fragments in
-//     registers; S = Q Kᵀ runs on mma.sync m16n8k16 (bf16 in, f32 out) with
-//     K read by ldmatrix; the online softmax works on the accumulator
-//     fragments in the exp2 domain (row max and sum over the four lanes of
-//     a quad); P is rounded to bf16 in registers (the reference casts the
-//     weights to the values' type, ROADMAP C3) and the m16n8 accumulator
-//     layout is reused as the A operand of O += P V, with V read by
-//     ldmatrix.trans. Scores and weights never leave registers.
+//     registers (up to head_dim 128); S = Q Kᵀ runs on mma.sync m16n8k16
+//     (bf16 in, f32 out) with K read by ldmatrix; the online softmax works
+//     on the accumulator fragments in the exp2 domain (row max and sum
+//     over the four lanes of a quad); P is rounded to bf16 in registers
+//     (the reference casts the weights to the values' type, ROADMAP C3) and
+//     the m16n8 accumulator layout is reused as the A operand of O += P V,
+//     with V read by ldmatrix.trans. Scores and weights never leave registers.
 //   - K and V stay bf16 in shared memory, XOR-swizzled by 16-byte chunk so
 //     that ldmatrix's eight row addresses hit distinct banks, and arrive
 //     by cp.async into a ring of FA_MMA_STAGES stages: the next tile is in
 //     flight while tile i is computed, one barrier a tile. Only tiles that
 //     straddle the causal / local band or the end of the keys run the mask
 //     code.
+//   - Head_dim 256 (the gemma families): a warp's (16, 256) f32 output tile
+//     alone takes 128 registers a thread, and the Q fragments would take 64
+//     more, so the Q fragments are read from shared memory by ldmatrix at
+//     each k-step instead of held, and a tile is 32 keys (16 score
+//     registers, not 32), FlashAttention-2's way at this size. The block's
+//     shared memory is then 96 KB, so two blocks still fit on an SM.
 //   - To shorten the walk and fill the card, the key range may be split
 //     over blocks (`n_splits` pieces of `chunk` keys, planned from the
 //     shapes by kernels/flash_attention.py:split_plan): each split writes
@@ -52,7 +58,10 @@
 //   products run exactly in f32: 16 x 8 threads, each a BM/16 x 8 patch of
 //   the score tile and a BM/16 x D/8 patch of the output tile, operands
 //   widened to f32 in shared memory. Its query tile (bm = 32 or 64) comes
-//   from the same plan.
+//   from the same plan. It is not built at head_dim 256: at bm = 32 ptxas
+//   spills it (255 registers and 468 bytes of spill stores over an f32
+//   cache, 68 over a bf16 one, on sm_90a), so the wrapper refuses f32
+//   queries there.
 //
 // Both skip KV tiles wholly outside the causal or local band: a fully
 // masked tile leaves nothing behind once a later tile raises the running
@@ -72,7 +81,7 @@
 #include "common.cuh"
 
 constexpr int FA_THREADS = 128;
-constexpr int FA_BN = 64;        // keys per tile, both bodies
+constexpr int FA_BN = 64;        // keys per tile, both bodies (32 at head_dim 256, below)
 constexpr int FA_MMA_BM = 64;    // queries per block of the tensor-core body
 constexpr int FA_MMA_STAGES = 2;  // K / V tiles in the cp.async ring
 constexpr int FA_MAX_SPLITS = 4;
@@ -280,7 +289,9 @@ static int launch_attn(const AttnParams& p, int B, cudaStream_t stream) {
 // Element offset of 16-byte chunk c of row r in a (rows, D) bf16 tile whose
 // chunks are XOR-swizzled: the eight rows that one ldmatrix matrix reads at
 // the same logical chunk land in eight distinct 16-byte bank groups, for
-// every D from 16 (two chunks a row) to 128 (sixteen).
+// every D from 16 (two chunks a row) to 256 (thirty-two: a row is four
+// 128-byte lines, and the XOR of the chunk's low three bits with the row's
+// keeps eight rows on eight bank groups).
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
     constexpr int CH = D / 8;                      // chunks per row
@@ -289,14 +300,19 @@ __device__ __forceinline__ int swz(int r, int c) {
     return r * D + ((c ^ ((r / RPL) & MASK)) << 3);
 }
 
+// keys a tile of the tensor-core body: at head_dim 256 the output tile
+// takes 128 registers a thread, so the tile is 32 keys (and Q is read from
+// shared memory at each k-step, below)
+template <int D> __host__ __device__ constexpr int attn_mma_bn() { return D > 128 ? 32 : FA_BN; }
+
 template <int D>
 constexpr int attn_mma_smem_bytes() {
-    return (FA_MMA_BM + 2 * FA_MMA_STAGES * FA_BN) * D * (int)sizeof(bf16);
+    return (FA_MMA_BM + 2 * FA_MMA_STAGES * attn_mma_bn<D>()) * D * (int)sizeof(bf16);
 }
 
 // the keys [s_lo, s_hi) of split `split` that the query tile starting at q0
 // may see (empty when s_lo >= s_hi); whole tiles, since chunk is a multiple
-// of FA_BN
+// of FA_BN (and so of the 32-key tile at head_dim 256)
 __device__ __forceinline__ void attn_split_range(const AttnParams& p, int q0, int split,
                                                  int& s_lo, int& s_hi) {
     int n_lo, n_hi;
@@ -318,12 +334,13 @@ template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_mma_kernel(const AttnParams p_in) {
     const AttnParams p = attn_resolve(p_in);
-    constexpr int BM = FA_MMA_BM, BN = FA_BN, NT = FA_THREADS;
+    constexpr int BM = FA_MMA_BM, BN = attn_mma_bn<D>(), NT = FA_THREADS;
+    constexpr bool QREG = D <= 128;                // Q fragments held for the whole key loop
     constexpr int CH = D / 8;                      // 16-byte chunks per row
     constexpr int KSTEPS = D / 16;                 // k-steps of Q Kᵀ
     constexpr int NTILES = BN / 8;                 // 8-key score tiles of a warp
     constexpr int DTILES = D / 8;                  // 8-column output tiles of a warp
-    static_assert(D % 16 == 0 && D <= 128, "unsupported head_dim");
+    static_assert(D % 16 == 0 && D <= 256 && BN % 16 == 0, "unsupported head_dim");
 
     extern __shared__ __align__(128) unsigned char fa_smem[];
     bf16* Qs = reinterpret_cast<bf16*>(fa_smem);  // (BM, D)
@@ -381,13 +398,15 @@ flash_attention_mma_kernel(const AttnParams p_in) {
     cp_async_wait<FA_MMA_STAGES - 2>();            // Q has landed
     __syncthreads();
 
-    // this warp's 16 query rows as A fragments, for the whole key loop
+    // this warp's 16 query rows as A fragments: for the whole key loop, or
+    // (head_dim 256) read again at each k-step
     const int row0 = warp * 16;
-    uint32_t qf[KSTEPS][4];
+    const int q_row = row0 + (lane & 7) + ((lane >> 3) & 1) * 8, q_chunk = lane >> 4;
+    uint32_t qf[QREG ? KSTEPS : 1][4];
+    if constexpr (QREG) {
 #pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks)
-        ldsm_x4(qf[ks], Qs + swz<D>(row0 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                    2 * ks + (lane >> 4)));
+        for (int ks = 0; ks < KSTEPS; ++ks) ldsm_x4(qf[ks], Qs + swz<D>(q_row, 2 * ks + q_chunk));
+    }
 
     float m[2] = {RT_NEG_INF, RT_NEG_INF}, l[2] = {0.f, 0.f};
     float acc[DTILES][4];
@@ -417,14 +436,21 @@ flash_attention_mma_kernel(const AttnParams p_in) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk)
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+            const uint32_t* qa = qf[0];
+            if constexpr (QREG) {
+                qa = qf[kk];
+            } else {
+                ldsm_x4(qf[0], Qs + swz<D>(q_row, 2 * kk + q_chunk));
+            }
 #pragma unroll
             for (int nt = 0; nt < NTILES; nt += 2) {
                 uint32_t kf[4];
                 ldsm_x4(kf, ks + swz<D>(nt * 8 + k_row, 2 * kk + k_chunk));
-                mma_bf16_16816(s[nt], qf[kk], kf[0], kf[1]);
-                mma_bf16_16816(s[nt + 1], qf[kk], kf[2], kf[3]);
+                mma_bf16_16816(s[nt], qa, kf[0], kf[1]);
+                mma_bf16_16816(s[nt + 1], qa, kf[2], kf[3]);
             }
+        }
 
         // the mask, on tiles that straddle the band or the end of the keys
         const bool edge = n0 + BN > p.T
@@ -445,7 +471,7 @@ flash_attention_mma_kernel(const AttnParams p_in) {
         }
 
         // online softmax of rows g (r = 0) and g + 8 (r = 1); the four
-        // lanes of a quad hold a row's 64 scores. The scale (> 0) commutes
+        // lanes of a quad hold a row's BN scores. The scale (> 0) commutes
         // with the maximum, so it is applied inside the exponent's FFMA
         // (which is why a masked score is -inf and not a large finite
         // number: the FFMA's exact product of one would not cancel m).
@@ -622,6 +648,7 @@ static int dispatch_mma(const AttnParams& p, int B, int D, cudaStream_t stream) 
         case 32: return launch_attn_mma<32>(p, B, stream);
         case 64: return launch_attn_mma<64>(p, B, stream);
         case 128: return launch_attn_mma<128>(p, B, stream);
+        case 256: return launch_attn_mma<256>(p, B, stream);
         default: return -1;
     }
 }
@@ -635,8 +662,8 @@ static int dispatch_mma(const AttnParams& p, int B, int D, cudaStream_t stream) 
 // with 1 < n_splits <= 4, part_m / part_l (B, H, n_splits, S_pad) and part_acc
 // (B, H, n_splits, S_pad, D), S_pad = S rounded up to 64, are f32 scratch
 // the caller allocates); f32 queries run the FMA body with bm = 32 or 64
-// and no split. offsets: null, or a device int64 array [slot, pos0, c]
-// (q_offset 0): batch b reads k / v row slot + b, the mask takes q_offset =
+// and no split (D up to 128). offsets: null, or a device int64 array
+// [slot, pos0, c] (q_offset 0): batch b reads k / v row slot + b, the mask takes q_offset =
 // pos0 and the keys end at min(T, pos0 + c), T being the view's length (the
 // cache's positions), and the plan's n_splits stays while each split's keys
 // are worked out from that end. Returns cudaGetLastError(), or -1 for a shape

@@ -22,7 +22,9 @@
 //   cache's own type (bf16 on the path: half the bytes of f32 staging) by
 //   cp.async 16-byte copies into a ring of DEC_STAGES stages: three tiles
 //   are in flight while one is computed, and a 128-key split of a bf16
-//   cache (64 KB) is requested at once. One barrier a tile.
+//   cache (64 KB) is requested at once. One barrier a tile. At head_dim 256
+//   an f32 cache's ring of four 32-key stages would be 256 KB, over the
+//   227 KB a block may have: it has two stages (128 KB).
 // * Scores. A key row is held by LPR = D / VPL neighbouring lanes, each
 //   with VPL values of d and the matching slice of the G queries in
 //   registers; a row's dot product is reduced over those lanes by shuffles.
@@ -30,6 +32,10 @@
 //   over the rows it sees, so the key loop needs no shared state at all;
 //   the slots are merged once at the end, by shuffles within a warp and
 //   through shared memory across the four warps.
+//
+// Head_dim 256 takes up to 8 query heads a KV head (gemma3-4b has 2,
+// gemma3-1b 4, gemma-2b 8); 16 would need a lane to hold 16 heads' slices
+// of 8 values twice over (256 registers) and is refused (no config has it).
 //
 // Keys at or beyond kv_len[b] are never read (cp.async writes zeros) and
 // never weigh. kv_len is int32 or int64, as the caller has it. The cache is
@@ -97,10 +103,13 @@ struct DecShape {
     static constexpr int KB = KPS < 32 / GT ? KPS : (32 / GT > 0 ? 32 / GT : 1);  // rows a batch
     static constexpr int EPC = 16 / (int)sizeof(TK);        // elements a 16-byte copy
     static constexpr int CPR = D / EPC;                     // copies a row
-    static constexpr int RING = DEC_STAGES * 2 * BN * D * (int)sizeof(TK);
+    static constexpr int STAGE = 2 * BN * D * (int)sizeof(TK);   // K and V of a stage
+    static constexpr int STAGES = DEC_STAGES * STAGE > 200 * 1024 ? 2 : DEC_STAGES;
+    static constexpr int RING = STAGES * STAGE;
     static constexpr int COMBINE = (2 * DEC_WARPS * GT + DEC_WARPS * GT * D) * (int)sizeof(float);
     static constexpr int SMEM = RING > COMBINE ? RING : COMBINE;
     static_assert(LPR >= 1 && LPR <= 32 && KPS * NSLOT == BN && KPS % KB == 0, "shape");
+    static_assert(SMEM <= 232448, "shared memory of a block");
 };
 
 template <typename TQ, typename TK, int D, int GT>
@@ -109,6 +118,7 @@ decode_partial_kernel(const DecodeParams p) {
     using Sh = DecShape<TK, D, GT>;
     constexpr int VPL = Sh::VPL, LPR = Sh::LPR, NSLOT = Sh::NSLOT, BN = Sh::BN;
     constexpr int KPS = Sh::KPS, KB = Sh::KB, EPC = Sh::EPC, CPR = Sh::CPR;
+    constexpr int STAGES = Sh::STAGES;
 
     extern __shared__ __align__(16) unsigned char dec_smem[];
     TK* ring = reinterpret_cast<TK*>(dec_smem);     // STAGES x (K (BN, D), V (BN, D))
@@ -127,7 +137,7 @@ decode_partial_kernel(const DecodeParams p) {
     const TK* kb = static_cast<const TK*>(p.k) + b * p.k_sb + kvh * p.k_sh;
     const TK* vb = static_cast<const TK*>(p.v) + b * p.v_sb + kvh * p.v_sh;
     auto load_stage = [&](int tile) {
-        TK* ks = ring + (tile % DEC_STAGES) * 2 * BN * D;
+        TK* ks = ring + (tile % STAGES) * 2 * BN * D;
         TK* vs = ks + BN * D;
         const int n0 = t0 + tile * BN;
         for (int e = tid; e < BN * CPR; e += DEC_THREADS) {
@@ -139,7 +149,7 @@ decode_partial_kernel(const DecodeParams p) {
         }
     };
 #pragma unroll
-    for (int s = 0; s < DEC_STAGES - 1; ++s) {
+    for (int s = 0; s < STAGES - 1; ++s) {
         if (s < n_tiles) load_stage(s);
         cp_async_commit();
     }
@@ -170,11 +180,11 @@ decode_partial_kernel(const DecodeParams p) {
     }
 
     for (int it = 0; it < n_tiles; ++it) {
-        cp_async_wait<DEC_STAGES - 2>();            // tile it has landed ...
+        cp_async_wait<STAGES - 2>();                // tile it has landed ...
         __syncthreads();                            // ... for all; tile it - 1 is consumed
-        if (it + DEC_STAGES - 1 < n_tiles) load_stage(it + DEC_STAGES - 1);
+        if (it + STAGES - 1 < n_tiles) load_stage(it + STAGES - 1);
         cp_async_commit();
-        const TK* ks = ring + (it % DEC_STAGES) * 2 * BN * D;
+        const TK* ks = ring + (it % STAGES) * 2 * BN * D;
         const TK* vs = ks + BN * D;
         const int n0 = t0 + it * BN;
 #pragma unroll
@@ -374,7 +384,11 @@ template <typename TQ, typename TK, int D>
 static int dispatch_group(const DecodeParams& p, int B, cudaStream_t stream) {
     if (p.G <= 2) return launch_decode<TQ, TK, D, 2>(p, B, stream);
     if (p.G <= 8) return launch_decode<TQ, TK, D, 8>(p, B, stream);
-    return launch_decode<TQ, TK, D, 16>(p, B, stream);
+    if constexpr (D > 128) {
+        return -1;                                  // 16 heads a KV head at D 256: not built
+    } else {
+        return launch_decode<TQ, TK, D, 16>(p, B, stream);
+    }
 }
 
 template <typename TQ, typename TK>
@@ -384,6 +398,7 @@ static int dispatch_decode(const DecodeParams& p, int B, int D, cudaStream_t str
         case 32: return dispatch_group<TQ, TK, 32>(p, B, stream);
         case 64: return dispatch_group<TQ, TK, 64>(p, B, stream);
         case 128: return dispatch_group<TQ, TK, 128>(p, B, stream);
+        case 256: return dispatch_group<TQ, TK, 256>(p, B, stream);
         default: return -1;
     }
 }
@@ -394,7 +409,7 @@ static int dispatch_decode(const DecodeParams& p, int B, int D, cudaStream_t str
 // int32 (len_is_64 = 0) or int64 (1). The keys are cut into n_splits pieces
 // of `chunk` keys (a multiple of 64); part_* are scratch the caller
 // allocates. Returns cudaGetLastError(), or -1 for a shape the kernels do
-// not take.
+// not take (among them more than 8 query heads a KV head at D 256).
 extern "C" int rt_flash_decode(
         const void* q, const void* k, const void* v, const void* kv_len, void* o,
         void* part_m, void* part_l, void* part_acc,

@@ -9,7 +9,8 @@ SMs, and a second small kernel merges the partial ``(m, l, acc)`` of the
 splits (two passes, always); ``merge_partials_plain`` is that merge in
 PyTorch. The cache is read in the model's layout ``(B, T, KVH, D)``
 through strides: nothing is transposed or copied. The lengths are read as
-the caller has them, int32 or int64.
+the caller has them, int32 or int64. At head_dim 256 the kernels take at
+most 8 query heads a KV head (no config has more there).
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)    # head sizes the kernels are built for
-MAX_GROUP = 16                   # most query heads per KV head (DEC_MAXG)
+HEAD_DIMS = (16, 32, 64, 128, 256)   # head sizes the kernels are built for
+MAX_GROUP = 16                   # most query heads per KV head (DEC_MAXG) ...
+MAX_GROUP_256 = 8                # ... and at head_dim 256
 _TILE = 64                       # a split is whole tiles of every stage size (32, 64)
 _SPLIT_KEYS = 128                # keys a split, the serial work of one block
 _MAX_BLOCKS = 8 * 132            # eight blocks for each of the card's 132 SMs
@@ -90,9 +92,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_dtypes("flash_decode", q, k, v)
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_decode: head_dim {D} not in {HEAD_DIMS}")
-    if H % KVH or H // KVH > MAX_GROUP:
+    most = MAX_GROUP_256 if D > 128 else MAX_GROUP
+    if H % KVH or H // KVH > most:
         raise ValueError(f"flash_decode: {H} heads over {KVH} KV heads "
-                         f"(at most {MAX_GROUP} per KV head)")
+                         f"(at most {most} per KV head at head_dim {D})")
     if not (k.device == v.device == kv_len.device == q.device):
         raise ValueError("flash_decode: all tensors must be on one device")
     if kv_len.shape != (B,):

@@ -11,6 +11,10 @@ queries on the FP32 pipes (the reference's f32 tolerance is beyond bf16 and
 TF32 products). ``split_plan`` decides from the shapes alone which body
 runs, its query tile, and whether the keys are split over blocks, whose
 partial ``(m, l, acc)`` a second kernel merges as ``flash_decode`` does.
+At head_dim 256 the bf16 body walks 32-key tiles and reads Q from shared
+memory at each k-step (its output tile takes 128 registers a thread); the
+f32 body is not built there (ptxas spills it) and f32 queries at head_dim
+256 are refused.
 
 ``q_offset`` is added to the query position in the causal / local mask
 (``k_pos <= q_pos + q_offset``). At 0 this is the reference kernel; at
@@ -36,12 +40,16 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)    # head sizes the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 256)   # head sizes the kernel is built for
 KINDS = {"causal": 0, "local": 1, "bidirectional": 2}   # csrc/common.cuh
 TILE = 64                        # keys a tile (FA_BN), queries a tile of the bf16 body
 MAX_SPLITS = 4                   # most pieces the keys of a query tile are split into
 N_SM = 132                       # the H100's SMs: what a plan has to fill
-BLOCKS_PER_SM = 2                # of the bf16 body (80 KB of shared memory, ~220 registers)
+# blocks of the bf16 body an SM holds at every head size built: its
+# registers allow two (at most 255 a thread: two blocks of 128 threads fill
+# the SM's 65,536), and so does its shared memory, 80 KB at head_dim 128 and
+# 96 KB at 256, where a tile is 32 keys for that reason
+BLOCKS_PER_SM = 2
 
 
 def split_plan(B: int, S: int, H: int, T: int, q_dtype: torch.dtype,
@@ -55,9 +63,10 @@ def split_plan(B: int, S: int, H: int, T: int, q_dtype: torch.dtype,
     blocks x splits fill them and no block walks all the keys; the partials
     are merged by a second kernel. ``kv_splits`` > 0 asks for that many pieces
     instead (fewer come back where the keys run out). f32 queries: the FMA
-    body, 64 queries a block, or 32 when that leaves SMs idle, never split.
-    Returns ``{"body", "bm", "kv_splits", "chunk"}``: the keys
-    ``[s * chunk, (s + 1) * chunk)`` of split s cover ``[0, T)`` once."""
+    body, 64 queries a block, or 32 when that leaves SMs idle, never
+    split (built up to head_dim 128). Returns ``{"body", "bm", "kv_splits",
+    "chunk"}``: the keys ``[s * chunk, (s + 1) * chunk)`` of split s cover
+    ``[0, T)`` once."""
     n_tiles = max(1, -(-T // TILE))
     if q_dtype == torch.float32:
         bm = TILE if -(-S // TILE) * H * B >= n_sm else 32
@@ -144,8 +153,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} v {tuple(v.shape)} do not fit")
     _build.check_dtypes("flash_attention", q, k, v)
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS} "
-                         "(256 waits for the gemma families)")
+        raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
+    if D > 128 and q.dtype == torch.float32:
+        raise ValueError(f"flash_attention: f32 queries at head_dim {D} are not built "
+                         "(the f32 body spills registers there); pass bf16")
     if H % KVH:
         raise ValueError(f"flash_attention: {H} heads over {KVH} KV heads")
     if q_offset < 0 or window < 0 or (kind == "local" and window < 1):

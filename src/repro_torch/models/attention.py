@@ -1,6 +1,7 @@
-"""GQA/MQA attention for the global/causal path: reference oracle, the
-kernel-backed prefill, chunked-prefill and decode attention over a KV
-cache.
+"""GQA/MQA attention for the global and local (sliding-window) paths:
+reference oracle, the kernel-backed prefill, chunked-prefill and decode
+attention over a KV cache (a local layer's cache is a ring of its window's
+rows).
 
 Shape conventions:
   x        (B, S, d_model)
@@ -183,18 +184,22 @@ def write_kv(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None:
 
 
 def decode_self_attention(p: Params, a: AttentionConfig, x: torch.Tensor,
-                          cache_k, cache_v, pos) -> torch.Tensor:
+                          cache_k, cache_v, pos, *, kind: str = "causal") -> torch.Tensor:
     """One-token decode step for a self-attention block.
 
     x: (B, 1, d); cache_{k,v}: (B, Smax, KVH, D), updated in place; pos: int,
-    () or (B,) — absolute position of the new token. Returns the block's
-    output."""
+    () or (B,) — absolute position of the new token. A ``"local"`` layer's
+    cache is a ring of Smax rows (its window): the new row goes to slot
+    ``pos % Smax``, and every warm slot is valid, so the causal decode over
+    ``min(pos + 1, Smax)`` rows is the window's attention. Returns the
+    block's output."""
     B = x.shape[0]
     smax = cache_k.shape[1]
     pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
     q, k, v = project_qkv(p, a, x, positions=pos[:, None])
-    write_kv(cache_k, k, pos)
-    write_kv(cache_v, v, pos)
+    slot = pos % smax if kind == "local" else pos
+    write_kv(cache_k, k, slot)
+    write_kv(cache_v, v, slot)
     kv_len = torch.clamp(pos + 1, max=smax)
     o = decode_attention(q, cache_k, cache_v, kv_len)
     return o.reshape(B, 1, -1) @ p["wo"]

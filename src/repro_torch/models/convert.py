@@ -7,13 +7,16 @@ mlp.{w_up,w_gate,w_down}}`` stacked ``(L, ...)``; for the moe family
 ``stack.moe.{router,w_gate,w_up,w_down}`` with an optional
 ``stack.moe.shared.{w_gate,w_up,w_down}`` in place of ``mlp``, the router
 f32 whatever the parameters' type, the experts ``(L, E, d, f)`` and
-``(L, E, f, d)``) and the same ``(d_in, d_out)`` weight layout, so nothing
-is transposed and the trees compare leaf for leaf; every leaf keeps its
-type. This module imports neither JAX nor ml_dtypes: the
+``(L, E, f, d)``; for gemma3's local:global stack ``stack.{locals,
+globals,tail}``, each a stack of those layers, ``locals`` ``(g, r, ...)``
+and ``globals`` ``(g, ...)``) and the same ``(d_in, d_out)`` weight
+layout, so nothing is transposed and the trees compare leaf for leaf;
+every leaf keeps its type. This module imports neither JAX nor ml_dtypes: the
 caller hands over ``jax.tree.map(np.asarray, params)``, and a bf16 leaf
 arrives either as an ``ml_dtypes`` bfloat16 array or viewed as ``uint16``
-(pass ``bf16_as_uint16=True`` then). A ``None`` leaf (the hybrid
-stack's ``tail`` when the layers divide into whole groups) stays ``None``.
+(pass ``bf16_as_uint16=True`` then). A ``None`` leaf (the hybrid or
+local:global stack's ``tail`` when the layers divide into whole groups)
+stays ``None``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Model facade for the dense and moe families with global attention, the
-SSM family (Mamba-1 and Mamba-2) and the hybrid family (zamba2).
+"""Model facade for the dense and moe families (global attention, or
+gemma3's local:global stack), the SSM family (Mamba-1 and Mamba-2) and the
+hybrid family (zamba2).
 
   m = build_model(cfg)                      # device="cuda" unless told
   params = m.init(generator)
@@ -10,9 +11,14 @@ SSM family (Mamba-1 and Mamba-2) and the hybrid family (zamba2).
 
 Batches: {"tokens": (B, S) integer tensor}. ``forward`` returns the logits
 (the moe family's load-balance loss, which the reference's ``forward``
-also returns, is ``transformer.uniform_stack_fwd``'s second result). The
-vlm and audio families and local/global attention are not ported yet and
-raise ``NotImplementedError`` (ROADMAP A7).
+also returns, is the stack's second result). The vlm and audio families
+are not ported yet and raise ``NotImplementedError`` (ROADMAP A7).
+
+A local:global cache holds ``local_{k,v}`` (g, r, B, W, KVH, D) and, for a
+tail of local layers, ``tail_{k,v}`` (tail, B, W, KVH, D): rings of W =
+``min(local_window, max_len)`` rows from ``init_cache``, of
+``local_window`` rows from ``prefill`` (the reference's shapes); and
+``global_{k,v}`` (g, B, max_len, KVH, D).
 """
 from __future__ import annotations
 
@@ -55,21 +61,21 @@ def resolve_device(device) -> torch.device:
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     device = resolve_device(device)
     family = cfg.family
-    if family not in ("ssm", "hybrid") and (family not in ("dense", "moe")
-                                            or cfg.attn.pattern != "global"):
+    if family not in ("ssm", "hybrid", "dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: family {family!r} with attention pattern "
-            f"{cfg.attn.pattern!r} is not ported yet (ROADMAP.md item A7 "
+            f"{cfg.name}: family {family!r} is not ported yet (ROADMAP.md item A7 "
             "(remaining model families))")
     dtype = _dtype(cfg.param_dtype)
     a = cfg.attn
+    lg = family in ("dense", "moe") and a.pattern == "local_global"
 
     def init(gen: torch.Generator):
         if gen.device.type != device.type:
             raise ValueError(f"generator on {gen.device}, model on {device}")
-        stack = {"ssm": hyb.ssm_stack_init, "hybrid": hyb.hybrid_stack_init,
-                 "dense": tfm.uniform_stack_init,
-                 "moe": tfm.uniform_stack_init}[family](gen, cfg, dtype)
+        stack = (tfm.lg_stack_init if lg else
+                 {"ssm": hyb.ssm_stack_init, "hybrid": hyb.hybrid_stack_init,
+                  "dense": tfm.uniform_stack_init,
+                  "moe": tfm.uniform_stack_init}[family])(gen, cfg, dtype)
         return {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                                     cfg.tie_embeddings, dtype),
                 "final_ln": rmsnorm_init(cfg.d_model, device),
@@ -84,6 +90,8 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
             x = hyb.ssm_stack_fwd(p["stack"], cfg, x)
         elif family == "hybrid":
             x = hyb.hybrid_stack_fwd(p["stack"], cfg, x)
+        elif lg:
+            x, _, _ = tfm.lg_stack_fwd(p["stack"], cfg, x)
         else:
             x, _, _ = tfm.uniform_stack_fwd(p["stack"], cfg, x)
         return unembed(p["embed"], rmsnorm(p["final_ln"], x, cfg.norm_eps))
@@ -102,12 +110,26 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
             c["tail"] = _states((tail,), batch_size)
         return c
 
+    def _zeros(*shape):
+        return torch.zeros(shape, dtype=KV_DTYPE, device=device)
+
     def init_cache(batch_size: int, max_len: int):
         if family == "ssm":
             return _states((cfg.n_layers,), batch_size)
+        if lg:
+            g, tail = tfm.lg_split(cfg)
+            W, KVH, D = min(a.local_window, max_len), a.n_kv_heads, a.head_dim
+            c = {"local_k": _zeros(g, a.local_ratio, batch_size, W, KVH, D),
+                 "local_v": _zeros(g, a.local_ratio, batch_size, W, KVH, D),
+                 "global_k": _zeros(g, batch_size, max_len, KVH, D),
+                 "global_v": _zeros(g, batch_size, max_len, KVH, D)}
+            if tail:
+                c["tail_k"] = _zeros(tail, batch_size, W, KVH, D)
+                c["tail_v"] = _zeros(tail, batch_size, W, KVH, D)
+            return c
         n = hyb.hybrid_split(cfg)[0] if family == "hybrid" else cfg.n_layers
         shape = (n, batch_size, max_len, a.n_kv_heads, a.head_dim)
-        k, v = (torch.zeros(shape, dtype=KV_DTYPE, device=device) for _ in "kv")
+        k, v = (_zeros(*shape) for _ in "kv")
         if family == "hybrid":
             return {**_hybrid_states(batch_size), "attn_k": k, "attn_v": v}
         return {"k": k, "v": v}
@@ -129,6 +151,12 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
             x, (k, v) = hyb.hybrid_stack_prefill(p["stack"], cfg, x, cache["ssm"],
                                                  cache.get("tail"))
             cache.update(attn_k=_pad_to(k, max_len), attn_v=_pad_to(v, max_len))
+        elif lg:
+            x, _, (lkv, (gk, gv), tkv) = tfm.lg_stack_fwd(p["stack"], cfg, x, collect_kv=True)
+            cache = {"local_k": lkv[0], "local_v": lkv[1],
+                     "global_k": _pad_to(gk, max_len), "global_v": _pad_to(gv, max_len)}
+            if tkv is not None:
+                cache["tail_k"], cache["tail_v"] = tkv
         else:
             x, _, (k, v) = tfm.uniform_stack_fwd(p["stack"], cfg, x, collect_kv=True)
             cache = {"k": _pad_to(k, max_len), "v": _pad_to(v, max_len)}
@@ -146,6 +174,8 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         elif family == "hybrid":
             x = hyb.hybrid_stack_decode(p["stack"], cfg, x, cache["ssm"], cache["attn_k"],
                                         cache["attn_v"], cache.get("tail"), pos)
+        elif lg:
+            x = tfm.lg_stack_decode(p["stack"], cfg, x, cache, pos)
         else:
             x = tfm.uniform_stack_decode(p["stack"], cfg, x, cache["k"], cache["v"], pos)
         x = rmsnorm(p["final_ln"], x, cfg.norm_eps)

@@ -1,15 +1,18 @@
-"""Decoder stack for the dense and moe families: the reference's scan over
-stacked ``(L, ...)`` layer parameters is a Python loop over the same
-stacked tensors, so the parameter tree keeps the reference's shape. A moe
-layer has ``moe`` (``models/moe.py``, the local path) where a dense layer
-has ``mlp``. Caches are updated in place. No rematerialisation and no
-sharding constraints: one device, inference only.
+"""Decoder stacks for the dense and moe families: the uniform stack and
+gemma3's local:global stack (groups of ``local_ratio`` sliding-window
+layers and one global layer, then a tail of local layers). The reference's
+scan over stacked ``(L, ...)`` layer parameters is a Python loop over the
+same stacked tensors, so the parameter tree keeps the reference's shape. A
+moe layer has ``moe`` (``models/moe.py``, the local path) where a dense
+layer has ``mlp``. Caches are updated in place. No rematerialisation and
+no sharding constraints: one device, inference only.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -62,9 +65,9 @@ def layer_fwd(lp: Params, cfg: ModelConfig, x: torch.Tensor, *, kind: str,
     return x + f, kv, aux
 
 
-def layer_decode(lp: Params, cfg: ModelConfig, x, ck, cv, pos):
+def layer_decode(lp: Params, cfg: ModelConfig, x, ck, cv, pos, *, kind: str = "causal"):
     h = attn.decode_self_attention(
-        lp["attn"], cfg.attn, rmsnorm(lp["ln1"], x, cfg.norm_eps), ck, cv, pos)
+        lp["attn"], cfg.attn, rmsnorm(lp["ln1"], x, cfg.norm_eps), ck, cv, pos, kind=kind)
     x = x + h
     return x + _ffn(lp, cfg, rmsnorm(lp["ln2"], x, cfg.norm_eps))[0]
 
@@ -76,7 +79,9 @@ def stack_init(draw, n: int) -> Params:
     """n trees drawn one after another by ``draw()``, stacked leaf by leaf
     into (n, ...) tensors. Each is copied into its place as it is drawn, so
     the stack and one tree are all that is ever held: a stack of 57 GB
-    (moonshot-v1-16b-a3b) would not fit on an 80 GB card twice."""
+    (moonshot-v1-16b-a3b) would not fit on an 80 GB card twice. n = 0
+    gives empty ``(0, ...)`` stacks (one tree is drawn for their shapes),
+    as the reference's vmap over no keys does."""
     first = draw()
 
     def alloc(t):
@@ -91,7 +96,8 @@ def stack_init(draw, n: int) -> Params:
             dst[i].copy_(src)
 
     stack = alloc(first)
-    put(stack, first, 0)
+    if n:
+        put(stack, first, 0)
     del first
     for i in range(1, n):
         put(stack, draw(), i)
@@ -148,4 +154,95 @@ def uniform_stack_extend(sp: Params, cfg: ModelConfig, x, cache_k, cache_v,
 def uniform_stack_decode(sp: Params, cfg: ModelConfig, x, cache_k, cache_v, pos):
     for i, lp in enumerate(unstack(sp)):
         x = layer_decode(lp, cfg, x, cache_k[i], cache_v[i], pos)
+    return x
+
+
+# ===================================================================== #
+#  local:global grouped stack (gemma3)                                   #
+# ===================================================================== #
+Cache = Dict[str, torch.Tensor]
+
+
+def lg_split(cfg: ModelConfig) -> Tuple[int, int]:
+    """(groups, local layers in the tail): a group is ``local_ratio`` local
+    layers and one global layer; the layers left over are local."""
+    r = cfg.attn.local_ratio
+    g = cfg.n_layers // (r + 1)
+    return g, cfg.n_layers - g * (r + 1)
+
+
+def lg_stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16) -> Params:
+    """``locals`` (g, r, ...), ``globals`` (g, ...), ``tail`` (tail, ...) or
+    None: the reference's tree (with g = 0 the first two are empty)."""
+    g, tail = lg_split(cfg)
+    r = cfg.attn.local_ratio
+
+    def draw():
+        return layer_init(gen, cfg, dtype)
+    return {"locals": stack_init(lambda: stack_init(draw, r), g),
+            "globals": stack_init(draw, g),
+            "tail": stack_init(draw, tail) if tail else None}
+
+
+def to_ring(u: torch.Tensor, W: int) -> torch.Tensor:
+    """A local layer's keys or values (B, S, KVH, D) as its cache holds them
+    after the prompt: a ring of W rows with position p at slot p % W, the
+    last W positions when S >= W, zero rows past S otherwise."""
+    S = u.shape[1]
+    if S >= W:
+        inv = (torch.arange(W, device=u.device) - S) % W
+        return u[:, S - W:].index_select(1, inv)
+    return F.pad(u, (0, 0, 0, 0, 0, W - S))
+
+
+def lg_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = False):
+    """Returns (x, aux, kvs): aux as ``uniform_stack_fwd``'s; kvs, if
+    collect_kv, ((k, v) of the local layers (g, r, B, W, KVH, D) at their
+    ring slots, (k, v) of the global layers (g, B, S, KVH, D), (k, v) of the
+    tail (tail, B, W, KVH, D) or None), W = ``local_window`` whatever S is,
+    as the reference collects them."""
+    a = cfg.attn
+    g, tail = lg_split(cfg)
+    B, S = x.shape[:2]
+    W = a.local_window
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if collect_kv:                 # filled layer by layer (empty where g = 0)
+        def buf(*lead):
+            return tuple(x.new_empty((*lead, a.n_kv_heads, a.head_dim)) for _ in "kv")
+        local_kv, global_kv = buf(g, a.local_ratio, B, W), buf(g, B, S)
+        tail_kv = buf(tail, B, W) if tail else None
+
+    def run(lp, kind, dst):
+        nonlocal x, aux
+        x, kv, f = layer_fwd(lp, cfg, x, kind=kind)
+        if f is not None:
+            aux = aux + f
+        if collect_kv:
+            for d, u in zip(dst, kv):
+                d.copy_(to_ring(u, W) if kind == "local" else u)
+
+    for i, (lps, gp) in enumerate(zip(unstack(sp["locals"]), unstack(sp["globals"]))):
+        for j, lp in enumerate(unstack(lps)):
+            run(lp, "local", collect_kv and [t[i, j] for t in local_kv])
+        run(gp, "causal", collect_kv and [t[i] for t in global_kv])
+    if sp["tail"] is not None:
+        for j, lp in enumerate(unstack(sp["tail"])):
+            run(lp, "local", collect_kv and [t[j] for t in tail_kv])
+    return x, aux, ((local_kv, global_kv, tail_kv) if collect_kv else None)
+
+
+def lg_stack_decode(sp: Params, cfg: ModelConfig, x, cache: Cache, pos):
+    """One token through the stack; the local rings (``local_{k,v}`` (g, r,
+    B, W, ...), ``tail_{k,v}``) and the global caches (``global_{k,v}`` (g,
+    B, Smax, ...)) are updated in place."""
+    for i, (lps, gp) in enumerate(zip(unstack(sp["locals"]), unstack(sp["globals"]))):
+        for j, lp in enumerate(unstack(lps)):
+            x = layer_decode(lp, cfg, x, cache["local_k"][i, j], cache["local_v"][i, j], pos,
+                             kind="local")
+        x = layer_decode(gp, cfg, x, cache["global_k"][i], cache["global_v"][i], pos,
+                         kind="causal")
+    if sp["tail"] is not None:
+        for j, lp in enumerate(unstack(sp["tail"])):
+            x = layer_decode(lp, cfg, x, cache["tail_k"][j], cache["tail_v"][j], pos,
+                             kind="local")
     return x

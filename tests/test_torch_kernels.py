@@ -49,6 +49,8 @@ def close(got: torch.Tensor, want, tol):
     (128, 384, 64, 2, "bidirectional", "float32"),
     (200, 200, 64, 2, "causal", "float32"),        # non-multiple of block
     (256, 256, 64, 1, "local", "float32"),
+    (128, 128, 256, 4, "causal", "bfloat16"),       # head_dim 256: gemma3-1b's group
+    (128, 128, 256, 1, "local", "float32"),
 ])
 def test_flash_attention_matches_pallas(S, T, D, g, kind, dtype):
     BKV = 2
@@ -144,7 +146,8 @@ def _partials(s, v, ok, chunk, n_splits):
 
 @pytest.mark.parametrize("T,G,D,lens", [(512, 4, 64, (512, 256, 7)),
                                         (1025, 2, 128, (1025, 1, 700)),
-                                        (300, 1, 16, (300, 5, 64))])
+                                        (300, 1, 16, (300, 5, 64)),
+                                        (300, 4, 256, (300, 130, 9))])
 def test_merge_of_decode_partials_is_flash_decode(T, G, D, lens):
     """Split the keys as split_plan does, compute each split's partial
     (m, l, acc) in torch and merge them with merge_partials_plain: the
@@ -204,7 +207,9 @@ def test_flash_attention_refuses_softcap():
 # ---------------------------- flash decode ---------------------------- #
 @pytest.mark.parametrize("T,G,D,block_k", [(512, 4, 64, 128),
                                            (384, 1, 128, 256),
-                                           (1024, 8, 64, 512)])
+                                           (1024, 8, 64, 512),
+                                           (256, 4, 256, 128),   # gemma3-1b's group
+                                           (256, 8, 256, 128)])  # gemma-2b's
 def test_flash_decode_matches_pallas(T, G, D, block_k):
     BKV = 3
     rng = np.random.default_rng(3)

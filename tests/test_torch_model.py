@@ -245,20 +245,22 @@ def test_extend_in_two_chunks_equals_prefill(param_dtype):
 
 
 def test_other_families_raise_naming_the_roadmap():
-    """Dense and moe global attention, the SSM family and the hybrid family
-    build; the vlm and audio families and local/global dense raise, naming
-    the ROADMAP item that ports them."""
-    built = []
+    """Dense and moe decoders (global attention and gemma3's local:global
+    stack), the SSM family and the hybrid family build; the vlm and audio
+    families raise, naming the ROADMAP item that ports them."""
+    built, raised = [], []
     for arch in list_archs():
         cfg = tiny_config(get_config(arch))
-        if (cfg.family in ("dense", "moe") and cfg.attn.pattern == "global") or cfg.family in (
-                "ssm", "hybrid"):
+        if cfg.family in ("dense", "moe", "ssm", "hybrid"):
             build_model(cfg, device="cpu")
-            built.append(cfg.family)
+            built.append((cfg.family, cfg.attn.pattern))
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP.md item A7 "):
             build_model(cfg, device="cpu")
-    assert {"ssm", "dense", "hybrid", "moe"} <= set(built)
+        raised.append(cfg.family)
+    assert {"ssm", "dense", "hybrid", "moe"} <= {f for f, _ in built}
+    assert ("dense", "local_global") in built
+    assert set(raised) == {"vlm", "audio"}
 
 
 def test_entry_points_default_to_cuda_and_do_not_fall_back():

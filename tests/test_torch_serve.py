@@ -291,6 +291,7 @@ def test_temperature_sampling_keeps_the_reference_s_behaviour():
 
 # ----------------------------- cross-package --------------------------- #
 MOONSHOT = "moonshot-v1-16b-a3b"
+GEMMA_2B = "gemma-2b"
 
 
 @pytest.mark.parametrize("arch,cf,mode,chunk,lengths", [
@@ -308,6 +309,9 @@ MOONSHOT = "moonshot-v1-16b-a3b"
     pytest.param(MOONSHOT, 0.3, "serial", 32, (9, 70, 41, 120), id="moonshot_serial_drops"),
     pytest.param(MOONSHOT, 0.3, "interference_aware", 32, (9, 70, 41, 120),
                  id="moonshot_interference_aware_drops"),
+    # geglu, the embedding scale, tied embeddings and one KV head (MQA)
+    pytest.param(GEMMA_2B, None, "interference_aware", 32, (9, 70, 41, 120),
+                 id="gemma_2b_interference_aware"),
 ])
 def test_both_engines_give_the_same_tokens_and_chunks(arch, cf, mode, chunk, lengths):
     """Same converted f32 weights, same prompts, same DeviceModel: the same
