@@ -41,7 +41,19 @@ give them, and drives seven paths, counting the kernels' launches on each:
     with its captured steps as qwen3-1.7b is, its logits held against the
     plain versions with the MoE's routing replayed, and a 4 x 1,024 prefill
     through the model facade, with the three kernels checked and timed at
-    its shapes (16 / 16 heads of 128).
+    its shapes (16 / 16 heads of 128);
+  * llama-3.2-vision-90b (the vlm family) at full width and 30 of its 100
+    layers (6 of its 20 groups of four self layers and one tanh-gated
+    cross-attention layer), 55.4 GB of weights, through the model facade:
+    prefill of 4 x 1,024 text tokens beside 4,096 vision tokens, 32 greedy
+    decode steps, self attention at 8 query heads a KV head and the cross
+    attention (1,024 queries over 4,096 keys) on flash_attention, the cross
+    decode on flash_decode over the vision cache, with the three kernels
+    checked and timed at its shapes;
+  * hubert-xlarge (the audio encoder) at full width and depth: a forward
+    over 4 x 1,024 frames, bidirectional attention at head_dim 80 on
+    flash_attention, checked and timed at its shapes (with the split of
+    the keys forced, so that the merge runs at head_dim 80).
 
 Every phase prints JSON lines; any failure ends the run with a non-zero
 exit code. Without a CUDA device the script fails: nothing runs on the CPU.
@@ -62,6 +74,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -91,7 +104,7 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.hybrid import hybrid_split  # noqa: E402
-from repro_torch.models.transformer import lg_split  # noqa: E402
+from repro_torch.models.transformer import lg_split, vlm_split  # noqa: E402
 from repro_torch.core.scenario import Scenario  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig  # noqa: E402
 from repro_torch.serve.engine import chunk_bucket  # noqa: E402
@@ -240,24 +253,53 @@ def randn(rng, shape, dtype):
     return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(DEV).to(dtype)
 
 
-def check_close(name, got, want, dtype, tol=None) -> float:
-    """Fail unless |got - want| <= tol + tol * |want| everywhere and all of
+def check_close(name, got, want, dtype, tol=None, atol=None) -> float:
+    """Fail unless |got - want| <= atol + tol * |want| everywhere and all of
     ``got`` is finite; returns the largest absolute difference. ``dtype`` is
     the narrowest type on the way: over a bf16 cache the softmax weights are
     rounded to bf16 (by the kernel before, by the plain version after they
     are normalised), so f32 queries there are held to the bf16 tolerance.
-    ``tol`` overrides the tolerance of ``dtype``."""
+    ``tol`` overrides the tolerance of ``dtype``; ``atol``, its absolute
+    part (``tol`` by default), may be a tensor that broadcasts to ``want``."""
     torch.cuda.synchronize()
     tol = TOL[dtype] if tol is None else tol
+    atol = tol if atol is None else atol
     g, w = got.float(), want.float()
     if g.shape != w.shape or not torch.isfinite(g).all():
         raise AssertionError(f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)} "
                              "or values not finite")
     err = (g - w).abs()
-    if not (err <= tol + tol * w.abs()).all():
-        raise AssertionError(f"{name}: max abs err {err.max().item():.3e} "
-                             f"beyond tolerance {tol}")
+    if not (err <= atol + tol * w.abs()).all():
+        i = int(torch.argmax(err / (atol + tol * w.abs())))
+        a = atol.flatten()[i // w.shape[-1]].item() if torch.is_tensor(atol) else atol
+        raise AssertionError(f"{name}: err {err.flatten()[i].item():.3e} at a value of "
+                             f"{w.flatten()[i].item():.3e}, beyond tolerance {tol} "
+                             f"(absolute part {a:.3e})")
     return err.max().item()
+
+
+def check_attention(name, got, want, dtype, dropped=()) -> float:
+    """``check_close`` for an attention output (..., D), with the absolute
+    part of the tolerance scaled, row by row, by the RMS of the row (at
+    most 1). A row is a weighted average of v over its keys: over N(0, 1)
+    values both its typical entry and the error that bf16 weights put in it
+    scale as sqrt(sum of the squared weights), so at 4,096 keys a flat 2e-2
+    would be as large as a typical entry, while a row over two keys can
+    err by 1e-2. ``dropped``: plain versions over the same inputs with a
+    tile or a split of the keys left out; each must fail the same gate, or
+    the gate could not see a kernel that skipped one."""
+    w = want.float()
+    tol = TOL[dtype]
+    atol = tol * w.pow(2).mean(-1, keepdim=True).sqrt().clamp(max=1.0)
+    for i, bad in enumerate(dropped):
+        if ((bad.float() - w).abs() <= atol + tol * w.abs()).all():
+            raise AssertionError(f"{name}: the gate passes planted fault {i}, keys left out")
+    return check_close(name, got, want, dtype, atol=atol)
+
+
+def without_keys(k, v, lo: int, n: int) -> tuple:
+    """k and v (B, T, KVH, D) with keys lo .. lo + n - 1 left out."""
+    return tuple(torch.cat((t[:, :lo], t[:, lo + n:]), 1) for t in (k, v))
 
 
 def time_ms(fn, n_variants: int = 1, iters: int = 20, reps: int = 7) -> dict:
@@ -344,7 +386,7 @@ def check_flash_decode(rng) -> float:
         q = randn(rng, (3, 1, G, D), F32)
         k, v = randn(rng, (3, T, 1, D), F32), randn(rng, (3, T, 1, D), F32)
         lens = torch.tensor([T, T // 2, 7], device=DEV)
-        worst = max(worst, check_close(
+        worst = max(worst, check_attention(
             f"flash_decode T{T} G{G} D{D}", dec_mod.flash_decode(q, k, v, lens),
             dec_mod.flash_decode_plain(q, k, v, lens), F32))
     cases = [  # B, H, KVH, D, T, kv_len, q dtype, cache dtype
@@ -357,7 +399,7 @@ def check_flash_decode(rng) -> float:
         q = randn(rng, (B, 1, H, D), qd)
         ck, cv = path_cache(rng, 2, B, T, KVH, D, kd)
         lens = torch.tensor(lens, device=DEV)
-        worst = max(worst, check_close(
+        worst = max(worst, check_attention(
             f"flash_decode B{B} H{H} D{D} T{T}",
             dec_mod.flash_decode(q, ck[1], cv[1], lens),
             dec_mod.flash_decode_plain(q, ck[1], cv[1], lens), kd))
@@ -371,7 +413,7 @@ def check_flash_decode(rng) -> float:
         got64 = dec_mod.flash_decode(q, ck[0], cv[0], l64)
         got32 = dec_mod.flash_decode(q, ck[0], cv[0], l64.to(torch.int32))
         check_exact(f"flash_decode int64 vs int32 lengths H{H}", got64, got32)
-        worst = max(worst, check_close(f"flash_decode int64 lengths H{H}", got64,
+        worst = max(worst, check_attention(f"flash_decode int64 lengths H{H}", got64,
                                        dec_mod.flash_decode_plain(q, ck[0], cv[0], l64), BF))
     return worst
 
@@ -387,7 +429,7 @@ def check_flash_attention(rng) -> float:
             (200, 200, 32, 2, "local", BF), (37, 300, 16, 1, "bidirectional", BF)]
     for S, T, D, g, kind, dtype in grid:
         q, k, v = bhsd_views(rng, 2, g, S, T, D, dtype)
-        worst = max(worst, check_close(
+        worst = max(worst, check_attention(
             f"flash_attention {kind} S{S} T{T} D{D} g{g}",
             fa_mod.flash_attention(q, k, v, kind, 64),
             fa_mod.flash_attention_plain(q, k, v, kind, 64), dtype))
@@ -399,7 +441,7 @@ def check_flash_attention(rng) -> float:
         q, k, v = bhsd_views(rng, 1, g, S, T, D, BF)
         want = fa_mod.flash_attention_plain(q, k, v, kind, 64)
         for n in pieces:
-            worst = max(worst, check_close(
+            worst = max(worst, check_attention(
                 f"flash_attention {kind} S{S} T{T} D{D} kv_splits={n}",
                 fa_mod.flash_attention(q, k, v, kind, 64, 0, n), want, BF))
     cases = [  # B, S, H, KVH, D, pos0, q dtype, cache dtype
@@ -415,7 +457,7 @@ def check_flash_attention(rng) -> float:
         q = randn(rng, (B, S, H, D), qd)
         ck, cv = path_cache(rng, 2, B + 1, pos0 + S + 5, KVH, D, kd)
         k, v = ck[1, 1:B + 1, :pos0 + S], cv[1, 1:B + 1, :pos0 + S]   # cache views
-        worst = max(worst, check_close(
+        worst = max(worst, check_attention(
             f"flash_attention S{S} H{H} D{D} pos0={pos0}",
             fa_mod.flash_attention(q, k, v, "causal", 0, pos0),
             fa_mod.flash_attention_plain(q, k, v, "causal", 0, pos0), kd))
@@ -434,10 +476,10 @@ def check_flash_attention(rng) -> float:
         off = torch.tensor([slot, pos0, c], device=DEV)
         got = fa_mod.flash_attention(q, ck[0], cv[0], "causal", offsets=off)
         name = f"flash_attention offsets slot {slot} pos0 {pos0} c {c} S {S} {qd}"
-        worst = max(worst, check_close(
+        worst = max(worst, check_attention(
             name, got, fa_mod.flash_attention_plain(q, ck[0], cv[0], "causal", offsets=off), BF))
         view = (ck[0, slot:slot + 1, :pos0 + c], cv[0, slot:slot + 1, :pos0 + c])
-        worst = max(worst, check_close(
+        worst = max(worst, check_attention(
             name + " vs integer offset", got[:, :c],
             fa_mod.flash_attention(q[:, :c], *view, "causal", 0, pos0), BF))
     return worst
@@ -1591,24 +1633,25 @@ def facade_weights(cfg):
         "seconds": time.perf_counter() - t0}
 
 
-def facade_generate(m, params, B: int, S: int, n_dec: int) -> tuple:
+def facade_generate(m, params, B: int, S: int, n_dec: int, extra=None) -> tuple:
     """A prefill of B seeded prompts of S tokens and ``n_dec`` greedy decode
     steps (positions S .. S + n_dec - 1, a cache of S + n_dec), each step
     timed by the host clock until its ids are on the host, the kernels'
     launches counted over the run (after one short unmeasured run: the
-    first launches load code). Returns (the run's record, the launches,
-    the prompt, the last ids, the cache)."""
-    cfg = m.cfg
+    first launches load code). ``extra``: more entries of the prefill's
+    batch (the vlm's vision tokens). Returns (the run's record, the
+    launches, the prompt, the last ids, the cache)."""
+    cfg, extra = m.cfg, extra or {}
     rng = np.random.default_rng(1)
     prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, S))).to(DEV)
     with torch.no_grad():
-        logits, cache = m.prefill(params, {"tokens": prompt[:, :64]}, S)
+        logits, cache = m.prefill(params, {**extra, "tokens": prompt[:, :64]}, S)
         m.decode_step(params, logits.argmax(-1), cache, 64)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()                     # counts of this path only
         t0 = time.perf_counter()
-        logits, cache = m.prefill(params, {"tokens": prompt}, S + n_dec)
+        logits, cache = m.prefill(params, {**extra, "tokens": prompt}, S + n_dec)
         tok = logits.argmax(-1)
         ids = [tok.cpu()]
         prefill_s = time.perf_counter() - t0
@@ -1634,22 +1677,23 @@ def facade_generate(m, params, B: int, S: int, n_dec: int) -> tuple:
     return run, used, prompt, tok, cache
 
 
-def facade_logits(m, params, prompt) -> dict:
+def facade_logits(m, params, prompt, extra=None) -> dict:
     """The kernels against the plain versions through the facade, at the
     reference's bf16 tolerance: a 128-token prefill and one decode step;
-    then prefill and decode against forward at their positions."""
-    name, short, errs = m.cfg.name, prompt[:, :128], {}
+    then prefill and decode against forward at their positions. ``extra``
+    as ``facade_generate``'s."""
+    name, short, errs, extra = m.cfg.name, prompt[:, :128], {}, extra or {}
     with torch.no_grad():
-        got, got_cache = m.prefill(params, {"tokens": short}, 129)
+        got, got_cache = m.prefill(params, {**extra, "tokens": short}, 129)
         with plain_versions():
-            plain, plain_cache = m.prefill(params, {"tokens": short}, 129)
+            plain, plain_cache = m.prefill(params, {**extra, "tokens": short}, 129)
         errs["prefill_128"] = logits_close(f"{name} prefill", got, plain)
         nxt = got.argmax(-1)
         got_d, _ = m.decode_step(params, nxt, got_cache, 128)
         with plain_versions():
             plain_d, _ = m.decode_step(params, nxt, plain_cache, 128)
         errs["decode"] = logits_close(f"{name} decode", got_d, plain_d)
-        full = m.forward(params, {"tokens": torch.cat([short, nxt], 1)})
+        full = m.forward(params, {**extra, "tokens": torch.cat([short, nxt], 1)})
         errs["prefill_vs_forward"] = logits_close(f"{name} prefill vs forward",
                                                   got[:, 0], full[:, 127])
         errs["decode_vs_forward"] = logits_close(f"{name} decode vs forward",
@@ -1685,15 +1729,17 @@ def phase_falcon_mamba(records: dict) -> None:
 
 
 def time_flash_attention_prefill(rng, B, S, H, KVH, D, kind="causal", window=0,
-                                 splits=()) -> dict:
+                                 splits=(), T=None) -> dict:
     """Causal (or local, over a window) attention over a whole prompt, S =
-    T, with fresh k and v as the projections give them (``L`` copies, so
-    the L2 cache is cold). The bound counts the (query, key) pairs the mask
-    lets through; SDPA takes the local band as a boolean mask. ``splits``:
-    the key splits to time beside the plan's (``ms_by_kv_splits``)."""
-    L = 4
-    qkv = [(randn(rng, (B, S, H, D), BF), randn(rng, (B, S, KVH, D), BF),
-            randn(rng, (B, S, KVH, D), BF)) for _ in range(L)]
+    T, or bidirectional attention of S queries over T keys (the vlm's
+    cross attention, the audio encoder), with fresh k and v as the
+    projections give them (``L`` copies, so the L2 cache is cold). The
+    bound counts the (query, key) pairs the mask lets through; SDPA takes
+    the local band as a boolean mask. ``splits``: the key splits to time
+    beside the plan's (``ms_by_kv_splits``)."""
+    L, T = 4, T or S
+    qkv = [(randn(rng, (B, S, H, D), BF), randn(rng, (B, T, KVH, D), BF),
+            randn(rng, (B, T, KVH, D), BF)) for _ in range(L)]
     pos = torch.arange(S, device=DEV)
     band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
 
@@ -1701,12 +1747,15 @@ def time_flash_attention_prefill(rng, B, S, H, KVH, D, kind="causal", window=0,
         q, k, v = (t.transpose(1, 2) for t in qkv[i])
         if kind == "local":
             return F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=True)
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=kind == "causal",
+                                              enable_gqa=True)
 
-    pairs = sum(min(s + 1, window) for s in range(S)) if kind == "local" else S * (S + 1) // 2
-    b_ms, by = bound((2 * B * S * H * D + 2 * B * S * KVH * D) * 2, 4 * pairs * B * H * D, BF)
-    plan = fa_mod.split_plan(B, S, H, S, BF, torch.cuda.get_device_properties(0).multi_processor_count)
-    label = f"B={B} S=T={S} H={H} KVH={KVH} D={D} {kind}" + (f" window {window}" if window else "")
+    pairs = {"local": sum(min(s + 1, window) for s in range(S)), "causal": S * (S + 1) // 2,
+             "bidirectional": S * T}[kind]
+    b_ms, by = bound((2 * B * S * H * D + 2 * B * T * KVH * D) * 2, 4 * pairs * B * H * D, BF)
+    plan = fa_mod.split_plan(B, S, H, T, BF, torch.cuda.get_device_properties(0).multi_processor_count)
+    label = (f"B={B} S=T={S}" if T == S else f"B={B} S={S} T={T}") + \
+        f" H={H} KVH={KVH} D={D} {kind}" + (f" window {window}" if window else "")
     fills = {f"kv_splits={n}": time_ms(
         lambda i, n=n: fa_mod.flash_attention(*qkv[i], kind, window, 0, n), L)["ms"] for n in splits}
     return {"shape": label, "dtype": "bfloat16", **plan, **({"ms_by_kv_splits": fills} if splits else {}),
@@ -1730,7 +1779,7 @@ def check_zamba2_kernels(rng, B, S, n_dec, H, KVH, D) -> dict:
         errs["rmsnorm"] = max(errs["rmsnorm"], check_close(
             f"rmsnorm{shape} zamba2", rms_mod.rmsnorm(x, s), rms_mod.rmsnorm_plain(x, s), BF))
     q, k, v = (randn(rng, (B, S, h, D), BF) for h in (H, KVH, KVH))
-    errs["flash_attention"] = check_close(
+    errs["flash_attention"] = check_attention(
         "flash_attention zamba2 prefill", fa_mod.flash_attention(q, k, v, "causal"),
         fa_mod.flash_attention_plain(q, k, v, "causal"), BF)
     T = S + n_dec
@@ -1738,7 +1787,7 @@ def check_zamba2_kernels(rng, B, S, n_dec, H, KVH, D) -> dict:
     q = randn(rng, (B, 1, H, D), BF)
     for lens in ([S + 1] * B, [S + n_dec // 2] * B, [T] * B, [S + 1, S + 9, S + 20, T]):
         lens = torch.tensor(lens, device=DEV)
-        errs["flash_decode"] = max(errs["flash_decode"], check_close(
+        errs["flash_decode"] = max(errs["flash_decode"], check_attention(
             f"flash_decode zamba2 kv_len {lens.tolist()}", dec_mod.flash_decode(q, ck[0], cv[0], lens),
             dec_mod.flash_decode_plain(q, ck[0], cv[0], lens), BF))
     return errs
@@ -1768,7 +1817,7 @@ def phase_zamba2(records: dict) -> None:
     emit(phase="zamba2", **run)
     for name in SERVING:
         records[name]["launches_zamba2"] = used[name]
-    records["rmsnorm"]["launches_zamba2_per_pass"] = norms
+    records["rmsnorm"]["launches_zamba2_per_pass"] = used["rmsnorm"] // (1 + n_dec)
     emit(phase="zamba2_step_profile",
          decode=profile_step(lambda: m.decode_step(params, tok, cache, S + n_dec - 1)[0]
                              .argmax(-1).tolist()),
@@ -1828,7 +1877,8 @@ def check_gemma3_kernels(rng, B, S, n_dec, a, d_model) -> tuple:
     errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "flash_decode": 0.0}
 
     def hold(key, name, got, want, dtype=BF):
-        errs[key] = max(errs[key], check_close(name, got, want, dtype))
+        check = check_close if key == "rmsnorm" else check_attention
+        errs[key] = max(errs[key], check(name, got, want, dtype))
 
     for shape in ((B * S, d_model), (B, d_model)):
         x, s = randn(rng, shape, BF), randn(rng, (d_model,), F32)
@@ -1912,7 +1962,7 @@ def phase_gemma3(records: dict) -> None:
          cache_bytes=sum(t.numel() * t.element_size() for t in cache.values()), **run)
     for name in SERVING:
         records[name]["launches_gemma3"] = used[name]
-    records["rmsnorm"]["launches_gemma3_per_pass"] = norms
+    records["rmsnorm"]["launches_gemma3_per_pass"] = used["rmsnorm"] // (1 + n_dec)
     emit(phase="gemma3_step_profile",
          decode=profile_step(lambda: m.decode_step(params, tok, cache, S + n_dec - 1)[0]
                              .argmax(-1).tolist()),
@@ -1927,6 +1977,7 @@ def phase_gemma3(records: dict) -> None:
     errs, refused = check_gemma3_kernels(rng, B, S, n_dec, a, cfg.d_model)
     T, mid = S + n_dec, S + n_dec // 2
     times = {
+        "rmsnorm": [time_rmsnorm(rng, (B * S, cfg.d_model), 8), time_rmsnorm(rng, (B, cfg.d_model))],
         "flash_attention": [time_flash_attention_prefill(rng, B, S, a.n_heads, a.n_kv_heads, a.head_dim,
                                                          splits=(1, 4)),
                             time_flash_attention_prefill(rng, B, S, a.n_heads, a.n_kv_heads, a.head_dim,
@@ -1941,8 +1992,7 @@ def phase_gemma3(records: dict) -> None:
     }
     emit(phase="gemma3_kernels", max_abs_err=errs, tolerance={"bfloat16": TOL[BF], "float32": TOL[F32]},
          refused=refused, times=times)
-    records["rmsnorm"]["max_abs_err_gemma3"] = errs["rmsnorm"]
-    for name in ("flash_attention", "flash_decode"):
+    for name in SERVING:
         records[name]["max_abs_err_gemma3"] = errs[name]
         records[name]["gemma3"] = times[name]
 
@@ -1970,17 +2020,17 @@ def check_moonshot_kernels(rng, H, KVH, D) -> dict:
     for S, c, pos0 in ((128, 128, 0), (128, 128, 512), (128, 100, 900), (16, 1, 40)):
         q = randn(rng, (1, S, H, D), BF)
         off = torch.tensor([3, pos0, c], device=DEV)
-        errs["flash_attention"] = max(errs["flash_attention"], check_close(
+        errs["flash_attention"] = max(errs["flash_attention"], check_attention(
             f"flash_attention moonshot offsets pos0 {pos0} c {c}",
             fa_mod.flash_attention(q, ck[0], cv[0], "causal", offsets=off),
             fa_mod.flash_attention_plain(q, ck[0], cv[0], "causal", offsets=off), BF))
     q, k, v = (randn(rng, (4, 1024, h, D), BF) for h in (H, KVH, KVH))
-    errs["flash_attention"] = max(errs["flash_attention"], check_close(
+    errs["flash_attention"] = max(errs["flash_attention"], check_attention(
         "flash_attention moonshot prefill", fa_mod.flash_attention(q, k, v, "causal"),
         fa_mod.flash_attention_plain(q, k, v, "causal"), BF))
     q = randn(rng, (8, 1, H, D), BF)
     lens = torch.tensor(MIXED_LENS, device=DEV)
-    errs["flash_decode"] = check_close(
+    errs["flash_decode"] = check_attention(
         "flash_decode moonshot", dec_mod.flash_decode(q, ck[0], cv[0], lens),
         dec_mod.flash_decode_plain(q, ck[0], cv[0], lens), BF)
     return errs
@@ -2091,6 +2141,232 @@ def phase_moonshot(records: dict) -> None:
 
 
 # --------------------------------------------------------------------- #
+#  phase 12: llama-3.2-vision-90b, the vlm family, at full width         #
+# --------------------------------------------------------------------- #
+VLM_LAYERS = 30            # 6 of the config's 20 groups: 55.4 GB of the 174.8 on one card
+
+
+def check_vlm_kernels(rng, B, S, n_dec, a, d_model, n_vision) -> dict:
+    """The three kernels of the vlm path against their plain versions at
+    its shapes: rmsnorm at d_model of a prefill and of a step;
+    flash_attention over the causal prompt at 8 query heads a KV head, and
+    the cross attention, S queries over the ``n_vision`` vision keys,
+    bidirectional; flash_decode over the self layers' cache at mixed
+    lengths and over the vision cache, every key valid. The gate of each
+    long one must fail the plain version with a 64-key tile (prefill) or
+    one split (decode) of its keys left out."""
+    H, KVH, D = a.n_heads, a.n_kv_heads, a.head_dim
+    errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "flash_decode": 0.0}
+
+    def hold(key, name, got, want, dropped=()):
+        check = check_close if key == "rmsnorm" else partial(check_attention, dropped=dropped)
+        errs[key] = max(errs[key], check(name, got, want, BF))
+
+    for shape in ((B * S, d_model), (B, d_model)):
+        x, s = randn(rng, shape, BF), randn(rng, (d_model,), F32)
+        hold("rmsnorm", f"rmsnorm{shape} vlm", rms_mod.rmsnorm(x, s), rms_mod.rmsnorm_plain(x, s))
+    q = randn(rng, (B, S, H, D), BF)
+    for name, T, kind in (("self, causal", S, "causal"), ("cross", n_vision, "bidirectional")):
+        k, v = randn(rng, (B, T, KVH, D), BF), randn(rng, (B, T, KVH, D), BF)
+        dropped = ([fa_mod.flash_attention_plain(q, *without_keys(k, v, T // 2, 64), kind)]
+                   if kind == "bidirectional" else [])
+        hold("flash_attention", f"flash_attention vlm {name} S{S} T{T} G{H // KVH}",
+             fa_mod.flash_attention(q, k, v, kind), fa_mod.flash_attention_plain(q, k, v, kind), dropped)
+        del k, v, dropped
+    q1 = randn(rng, (B, 1, H, D), BF)
+    T = S + n_dec
+    for T2, lens in ((T, [S + 1, S + 9, S + 20, T]), (T, [S + n_dec // 2] * B),
+                     (n_vision, [n_vision] * B)):
+        ck, cv = path_cache(rng, 1, B, T2, KVH, D, BF)
+        lens = torch.tensor(lens, device=DEV)
+        dropped = []
+        if T2 == n_vision:                 # every key valid: leave out the second split
+            chunk = dec_mod.split_plan(T2, B * KVH)[0]
+            dropped = [dec_mod.flash_decode_plain(q1, *without_keys(ck[0], cv[0], chunk, chunk),
+                                                  lens - chunk)]
+        hold("flash_decode", f"flash_decode vlm T{T2} kv_len {lens.tolist()}",
+             dec_mod.flash_decode(q1, ck[0], cv[0], lens), dec_mod.flash_decode_plain(q1, ck[0], cv[0], lens),
+             dropped)
+    return errs
+
+
+def phase_llama_vision(records: dict) -> None:
+    """llama-3.2-vision-90b as the repo configures it (d_model 8,192, 64 / 8
+    heads of 128, d_ff 28,672 silu, vocab 128,256 untied; every 5th layer
+    a tanh-gated cross-attention layer over 4,096 vision tokens of width
+    1,280; bf16, seeded random weights) at full width and 30 of its 100
+    layers (6 groups: 24 self and 6 cross layers, 55.4 GB; the whole model
+    is 174.8 GB), through the model facade: every cross layer's gate set
+    to 0.5 (the reference's init leaves it at 0, and tanh(0) would hide the
+    cross attention from the logits), vision embeddings (4, 4,096, 1,280)
+    from the seed, prefill of 4 x 1,024 text tokens, 32 greedy decode
+    steps (not captured: the reference jits no step of its facade), the
+    launch gate, the profiles of a step and a prefill, the logits against
+    the plain versions; then the three kernels against their plain
+    versions at its shapes, timed beside their bounds and the library's
+    call."""
+    cfg = get_config("llama-3.2-vision-90b").with_overrides(n_layers=VLM_LAYERS)
+    g, n_self = vlm_split(cfg)
+    a, L, B, S, n_dec = cfg.attn, cfg.n_layers, 4, 1024, 32
+    emit(phase="llama_vision_memory_before", allocated_bytes=torch.cuda.memory_allocated(),
+         reserved_bytes=torch.cuda.memory_reserved())
+    m, params, weights = facade_weights(cfg)
+    params["stack"]["crosses"]["xattn"]["gate"].fill_(0.5)
+    emit(phase="llama_vision_weights", groups=g, self_layers=g * n_self, cross_layers=g,
+         reduced={"n_layers": [get_config("llama-3.2-vision-90b").n_layers, L]},
+         n_params_by_config=cfg.n_params(), cross_gate=0.5, **weights)
+    vision = randn(np.random.default_rng(5), (B, cfg.n_vision_tokens, cfg.d_vision), BF)
+    extra = {"vision": vision}
+    run, used, prompt, tok, cache = facade_generate(m, params, B, S, n_dec, extra)
+    norms = 2 * L + 1                              # ln1 / ln2, ln / ln2 of every layer, final
+    want = {name: 0 for name in used}
+    want.update(rmsnorm=norms * (1 + n_dec), flash_attention=L, flash_decode=L * n_dec)
+    if used != want:
+        raise AssertionError(f"llama_vision: launches {used}, the stack implies {want}")
+    emit(phase="llama_vision", vision_tokens=cfg.n_vision_tokens,
+         cache_bytes=sum(t.numel() * t.element_size() for t in cache.values()), **run)
+    for name in SERVING:
+        records[name]["launches_llama_vision"] = used[name]
+    records["rmsnorm"]["launches_llama_vision_per_pass"] = used["rmsnorm"] // (1 + n_dec)
+    emit(phase="llama_vision_step_profile",
+         decode=profile_step(lambda: m.decode_step(params, tok, cache, S + n_dec - 1)[0]
+                             .argmax(-1).tolist()),
+         prefill=profile_step(lambda: m.prefill(params, {**extra, "tokens": prompt}, S + n_dec)[0]
+                              .argmax(-1).tolist(), n=2))
+    del cache
+    emit(phase="llama_vision_logits", max_abs_err=facade_logits(m, params, prompt, extra),
+         tolerance={"rtol": 0.15, "atol": 0.3})
+    del m, params, vision, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(6)
+    errs = check_vlm_kernels(rng, B, S, n_dec, a, cfg.d_model, cfg.n_vision_tokens)
+    T, mid, H, KVH, D = S + n_dec, S + n_dec // 2, a.n_heads, a.n_kv_heads, a.head_dim
+    times = {
+        "rmsnorm": [time_rmsnorm(rng, (B * S, cfg.d_model), 4), time_rmsnorm(rng, (B, cfg.d_model))],
+        "flash_attention": [time_flash_attention_prefill(rng, B, S, H, KVH, D),
+                            time_flash_attention_prefill(rng, B, S, H, KVH, D, "bidirectional",
+                                                         T=cfg.n_vision_tokens)],
+        "flash_decode": [time_flash_decode(rng, [mid] * B, f"B={B} H={H} KVH={KVH} D={D} T={T} kv_len {mid}",
+                                           B=B, H=H, KVH=KVH, D=D, T=T),
+                         time_flash_decode(rng, [cfg.n_vision_tokens] * B,
+                                           f"B={B} H={H} KVH={KVH} D={D} cross, T={cfg.n_vision_tokens}"
+                                           ", all valid", B=B, H=H, KVH=KVH, D=D, T=cfg.n_vision_tokens)],
+    }
+    emit(phase="llama_vision_kernels", max_abs_err=errs, tolerance={"bfloat16": TOL[BF]}, times=times)
+    for name in SERVING:
+        records[name]["max_abs_err_llama_vision"] = errs[name]
+        records[name]["llama_vision"] = times[name]
+
+
+# --------------------------------------------------------------------- #
+#  phase 13: hubert-xlarge, the audio encoder, head_dim 80               #
+# --------------------------------------------------------------------- #
+def check_hubert_kernels(rng, B, S, a, d_model) -> dict:
+    """flash_attention at head_dim 80 against its plain version: hubert's
+    bidirectional attention (B, S = T, 16 / 16 heads) and the same
+    causal; the keys split over two blocks at B 1 (one sequence's blocks
+    leave SMs empty, and hubert's own shape takes no split), so that the
+    merge runs at 20 threads a row; ragged query and key counts at groups 1
+    and 2; f32 queries, the FMA body, over an f32 and a bf16 cache. The
+    bidirectional gate must fail the plain version with a 64-key tile left
+    out. Then rmsnorm at d_model of the forward."""
+    H, KVH, D = a.n_heads, a.n_kv_heads, a.head_dim
+    errs = {"rmsnorm": 0.0, "flash_attention": 0.0}
+
+    def hold(key, name, got, want, dtype=BF, dropped=()):
+        check = check_close if key == "rmsnorm" else partial(check_attention, dropped=dropped)
+        errs[key] = max(errs[key], check(name, got, want, dtype))
+
+    q, k, v = (randn(rng, (B, S, h, D), BF) for h in (H, KVH, KVH))
+    for kind in ("bidirectional", "causal"):
+        dropped = ([fa_mod.flash_attention_plain(q, *without_keys(k, v, S // 2, 64), kind)]
+                   if kind == "bidirectional" else [])
+        hold("flash_attention", f"flash_attention hubert {kind} D{D}",
+             fa_mod.flash_attention(q, k, v, kind), fa_mod.flash_attention_plain(q, k, v, kind),
+             dropped=dropped)
+        want = fa_mod.flash_attention_plain(q[:1], k[:1], v[:1], kind)
+        for n in (2, 4):
+            hold("flash_attention", f"flash_attention D{D} {kind} B1 kv_splits={n}",
+                 fa_mod.flash_attention(q[:1], k[:1], v[:1], kind, 0, 0, n), want)
+    for S2, T2, g, kind in [(200, 200, 1, "causal"), (37, 300, 2, "bidirectional"),
+                            (130, 130, 2, "local")]:
+        q2, k2, v2 = bhsd_views(rng, 2, g, S2, T2, D, BF)
+        hold("flash_attention", f"flash_attention D{D} {kind} S{S2} T{T2} g{g}",
+             fa_mod.flash_attention(q2, k2, v2, kind, 64), fa_mod.flash_attention_plain(q2, k2, v2, kind, 64))
+    for kd in (F32, BF):
+        q2, k2, v2 = randn(rng, (2, 160, 4, D), F32), randn(rng, (2, 160, 2, D), kd), randn(rng, (2, 160, 2, D), kd)
+        hold("flash_attention", f"flash_attention D{D} f32 queries over a {kd} cache",
+             fa_mod.flash_attention(q2, k2, v2, "bidirectional"),
+             fa_mod.flash_attention_plain(q2, k2, v2, "bidirectional"), kd)
+    x, s = randn(rng, (B * S, d_model), BF), randn(rng, (d_model,), F32)
+    hold("rmsnorm", f"rmsnorm{(B * S, d_model)} hubert", rms_mod.rmsnorm(x, s), rms_mod.rmsnorm_plain(x, s))
+    return errs
+
+
+def phase_hubert(records: dict) -> None:
+    """hubert-xlarge as the repo configures it (48 encoder layers, d_model
+    1,280, 16 / 16 heads of 80, d_ff 5,120 gelu, 504 units; the waveform
+    frontend a stub: frame embeddings in; bf16, seeded random weights) at
+    full width and depth through the model facade: a forward over frames of
+    (4, 1,024, 1,280) from the seed, about 20 s of audio at 20 ms a frame;
+    the launch gate, the logits against the plain versions, prefill,
+    decode_step and init_cache refused (an encoder), the forward's
+    profile; then flash_attention at head_dim 80 and rmsnorm against their
+    plain versions, timed beside their bounds and the library's call."""
+    cfg = get_config("hubert-xlarge")
+    a, L, B, S = cfg.attn, cfg.n_layers, 4, 1024
+    m, params, weights = facade_weights(cfg)
+    emit(phase="hubert_weights", n_params_by_config=cfg.n_params(), **weights)
+    frames = randn(np.random.default_rng(7), (B, S, cfg.d_model), BF)
+    batch = {"frames": frames}
+    with torch.no_grad():
+        m.forward(params, {"frames": frames[:, :64]})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                     # counts of this forward only
+        t0 = time.perf_counter()
+        logits = m.forward(params, batch)
+        ids = logits.argmax(-1).cpu()
+        forward_s = time.perf_counter() - t0
+        used, peak = counts(), torch.cuda.max_memory_allocated()
+        want = {name: 0 for name in used}
+        want.update(rmsnorm=2 * L + 1, flash_attention=L)
+        if used != want:
+            raise AssertionError(f"hubert: launches {used}, the stack implies {want}")
+        if logits.shape != (B, S, cfg.vocab_size) or not ((ids >= 0) & (ids < cfg.vocab_size)).all():
+            raise AssertionError(f"hubert: logits of shape {tuple(logits.shape)}")
+        with plain_versions():
+            plain = m.forward(params, batch)
+        err = logits_close("hubert forward", logits, plain)
+        del plain
+        refused = [expect_refusal("hubert prefill", lambda: m.prefill(params, batch, S)),
+                   expect_refusal("hubert decode_step", lambda: m.decode_step(
+                       params, ids[:, :1].to(DEV), {}, S)),
+                   expect_refusal("hubert init_cache", lambda: m.init_cache(B, S))]
+        profile = profile_step(lambda: m.forward(params, batch).argmax(-1).tolist(), n=2)
+    emit(phase="hubert", config=cfg.name, batch=B, frames=S, forward_ms=forward_s * 1e3,
+         frames_per_s=B * S / forward_s, peak_memory_bytes=peak, launches=used,
+         max_abs_err_logits=err, tolerance={"rtol": 0.15, "atol": 0.3}, refused=refused,
+         profile=profile)
+    records["flash_attention"]["launches_hubert"] = used["flash_attention"]
+    records["rmsnorm"]["launches_hubert"] = used["rmsnorm"]
+    del m, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(8)
+    errs = check_hubert_kernels(rng, B, S, a, cfg.d_model)
+    times = {"rmsnorm": [time_rmsnorm(rng, (B * S, cfg.d_model), 8)],
+             "flash_attention": [time_flash_attention_prefill(
+                 rng, B, S, a.n_heads, a.n_kv_heads, a.head_dim, "bidirectional", splits=(1, 2))]}
+    emit(phase="hubert_kernels", max_abs_err=errs, tolerance={"bfloat16": TOL[BF], "float32": TOL[F32]},
+         times=times)
+    for name in ("rmsnorm", "flash_attention"):
+        records[name]["max_abs_err_hubert"] = errs[name]
+        records[name]["hubert"] = times[name]
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script measures the GPU path "
@@ -2182,6 +2458,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_moonshot(records)
     emit(phase="moonshot_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_llama_vision(records)
+    emit(phase="llama_vision_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_hubert(records)
+    emit(phase="hubert_done", seconds=time.perf_counter() - t0)
 
     emit(phase="total", seconds=time.perf_counter() - t_all)
     for rec in records.values():

@@ -38,6 +38,13 @@
 //     flight while tile i is computed, one barrier a tile. Only tiles that
 //     straddle the causal / local band or the end of the keys run the mask
 //     code.
+//   - Head_dim 80 (hubert-xlarge, which the Pallas kernel is written for
+//     too): a row is ten 16-byte chunks, five k-steps of Q Kᵀ and ten
+//     output tiles, and the XOR swizzle of the powers of two would send
+//     chunks 8 and 9 past the row's end, so the 160-byte rows have a
+//     swizzle of their own that stays inside the row (swz); nothing is
+//     padded to 128. The merge kernel maps 20 threads to a row, 6 rows a
+//     block.
 //   - Head_dim 256 (the gemma families): a warp's (16, 256) f32 output tile
 //     alone takes 128 registers a thread, and the Q fragments would take 64
 //     more, so the Q fragments are read from shared memory by ldmatrix at
@@ -287,17 +294,26 @@ static int launch_attn(const AttnParams& p, int B, cudaStream_t stream) {
 //  bf16: the tensor-core body                                            //
 // ---------------------------------------------------------------------- //
 // Element offset of 16-byte chunk c of row r in a (rows, D) bf16 tile whose
-// chunks are XOR-swizzled: the eight rows that one ldmatrix matrix reads at
-// the same logical chunk land in eight distinct 16-byte bank groups, for
-// every D from 16 (two chunks a row) to 256 (thirty-two: a row is four
-// 128-byte lines, and the XOR of the chunk's low three bits with the row's
-// keeps eight rows on eight bank groups).
+// chunks are XOR-swizzled: the eight rows 8m .. 8m + 7 that one ldmatrix
+// matrix reads at the same logical chunk land in eight distinct 16-byte
+// bank groups, for every D from 16 (two chunks a row) to 256 (thirty-two: a
+// row is four 128-byte lines, and the XOR of the chunk's low three bits with
+// the row's keeps eight rows on eight bank groups). At head_dim 80 a row is
+// ten chunks (160 bytes), and that XOR would reach chunks 10..15, past the
+// row: there chunk c of row 8m + i starts on bank group (2 i + c) mod 8,
+// so the rows pair up on four groups, and flipping the chunk's low bit on
+// rows 4..7 moves those to the other four. c ^ 1 stays inside the row.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
     constexpr int CH = D / 8;                      // chunks per row
-    constexpr int RPL = CH >= 8 ? 1 : 8 / CH;      // rows per 128-byte line
-    constexpr int MASK = (CH >= 8 ? 8 : CH) - 1;
-    return r * D + ((c ^ ((r / RPL) & MASK)) << 3);
+    if constexpr ((CH & (CH - 1)) != 0) {
+        static_assert(CH % 8 == 2, "a swizzle for this head_dim");
+        return r * D + ((c ^ ((r >> 2) & 1)) << 3);
+    } else {
+        constexpr int RPL = CH >= 8 ? 1 : 8 / CH;  // rows per 128-byte line
+        constexpr int MASK = (CH >= 8 ? 8 : CH) - 1;
+        return r * D + ((c ^ ((r / RPL) & MASK)) << 3);
+    }
 }
 
 // keys a tile of the tensor-core body: at head_dim 256 the output tile
@@ -562,13 +578,16 @@ flash_attention_mma_kernel(const AttnParams p_in) {
 // l_s, 1e-30), w_s = 2^(m_s - max_s m_s), over the splits that saw a key of
 // the row's tile (the partial kernel's own test), rounded through bf16; a
 // tile with a single such split was written by it. One thread per (row, 4
-// columns), each split's loads issued before any is used.
+// columns), each split's loads issued before any is used; where D / 4 does
+// not divide the block (20 threads a row at head_dim 80: 6 rows, threads
+// 120..127 idle), the threads past the last whole row return at once.
 template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_merge_kernel(const AttnParams p_in) {
     const AttnParams p = attn_resolve(p_in);
     constexpr int TPR = D / 4;                     // threads a row
     constexpr int RPB = FA_THREADS / TPR;          // rows a block
+    if (threadIdx.x >= RPB * TPR) return;
     const int h = blockIdx.y, b = blockIdx.z;
     const int row = blockIdx.x * RPB + threadIdx.x / TPR;
     const int d = (threadIdx.x % TPR) * 4;
@@ -614,7 +633,7 @@ flash_attention_merge_kernel(const AttnParams p_in) {
 template <int D>
 static int launch_attn_mma(const AttnParams& p, int B, cudaStream_t stream) {
     constexpr int smem = attn_mma_smem_bytes<D>();
-    static_assert(D % 4 == 0 && FA_THREADS % (D / 4) == 0, "merge rows");
+    static_assert(D % 4 == 0 && D / 4 <= FA_THREADS, "merge rows");
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -637,6 +656,7 @@ static int dispatch_fma(const AttnParams& p, int B, int D, int bm, cudaStream_t 
         case 16: return wide ? launch_attn<TQ, TK, 16, 64>(p, B, stream) : launch_attn<TQ, TK, 16, 32>(p, B, stream);
         case 32: return wide ? launch_attn<TQ, TK, 32, 64>(p, B, stream) : launch_attn<TQ, TK, 32, 32>(p, B, stream);
         case 64: return wide ? launch_attn<TQ, TK, 64, 64>(p, B, stream) : launch_attn<TQ, TK, 64, 32>(p, B, stream);
+        case 80: return wide ? launch_attn<TQ, TK, 80, 64>(p, B, stream) : launch_attn<TQ, TK, 80, 32>(p, B, stream);
         case 128: return wide ? launch_attn<TQ, TK, 128, 64>(p, B, stream) : launch_attn<TQ, TK, 128, 32>(p, B, stream);
         default: return -1;
     }
@@ -647,6 +667,7 @@ static int dispatch_mma(const AttnParams& p, int B, int D, cudaStream_t stream) 
         case 16: return launch_attn_mma<16>(p, B, stream);
         case 32: return launch_attn_mma<32>(p, B, stream);
         case 64: return launch_attn_mma<64>(p, B, stream);
+        case 80: return launch_attn_mma<80>(p, B, stream);
         case 128: return launch_attn_mma<128>(p, B, stream);
         case 256: return launch_attn_mma<256>(p, B, stream);
         default: return -1;

@@ -14,7 +14,9 @@ partial ``(m, l, acc)`` a second kernel merges as ``flash_decode`` does.
 At head_dim 256 the bf16 body walks 32-key tiles and reads Q from shared
 memory at each k-step (its output tile takes 128 registers a thread); the
 f32 body is not built there (ptxas spills it) and f32 queries at head_dim
-256 are refused.
+256 are refused. Head_dim 80 (hubert-xlarge) runs as it is, in both
+bodies: its 160-byte rows have a shared-memory swizzle of their own, and
+nothing is padded to 128.
 
 ``q_offset`` is added to the query position in the causal / local mask
 (``k_pos <= q_pos + q_offset``). At 0 this is the reference kernel; at
@@ -40,7 +42,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)   # head sizes the kernel is built for
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # head sizes the kernel is built for
 KINDS = {"causal": 0, "local": 1, "bidirectional": 2}   # csrc/common.cuh
 TILE = 64                        # keys a tile (FA_BN), queries a tile of the bf16 body
 MAX_SPLITS = 4                   # most pieces the keys of a query tile are split into

@@ -1,7 +1,7 @@
 """GQA/MQA attention for the global and local (sliding-window) paths:
 reference oracle, the kernel-backed prefill, chunked-prefill and decode
 attention over a KV cache (a local layer's cache is a ring of its window's
-rows).
+rows), and the vlm family's tanh-gated cross attention over vision tokens.
 
 Shape conventions:
   x        (B, S, d_model)
@@ -33,11 +33,14 @@ NEG_INF = -1e30
 #  Parameters                                                            #
 # --------------------------------------------------------------------- #
 def attn_init(gen: torch.Generator, a: AttentionConfig, d_model: int,
-              dtype=torch.bfloat16) -> Params:
+              d_kv_in: int = 0, dtype=torch.bfloat16) -> Params:
+    """Self-attention when d_kv_in == 0, else cross-attention (keys and
+    values projected from another width, e.g. the vision embeddings')."""
+    d_kv_in = d_kv_in or d_model
     p = {
         "wq": dense_init(gen, d_model, a.n_heads * a.head_dim, dtype),
-        "wk": dense_init(gen, d_model, a.n_kv_heads * a.head_dim, dtype),
-        "wv": dense_init(gen, d_model, a.n_kv_heads * a.head_dim, dtype),
+        "wk": dense_init(gen, d_kv_in, a.n_kv_heads * a.head_dim, dtype),
+        "wv": dense_init(gen, d_kv_in, a.n_kv_heads * a.head_dim, dtype),
         "wo": dense_init(gen, a.n_heads * a.head_dim, d_model, dtype),
     }
     if a.qk_norm:
@@ -46,13 +49,29 @@ def attn_init(gen: torch.Generator, a: AttentionConfig, d_model: int,
     return p
 
 
+def cross_attn_init(gen: torch.Generator, a: AttentionConfig, d_model: int,
+                    d_vision: int, dtype=torch.bfloat16) -> Params:
+    p = attn_init(gen, a, d_model, d_kv_in=d_vision, dtype=dtype)
+    p["gate"] = torch.zeros((), dtype=torch.float32, device=gen.device)  # tanh-gated residual
+    return p
+
+
 def project_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
-                positions: Optional[torch.Tensor] = None, rope: bool = True
+                kv_x: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None, rope: bool = True,
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q from x (B, S, d); k and v from ``kv_x`` (B, T, d_kv_in), x itself
+    when None, or ``kv``, those projections already made (B, T, KVH, D)."""
+    kv_x = x if kv_x is None else kv_x
     B, S, _ = x.shape
+    T = kv_x.shape[1]
     q = (x @ p["wq"]).reshape(B, S, a.n_heads, a.head_dim)
-    k = (x @ p["wk"]).reshape(B, S, a.n_kv_heads, a.head_dim)
-    v = (x @ p["wv"]).reshape(B, S, a.n_kv_heads, a.head_dim)
+    if kv is None:
+        k = (kv_x @ p["wk"]).reshape(B, T, a.n_kv_heads, a.head_dim)
+        v = (kv_x @ p["wv"]).reshape(B, T, a.n_kv_heads, a.head_dim)
+    else:
+        k, v = kv
     if a.qk_norm:
         q = l2norm(q) * p["q_norm"].to(q.dtype)
         k = l2norm(k) * p["k_norm"].to(k.dtype)
@@ -143,6 +162,26 @@ def self_attention_block(p: Params, a: AttentionConfig, x: torch.Tensor, *,
                       softcap=a.softcap)
     B, S = x.shape[:2]
     return o.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def cross_attention_block(p: Params, a: AttentionConfig, x: torch.Tensor,
+                          vision: torch.Tensor,
+                          kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                          ) -> torch.Tensor:
+    """Tanh-gated cross attention of x (B, S, d) over precomputed vision
+    tokens (B, T, d_vision): keys and values projected from ``vision``, no
+    RoPE, bidirectional attention on the flash-attention kernel, and the
+    output ``tanh(gate)`` (f32, cast to the output's type) times ``o @ wo``.
+    The reference routes this call to its chunked jnp attention even when
+    its kernel is asked for (``attn_impl="pallas"``); that computes the same
+    function, and the port runs it on the kernel, as every attention.
+    ``kv``: ``vision``'s k and v projections (B, T, KVH, D) where the
+    caller has made them already (the prefill keeps them as its cache)."""
+    q, k, v = project_qkv(p, a, x, kv_x=vision, rope=False, kv=kv)
+    o = run_attention(q, k, v, kind="bidirectional")
+    B, S = x.shape[:2]
+    out = o.reshape(B, S, -1) @ p["wo"]
+    return torch.tanh(p["gate"]).to(out.dtype) * out
 
 
 def chunk_rows(offsets: torch.Tensor, C: int, smax: int

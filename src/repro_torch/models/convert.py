@@ -9,7 +9,12 @@ mlp.{w_up,w_gate,w_down}}`` stacked ``(L, ...)``; for the moe family
 f32 whatever the parameters' type, the experts ``(L, E, d, f)`` and
 ``(L, E, f, d)``; for gemma3's local:global stack ``stack.{locals,
 globals,tail}``, each a stack of those layers, ``locals`` ``(g, r, ...)``
-and ``globals`` ``(g, ...)``) and the same ``(d_in, d_out)`` weight
+and ``globals`` ``(g, ...)``; for the vlm's grouped stack ``stack.selfs``,
+decoder layers stacked ``(g, n_self, ...)``, and ``stack.crosses.{ln,
+xattn.{wq,wk,wv,wo,gate}, ln2, mlp}`` stacked ``(g, ...)``, with ``wk`` and
+``wv`` ``(g, d_vision, KVH * D)`` and ``gate`` an f32 ``(g,)``; the audio
+encoder's tree is the dense one, its ``embed.embedding`` kept though no
+token is looked up on the way in) and the same ``(d_in, d_out)`` weight
 layout, so nothing is transposed and the trees compare leaf for leaf;
 every leaf keeps its type. This module imports neither JAX nor ml_dtypes: the
 caller hands over ``jax.tree.map(np.asarray, params)``, and a bf16 leaf

@@ -1,6 +1,7 @@
-"""Model facade for the dense and moe families (global attention, or
-gemma3's local:global stack), the SSM family (Mamba-1 and Mamba-2) and the
-hybrid family (zamba2).
+"""Model facade for every family: dense and moe decoders (global
+attention, or gemma3's local:global stack), the SSM family (Mamba-1 and
+Mamba-2), the hybrid family (zamba2), the vlm family (self layers grouped
+with tanh-gated cross attention over vision tokens) and the audio encoder.
 
   m = build_model(cfg)                      # device="cuda" unless told
   params = m.init(generator)
@@ -9,16 +10,24 @@ hybrid family (zamba2).
   logits, cache = m.decode_step(params, tokens, cache, pos)   # cache in place
   cache = m.init_cache(batch_size, max_len)
 
-Batches: {"tokens": (B, S) integer tensor}. ``forward`` returns the logits
-(the moe family's load-balance loss, which the reference's ``forward``
-also returns, is the stack's second result). The vlm and audio families
-are not ported yet and raise ``NotImplementedError`` (ROADMAP A7).
+Batches: {"tokens": (B, S) integer tensor}; the vlm family adds
+{"vision": (B, n_vision_tokens, d_vision)}, the precomputed patch
+embeddings; the audio family takes {"frames": (B, S, d_model)}, the
+precomputed frame embeddings, in place of tokens (no lookup on the way in).
+Both are cast to the parameters' type. ``forward`` returns the logits (the
+moe family's load-balance loss, which the reference's ``forward`` also
+returns, is the stack's second result). The audio family is an encoder:
+``prefill``, ``decode_step`` and ``init_cache`` raise ValueError, as the
+reference's do.
 
 A local:global cache holds ``local_{k,v}`` (g, r, B, W, KVH, D) and, for a
 tail of local layers, ``tail_{k,v}`` (tail, B, W, KVH, D): rings of W =
 ``min(local_window, max_len)`` rows from ``init_cache``, of
 ``local_window`` rows from ``prefill`` (the reference's shapes); and
-``global_{k,v}`` (g, B, max_len, KVH, D).
+``global_{k,v}`` (g, B, max_len, KVH, D). A vlm cache holds the self
+layers' ``k``, ``v`` (g, n_self, B, max_len, KVH, D) and the vision
+tokens' keys and values of every cross layer, ``cross_k``, ``cross_v`` (g,
+B, n_vision_tokens, KVH, D), projected once at prefill.
 """
 from __future__ import annotations
 
@@ -61,10 +70,8 @@ def resolve_device(device) -> torch.device:
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     device = resolve_device(device)
     family = cfg.family
-    if family not in ("ssm", "hybrid", "dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {family!r} is not ported yet (ROADMAP.md item A7 "
-            "(remaining model families))")
+    if family not in ("ssm", "hybrid", "dense", "moe", "vlm", "audio"):
+        raise ValueError(f"{cfg.name}: unknown family {family!r}")
     dtype = _dtype(cfg.param_dtype)
     a = cfg.attn
     lg = family in ("dense", "moe") and a.pattern == "local_global"
@@ -74,15 +81,25 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
             raise ValueError(f"generator on {gen.device}, model on {device}")
         stack = (tfm.lg_stack_init if lg else
                  {"ssm": hyb.ssm_stack_init, "hybrid": hyb.hybrid_stack_init,
-                  "dense": tfm.uniform_stack_init,
-                  "moe": tfm.uniform_stack_init}[family])(gen, cfg, dtype)
+                  "dense": tfm.uniform_stack_init, "moe": tfm.uniform_stack_init,
+                  "audio": tfm.uniform_stack_init,
+                  "vlm": tfm.vlm_stack_init}[family])(gen, cfg, dtype)
         return {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                                     cfg.tie_embeddings, dtype),
                 "final_ln": rmsnorm_init(cfg.d_model, device),
                 "stack": stack}
 
     def _embed_in(p, batch):
+        if family == "audio":
+            return batch["frames"].to(dtype)
         return embed(p["embed"], batch["tokens"], scale_by_dim=cfg.embed_scale)
+
+    def _vision(batch):
+        return batch["vision"].to(dtype)
+
+    def _encoder_refuses():
+        if cfg.is_encoder:
+            raise ValueError("encoder-only model has no prefill/decode")
 
     def forward(p, batch: Batch):
         x = _embed_in(p, batch)
@@ -90,6 +107,8 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
             x = hyb.ssm_stack_fwd(p["stack"], cfg, x)
         elif family == "hybrid":
             x = hyb.hybrid_stack_fwd(p["stack"], cfg, x)
+        elif family == "vlm":
+            x, _, _ = tfm.vlm_stack_fwd(p["stack"], cfg, x, _vision(batch))
         elif lg:
             x, _, _ = tfm.lg_stack_fwd(p["stack"], cfg, x)
         else:
@@ -114,6 +133,15 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         return torch.zeros(shape, dtype=KV_DTYPE, device=device)
 
     def init_cache(batch_size: int, max_len: int):
+        if cfg.is_encoder:
+            raise ValueError(f"{family} has no decode cache (encoder-only?)")
+        if family == "vlm":
+            g, ns = tfm.vlm_split(cfg)
+            KVH, D = a.n_kv_heads, a.head_dim
+            return {"k": _zeros(g, ns, batch_size, max_len, KVH, D),
+                    "v": _zeros(g, ns, batch_size, max_len, KVH, D),
+                    "cross_k": _zeros(g, batch_size, cfg.n_vision_tokens, KVH, D),
+                    "cross_v": _zeros(g, batch_size, cfg.n_vision_tokens, KVH, D)}
         if family == "ssm":
             return _states((cfg.n_layers,), batch_size)
         if lg:
@@ -135,12 +163,13 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         return {"k": k, "v": v}
 
     def _pad_to(kv, max_len: int):
-        """(n, B, S, KVH, D) keys or values padded with zeros up to max_len:
-        as in the reference, the prefilled cache keeps the keys' own type
-        (bf16 for bf16 parameters)."""
-        return F.pad(kv, (0, 0, 0, 0, 0, max(max_len - kv.shape[2], 0)))
+        """(..., B, S, KVH, D) keys or values padded with zeros along S up to
+        max_len: as in the reference, the prefilled cache keeps the keys'
+        own type (bf16 for bf16 parameters)."""
+        return F.pad(kv, (0, 0, 0, 0, 0, max(max_len - kv.shape[-3], 0)))
 
     def prefill(p, batch: Batch, max_len: int):
+        _encoder_refuses()
         x = _embed_in(p, batch)
         B = x.shape[0]
         if family == "ssm":
@@ -151,6 +180,12 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
             x, (k, v) = hyb.hybrid_stack_prefill(p["stack"], cfg, x, cache["ssm"],
                                                  cache.get("tail"))
             cache.update(attn_k=_pad_to(k, max_len), attn_v=_pad_to(v, max_len))
+        elif family == "vlm":
+            vision = _vision(batch)
+            x, _, ((k, v), (xk, xv)) = tfm.vlm_stack_fwd(p["stack"], cfg, x, vision,
+                                                        collect_kv=True)
+            cache = {"k": _pad_to(k, max_len), "v": _pad_to(v, max_len),
+                     "cross_k": xk, "cross_v": xv}
         elif lg:
             x, _, (lkv, (gk, gv), tkv) = tfm.lg_stack_fwd(p["stack"], cfg, x, collect_kv=True)
             cache = {"local_k": lkv[0], "local_v": lkv[1],
@@ -168,12 +203,15 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         (the SSM family's state carries its own position and ignores it;
         the hybrid family's shared block takes it for RoPE and the cache
         writes). The cache is updated in place and returned."""
+        _encoder_refuses()
         x = embed(p["embed"], tokens, scale_by_dim=cfg.embed_scale)
         if family == "ssm":
             x = hyb.ssm_stack_decode(p["stack"], cfg, x, cache)
         elif family == "hybrid":
             x = hyb.hybrid_stack_decode(p["stack"], cfg, x, cache["ssm"], cache["attn_k"],
                                         cache["attn_v"], cache.get("tail"), pos)
+        elif family == "vlm":
+            x = tfm.vlm_stack_decode(p["stack"], cfg, x, cache, pos)
         elif lg:
             x = tfm.lg_stack_decode(p["stack"], cfg, x, cache, pos)
         else:

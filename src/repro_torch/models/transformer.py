@@ -1,11 +1,14 @@
-"""Decoder stacks for the dense and moe families: the uniform stack and
-gemma3's local:global stack (groups of ``local_ratio`` sliding-window
-layers and one global layer, then a tail of local layers). The reference's
-scan over stacked ``(L, ...)`` layer parameters is a Python loop over the
-same stacked tensors, so the parameter tree keeps the reference's shape. A
-moe layer has ``moe`` (``models/moe.py``, the local path) where a dense
-layer has ``mlp``. Caches are updated in place. No rematerialisation and
-no sharding constraints: one device, inference only.
+"""Transformer stacks: the uniform stack (dense and moe decoders, the
+audio encoder), gemma3's local:global stack (groups of ``local_ratio``
+sliding-window layers and one global layer, then a tail of local layers)
+and the vlm's grouped stack (groups of ``cross_attn_every - 1`` self
+layers and one tanh-gated cross-attention layer over vision tokens). The
+reference's scan over stacked ``(L, ...)`` layer parameters is a Python
+loop over the same stacked tensors, so the parameter tree keeps the
+reference's shape. A moe layer has ``moe`` (``models/moe.py``, the local
+path) where a dense layer has ``mlp``. Caches are updated in place. No
+rematerialisation and no sharding constraints: one device, inference
+only.
 """
 from __future__ import annotations
 
@@ -245,4 +248,97 @@ def lg_stack_decode(sp: Params, cfg: ModelConfig, x, cache: Cache, pos):
         for j, lp in enumerate(unstack(sp["tail"])):
             x = layer_decode(lp, cfg, x, cache["tail_k"][j], cache["tail_v"][j], pos,
                              kind="local")
+    return x
+
+
+# ===================================================================== #
+#  vlm grouped stack (n_self self layers + 1 gated cross-attn layer)     #
+# ===================================================================== #
+def vlm_split(cfg: ModelConfig) -> Tuple[int, int]:
+    """(groups, self layers a group): every ``cross_attn_every``-th layer
+    is a cross-attention layer; layers past the last whole group are
+    dropped, as in the reference."""
+    return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+
+
+def vlm_stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16) -> Params:
+    """``selfs`` (g, n_self, ...) decoder layers and ``crosses`` (g, ...),
+    each ``{ln, xattn (cross_attn_init), ln2, mlp}``: the reference's tree,
+    drawn into preallocated stacks (``stack_init``)."""
+    g, n_self = vlm_split(cfg)
+    dev = gen.device
+
+    def cross():
+        return {"ln": rmsnorm_init(cfg.d_model, dev),
+                "xattn": attn.cross_attn_init(gen, cfg.attn, cfg.d_model, cfg.d_vision, dtype),
+                "ln2": rmsnorm_init(cfg.d_model, dev),
+                "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)}
+    return {"selfs": stack_init(lambda: stack_init(lambda: layer_init(gen, cfg, dtype), n_self), g),
+            "crosses": stack_init(cross, g)}
+
+
+def _cross_layer_fwd(cp: Params, cfg: ModelConfig, x, vision, kv=None):
+    x = x + attn.cross_attention_block(cp["xattn"], cfg.attn,
+                                       rmsnorm(cp["ln"], x, cfg.norm_eps), vision, kv)
+    return x + mlp(cp["mlp"], rmsnorm(cp["ln2"], x, cfg.norm_eps), cfg.act)
+
+
+def vlm_stack_fwd(sp: Params, cfg: ModelConfig, x, vision, *, collect_kv: bool = False):
+    """x (B, S, d) text, vision (B, T, d_vision). Returns (x, aux, kvs):
+    aux 0 (no MoE), kvs, if collect_kv, ((k, v), (cross_k, cross_v)): the
+    self layers' keys and values, each (g, n_self, B, S, KVH, D), filled
+    layer by layer, and the vision tokens' as ``vlm_precompute_cross_kv``
+    gives them, each (g, B, T, KVH, D), projected once and used by the
+    cross layers too (the reference projects them a second time)."""
+    a = cfg.attn
+    g, n_self = vlm_split(cfg)
+    B, S = x.shape[:2]
+    if collect_kv:
+        kvs = tuple(x.new_empty((g, n_self, B, S, a.n_kv_heads, a.head_dim)) for _ in "kv")
+        cross = vlm_precompute_cross_kv(sp, cfg, vision)
+    for i, (sps, cp) in enumerate(zip(unstack(sp["selfs"]), unstack(sp["crosses"]))):
+        for j, lp in enumerate(unstack(sps)):
+            x, kv, _ = layer_fwd(lp, cfg, x, kind="causal")
+            if collect_kv:
+                for d, u in zip(kvs, kv):
+                    d[i, j].copy_(u)
+        x = _cross_layer_fwd(cp, cfg, x, vision, (cross[0][i], cross[1][i]) if collect_kv else None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, ((kvs, cross) if collect_kv else None)
+
+
+def vlm_precompute_cross_kv(sp: Params, cfg: ModelConfig, vision):
+    """The vision tokens (B, T, d_vision) through every cross layer's k and
+    v projections once: (k, v), each (g, B, T, KVH, D)."""
+    a = cfg.attn
+    B, T, _ = vision.shape
+    g = vlm_split(cfg)[0]
+    kvs = tuple(vision.new_empty((g, B, T, a.n_kv_heads, a.head_dim)) for _ in "kv")
+    for i, cp in enumerate(unstack(sp["crosses"])):
+        for d, w in zip(kvs, (cp["xattn"]["wk"], cp["xattn"]["wv"])):
+            d[i] = (vision @ w).reshape(B, T, a.n_kv_heads, a.head_dim)
+    return kvs
+
+
+def _cross_layer_decode(cp: Params, cfg: ModelConfig, x, ck, cv):
+    """One token's cross layer over the cached vision keys and values (B,
+    T, KVH, D): the query without RoPE (and without qk-norm, as in the
+    reference's decode), every key valid, on the flash-decode kernel."""
+    a, xp = cfg.attn, cp["xattn"]
+    B = x.shape[0]
+    q = (rmsnorm(cp["ln"], x, cfg.norm_eps) @ xp["wq"]).reshape(B, 1, a.n_heads, a.head_dim)
+    kv_len = torch.full((B,), ck.shape[1], dtype=torch.int64, device=x.device)
+    o = attn.decode_attention(q, ck, cv, kv_len).reshape(B, 1, -1) @ xp["wo"]
+    x = x + torch.tanh(xp["gate"]).to(o.dtype) * o
+    return x + mlp(cp["mlp"], rmsnorm(cp["ln2"], x, cfg.norm_eps), cfg.act)
+
+
+def vlm_stack_decode(sp: Params, cfg: ModelConfig, x, cache: Cache, pos):
+    """One token through the stack: the self layers' caches ``k``, ``v``
+    (g, n_self, B, Smax, KVH, D) updated in place, the cross layers over
+    ``cross_k``, ``cross_v`` (g, B, T_vision, KVH, D)."""
+    for i, (sps, cp) in enumerate(zip(unstack(sp["selfs"]), unstack(sp["crosses"]))):
+        for j, lp in enumerate(unstack(sps)):
+            x = layer_decode(lp, cfg, x, cache["k"][i, j], cache["v"][i, j], pos)
+        x = _cross_layer_decode(cp, cfg, x, cache["cross_k"][i], cache["cross_v"][i])
     return x
