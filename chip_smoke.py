@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, times them at the shapes their paths
-give them, and drives seven paths, counting the kernels' launches on each:
+give them, and drives eight paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
     continuous-batching engine (rmsnorm, flash_attention, flash_decode),
@@ -53,7 +53,14 @@ give them, and drives seven paths, counting the kernels' launches on each:
   * hubert-xlarge (the audio encoder) at full width and depth: a forward
     over 4 x 1,024 frames, bidirectional attention at head_dim 80 on
     flash_attention, checked and timed at its shapes (with the split of
-    the keys forced, so that the merge runs at head_dim 80).
+    the keys forced, so that the merge runs at head_dim 80);
+  * training: qwen3-1.7b at full width and depth through ``Trainer.fit``,
+    4 AdamW steps of 8 x 4,096 tokens in 4 microbatches with full remat,
+    rmsnorm and flash_attention on their kernels inside the Functions
+    whose backward is the plain versions' VJP: the four kernels' gradients
+    against the plain versions' autograd at the training shapes, step 0
+    against the same step on the plain versions, a step's numbers and its
+    profile.
 
 Every phase prints JSON lines; any failure ends the run with a non-zero
 exit code. Without a CUDA device the script fails: nothing runs on the CPU.
@@ -76,6 +83,7 @@ import sys
 import time
 from functools import partial
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -87,6 +95,7 @@ from repro_torch import graphs  # noqa: E402
 from repro_torch.calib import FIT_LAMBDAS, StressorSpec, median_iqr_time  # noqa: E402
 from repro_torch.calib.measure import _stressor_call  # noqa: E402
 from repro_torch.calib import fit as fit_mod  # noqa: E402
+from repro_torch.configs.base import TRAIN_4K, RunConfig  # noqa: E402
 from repro_torch.configs.registry import get_config, tiny_config  # noqa: E402
 from repro_torch.core import estimator_torch  # noqa: E402
 from repro_torch.core.backend import get_solver_device, solver_backend  # noqa: E402
@@ -106,6 +115,10 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.hybrid import hybrid_split  # noqa: E402
 from repro_torch.models.transformer import lg_split, vlm_split  # noqa: E402
 from repro_torch.core.scenario import Scenario  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.train.optimizer import Optimizer, global_norm  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig, make_train_step  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig  # noqa: E402
 from repro_torch.serve.engine import chunk_bucket  # noqa: E402
 
@@ -1086,7 +1099,7 @@ def phase_serve_full(records: dict) -> dict:
     t0 = time.perf_counter()
     params = build_model(cfg, device=DEV).init(gen)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     emit(phase="weights", config=cfg.name, n_params=n_params, dtype=cfg.param_dtype,
          seconds=time.perf_counter() - t0)
     rng = np.random.default_rng(0)
@@ -1303,12 +1316,6 @@ def profile_step(step_fn, step=None, n: int = 4) -> dict:
     traces the process has taken (``lost_at_start``). So every trace opens
     with ``PROFILE_PREFIX`` one-thread ``torch.cuda._sleep(0)`` launches,
     and fails if it lost all of them."""
-    from torch.profiler import ProfilerActivity, profile
-    lib = _build.load()
-
-    def mark():
-        _build.check_launch(lib.rt_empty(_build.stream_ptr()), "rt_empty")
-
     step_fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1316,16 +1323,56 @@ def profile_step(step_fn, step=None, n: int = 4) -> dict:
         step_fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_PREFIX):
-            torch.cuda._sleep(0)
-        for _ in range(n):
-            mark()
-            step_fn()
+    prof = start_trace()
+    for _ in range(n):
         mark()
-        torch.cuda.synchronize()
-    device = sorted((ev for ev in prof.events() if ev.device_type.name == "CUDA"),
-                    key=lambda ev: ev.time_range.start)
+        step_fn()
+    mark()
+    torch.cuda.synchronize()
+    prof.stop()
+    return read_trace(prof, wall_ms, step, n)
+
+
+def mark() -> None:
+    """One launch of the empty kernel: a marker between traced steps."""
+    _build.check_launch(_build.load().rt_empty(_build.stream_ptr()), "rt_empty")
+
+
+def start_trace():
+    """A started torch.profiler trace of the host and the device, opened
+    with ``PROFILE_PREFIX`` launches of ``torch.cuda._sleep(0)`` (see
+    ``profile_step``); the caller marks each step, synchronises and stops
+    it."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    for _ in range(PROFILE_PREFIX):
+        torch.cuda._sleep(0)
+    return prof
+
+
+class DeviceEvent(NamedTuple):
+    name: str
+    start_us: float            # from the trace's first device event
+    device_time: float         # µs
+
+
+def device_events(prof) -> list:
+    """The device events of a stopped trace, in order of their start, read
+    from the profiler's own results: far quicker than building its tree of
+    host and device events (``prof.events()``), which took 18 s for a
+    training step's 35,000 kernels on an H100."""
+    raw = [(e.name(), e.start_ns(), e.duration_ns())
+           for e in prof.profiler.kineto_results.events() if e.device_type().name == "CUDA"]
+    t0 = min((start for _, start, _ in raw), default=0)
+    return sorted((DeviceEvent(name, (start - t0) / 1e3, dur / 1e3) for name, start, dur in raw),
+                  key=lambda ev: ev.start_us)
+
+
+def read_trace(prof, wall_ms: float, step=None, n: int = 4) -> dict:
+    """``profile_step``'s reading of a trace of ``n`` marked steps, each of
+    ``wall_ms`` on the host clock when not traced."""
+    device = device_events(prof)
     out = {"wall_ms": wall_ms}
     if not device:
         out["device_busy_ms"] = "not measured"
@@ -1347,7 +1394,7 @@ def profile_step(step_fn, step=None, n: int = 4) -> dict:
                              "opening launches")
     out["lost_at_start"] = PROFILE_PREFIX - prefix
     if len(marks) != n + 1:
-        at = [round(device[i].time_range.start / 1e3, 3) for i in marks]
+        at = [round(device[i].start_us / 1e3, 3) for i in marks]
         raise AssertionError(f"{what}: the trace holds {len(marks)} of the {n + 1} markers, "
                              f"at {at} ms of its window")
     stray = [ev.name for ev in device[:marks[0]] + device[marks[-1] + 1:]
@@ -1376,14 +1423,6 @@ def profile_step(step_fn, step=None, n: int = 4) -> dict:
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "kernels_per_step": sum(c for _, c in kernels.values()) / n,
             "top_kernels_ms_per_step": {name[:60]: round(t / 1e3 / n, 4) for name, (t, _) in top}}
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 # what the resident blocks of one H100 SM share (CUDA C programming guide,
@@ -1627,9 +1666,9 @@ def facade_weights(cfg):
     params = m.init(gen)
     torch.cuda.synchronize()
     return m, params, {
-        "config": cfg.name, "n_params": sum(t.numel() for t in _leaves(params)),
+        "config": cfg.name, "n_params": sum(t.numel() for t in leaves(params)),
         "dtype": cfg.param_dtype,
-        "bytes": sum(t.numel() * t.element_size() for t in _leaves(params)),
+        "bytes": sum(t.numel() * t.element_size() for t in leaves(params)),
         "seconds": time.perf_counter() - t0}
 
 
@@ -2367,6 +2406,243 @@ def phase_hubert(records: dict) -> None:
 
 
 # --------------------------------------------------------------------- #
+#  phase 14: training qwen3-1.7b at full width and depth                 #
+# --------------------------------------------------------------------- #
+TRAIN_MICROBATCHES = 4        # global batch 8 in 4 microbatches of 2
+TRAIN_STEPS = 4
+
+
+def event_ms(fn, iters: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` eager calls between CUDA
+    events, after one call to warm up (for calls too large to capture)."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def check_kernel_grads(rng, S, H, KVH, D, d_model) -> dict:
+    """Gate 1 of the train phase (ROADMAP C17): a backward through each of
+    the four wrappers on the card, given inputs that require grad, runs the
+    kernel forward inside its Function (one launch) and gives every input
+    a gradient equal, at the bf16 gate, to the plain version's autograd on
+    the same inputs; the forward is held to the plain version's too.
+    Shapes: qwen3-1.7b's training microbatch (rmsnorm over 2 x 4,096 rows
+    of 2,048, causal attention over 2 x 4,096 tokens), its serve's decode
+    step, and falcon-mamba's prefill for the scan."""
+    errs = {}
+
+    def hold(name, call, plain, inputs, check, fwd_check=None):
+        leaves_in = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+        before = counts([name])[name]
+        out = call(*leaves_in)
+        if counts([name])[name] != before + 1:
+            raise AssertionError(f"{name}: the Function ran "
+                                 f"{counts([name])[name] - before} launches, not one")
+        first = out[0] if isinstance(out, tuple) else out
+        ref_in = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+        ref = plain(*ref_in)
+        ref_first = ref[0] if isinstance(ref, tuple) else ref
+        err = (fwd_check or check)(f"{name} forward", first, ref_first, BF)
+        ct = randn(rng, tuple(first.shape), F32).to(first.dtype)
+        want_in = [t for t in ref_in if t.requires_grad]
+        got_in = [t for t in leaves_in if t.requires_grad]
+        got = torch.autograd.grad(first, got_in, ct)
+        want = torch.autograd.grad(ref_first, want_in, ct)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g is None:
+                raise AssertionError(f"{name}: input {i} has no gradient")
+            err = max(err, check(f"{name} grad {i}", g, w, BF))
+        errs[name] = err
+
+    x, s = randn(rng, (2 * S, d_model), BF), randn(rng, (d_model,), F32)
+    hold("rmsnorm", rms_mod.rmsnorm, rms_mod.rmsnorm_plain, [x, s], check_close)
+    q, k, v = (randn(rng, (2, S, h, D), BF) for h in (H, KVH, KVH))
+    hold("flash_attention", fa_mod.flash_attention, fa_mod.flash_attention_plain,
+         [q, k, v], check_attention)
+    lens = torch.tensor(MIXED_LENS, device=DEV)
+    ck, cv = (randn(rng, (8, 1025, KVH, D), BF) for _ in "kv")
+    hold("flash_decode", lambda q, k, v: dec_mod.flash_decode(q, k, v, lens),
+         lambda q, k, v: dec_mod.flash_decode_plain(q, k, v, lens),
+         [randn(rng, (8, 1, H, D), BF), ck, cv], check_attention)
+    cfg = get_config("falcon-mamba-7b")
+    scan_in = falcon_scan_inputs(rng, 4, 1024, cfg.d_inner, cfg.ssm.d_state, BF)
+    hold("ssm_scan", ssm_mod.ssm_scan, ssm_mod.ssm_scan_plain, list(scan_in), check_close,
+         fwd_check=lambda name, g, w, dt: check_close(name, g, w, F32, SCAN_TOL))
+    return errs
+
+
+def probe_step(m, params, batch, run) -> tuple:
+    """Step 0's loss and the gradients' global norm as the train step makes
+    them (microbatches, f32 accumulation), through ``make_train_step``
+    with an optimizer that reads the gradients and leaves the parameters
+    as they are."""
+    seen = {}
+
+    def update(grads, state, p):
+        seen["grad_norm"] = float(global_norm(grads))
+        return p, state
+    step = make_train_step(m, Optimizer(lambda p: {}, update, "read_grads"), run)
+    _, _, metrics = step(params, {}, batch)
+    return float(metrics["loss"]), seen["grad_norm"]
+
+
+class StepWatch:
+    """The train phase's data source for ``Trainer.fit``: SyntheticLM's
+    batches, and at each draw (a step's start, after the last step's loss
+    was read on the host, which waits for its update) the device's peak
+    memory over the step before; at the second draw, the parameter leaves
+    that step 0 left as they were, against a host copy taken before it. At
+    the draw for step ``trace_step`` it starts a trace (``start_trace``)
+    and marks the step's start; ``stop`` marks its end and stops it."""
+
+    def __init__(self, source, params, trace_step: int):
+        self.source, self.params, self.calls = source, params, 0
+        self.trace_step, self.prof = trace_step, None
+        self.before = [t.detach().to("cpu", copy=True) for t in leaves(params)]
+        self.peaks, self.unchanged = [], None
+        torch.cuda.reset_peak_memory_stats()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.calls:
+            self.peaks.append(torch.cuda.max_memory_allocated())
+        if self.calls == 1:
+            self.unchanged = [i for i, (a, b) in enumerate(zip(self.before, leaves(self.params)))
+                              if torch.equal(a, b.cpu())]
+            self.before = None
+        torch.cuda.reset_peak_memory_stats()
+        if self.calls == self.trace_step:
+            self.prof = start_trace()
+            mark()
+        self.calls += 1
+        return next(self.source)
+
+    def stop(self):
+        """After the last step: its peak, and the trace's end."""
+        self.peaks.append(torch.cuda.max_memory_allocated())
+        mark()
+        torch.cuda.synchronize()
+        self.prof.stop()
+
+
+def phase_train(records: dict) -> None:
+    """qwen3-1.7b as the repo configures it (28 layers, 16 / 8 heads of 128,
+    vocab 151,936, bf16, seeded random weights) trained at full width and
+    depth through ``Trainer.fit``: SyntheticLM batches at train_4k's
+    sequence of 4,096 (``configs/base.py``), a global batch of 8 in 4
+    microbatches of 2, AdamW, ``remat_policy="full"``, 4 steps, no
+    checkpoint written. The forward runs rmsnorm and flash_attention on
+    their kernels inside their Functions, whose backward is the plain
+    versions' VJP. Gates: (1) each of the four kernels' gradients at the
+    training shapes against the plain versions' autograd; (2) step 0's loss
+    and gradient norm against the same step under the plain versions,
+    within 2e-2 relative; (3) finite losses, and every parameter leaf moved
+    by step 0; (4) the launches a step: per microbatch 2L + 1 rmsnorm and L
+    flash_attention in the forward, and the layers' again in the remat
+    recompute. The last step is traced (its wall time carries the
+    profiler's cost: ``traced``), against the untraced steps before it:
+    the device's idle share, the plain attention backward's share of the
+    device time; then rmsnorm and flash_attention timed at the training
+    shapes."""
+    cfg = get_config("qwen3-1.7b").with_overrides(remat_policy="full")
+    a, L = cfg.attn, cfg.n_layers
+    S, K, GB = TRAIN_4K.seq_len, TRAIN_MICROBATCHES, 8
+    rng = np.random.default_rng(14)
+    t_phase = time.perf_counter()
+    grad_errs = check_kernel_grads(rng, S, a.n_heads, a.n_kv_heads, a.head_dim, cfg.d_model)
+    emit(phase="train_kernel_grads", seconds=time.perf_counter() - t_phase,
+         max_abs_err=grad_errs, tolerance={"bfloat16": TOL[BF], "ssm_scan forward": SCAN_TOL},
+         how="forward through each wrapper's Function on the card (one kernel launch), "
+             "gradients of every input against the plain version's autograd")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    m, params, weights = facade_weights(cfg)
+    run = RunConfig(num_microbatches=K)
+    trainer = Trainer(m, run, TrainerConfig(total_steps=TRAIN_STEPS, log_every=1,
+                                            optimizer="adamw"))
+    data = SyntheticLM(cfg, DataConfig(seq_len=S, global_batch=GB,
+                                       vocab_size=cfg.vocab_size, seed=0))
+    batch0 = trainer.to_device(data.batch_at(0))
+    loss0, gnorm0 = probe_step(m, params, batch0, run)
+    with plain_versions():
+        loss0_p, gnorm0_p = probe_step(m, params, batch0, run)
+    rel = {"loss": abs(loss0 / loss0_p - 1), "grad_norm": abs(gnorm0 / gnorm0_p - 1)}
+    emit(phase="train_step0", seconds=time.perf_counter() - t_phase, loss=loss0,
+         loss_plain=loss0_p, grad_norm=gnorm0, grad_norm_plain=gnorm0_p, rel_diff=rel,
+         tolerance=2e-2)
+    if not all(r <= 2e-2 for r in rel.values()):
+        raise AssertionError(f"train: step 0 with the kernels differs from the plain "
+                             f"versions' by {rel}")
+
+    opt_state = trainer.opt.init(params)
+    watch = StepWatch(data, params, trace_step=TRAIN_STEPS - 1)
+    reset_counts()                          # counts of the four steps only
+    params, opt_state, history = trainer.fit(watch, params=params, opt_state=opt_state)
+    watch.stop()
+    used = counts()
+    want = {name: 0 for name in used}
+    want.update(rmsnorm=TRAIN_STEPS * K * (4 * L + 1), flash_attention=TRAIN_STEPS * K * 2 * L)
+    if used != want:
+        raise AssertionError(f"train: launches {used}, the steps imply {want}")
+    losses = [h[1] for h in history]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    if watch.unchanged:
+        raise AssertionError(f"train: step 0 left parameter leaves {watch.unchanged} as they were")
+    tokens = GB * S
+    n = weights["n_params"]
+    flop = tokens * (6 * n + 6 * L * a.n_heads * a.head_dim * S)
+    steps = [{"step": st, "loss": lo, "wall_ms": dt * 1e3, "tokens_per_s": tokens / dt,
+              "peak_gb": pk / 1e9, "train_mfu": flop / (dt * PEAK_OPS_PER_S[BF]),
+              "traced": st == watch.trace_step}
+             for (st, lo, dt), pk in zip(history, watch.peaks)]
+    emit(phase="train", seconds=time.perf_counter() - t_phase, config=cfg.name, n_params=n,
+         seq=S, global_batch=GB, microbatches=K, optimizer="adamw",
+         remat_policy=cfg.remat_policy, steps=steps,
+         launches_per_step={k: v // TRAIN_STEPS for k, v in used.items() if v},
+         flop_per_step=flop, straggler_events=trainer.straggler.events)
+    records["rmsnorm"]["launches_train"] = used["rmsnorm"] // TRAIN_STEPS
+    records["flash_attention"]["launches_train"] = used["flash_attention"] // TRAIN_STEPS
+
+    t0 = time.perf_counter()
+    # the traced step against the steps before it, which ran untraced
+    profile = read_trace(watch.prof, statistics.median(h[2] for h in history[1:-1]) * 1e3,
+                         n=1)
+    profile["read_seconds"] = time.perf_counter() - t0
+    del watch
+    q, k, v = (randn(rng, (2, S, h, a.head_dim), BF).requires_grad_()
+               for h in (a.n_heads, a.n_kv_heads, a.n_kv_heads))
+    out = fa_mod.flash_attention(q, k, v)
+    ct = randn(rng, tuple(out.shape), BF)
+    bwd_ms = event_ms(lambda: torch.autograd.grad(out, (q, k, v), ct, retain_graph=True))
+    del q, k, v, out
+    busy = profile.get("device_busy_ms")
+    share = (K * L * bwd_ms / busy) if isinstance(busy, float) else "not measured"
+    emit(phase="train_profile", profile=profile, attention_backward_ms_per_call=bwd_ms,
+         attention_backward_calls_per_step=K * L, attention_backward_share_of_device_time=share)
+    del m, params, opt_state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = {"rmsnorm": [time_rmsnorm(rng, (2 * S, cfg.d_model), 4)],
+             "flash_attention": [time_flash_attention_prefill(
+                 rng, 2, S, a.n_heads, a.n_kv_heads, a.head_dim)]}
+    emit(phase="train_kernels", seconds=time.perf_counter() - t_phase, times=times)
+    for name in ("rmsnorm", "flash_attention"):
+        records[name]["train"] = times[name]
+    for name, err in grad_errs.items():
+        records[name]["max_abs_err_train_grads"] = err
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script measures the GPU path "
@@ -2470,6 +2746,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_hubert(records)
     emit(phase="hubert_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_train(records)
+    emit(phase="train_done", seconds=time.perf_counter() - t0)
 
     emit(phase="total", seconds=time.perf_counter() - t_all)
     for rec in records.values():

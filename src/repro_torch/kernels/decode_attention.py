@@ -10,7 +10,9 @@ splits (two passes, always); ``merge_partials_plain`` is that merge in
 PyTorch. The cache is read in the model's layout ``(B, T, KVH, D)``
 through strides: nothing is transposed or copied. The lengths are read as
 the caller has them, int32 or int64. At head_dim 256 the kernels take at
-most 8 query heads a KV head (no config has more there).
+most 8 query heads a KV head (no config has more there). Where a gradient
+is wanted the wrapper runs the kernels inside ``_grad.KernelFunction``: the
+backward is the plain version's.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)   # head sizes the kernels are built for
@@ -79,7 +81,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, 1, H, D); k, v: (B, T, KVH, D), possibly strided views of the
     cache; kv_len: (B,) int32 or int64 tensor, each >= 1. A tensor on the
     CPU takes the plain version; a CUDA tensor launches the kernels or
-    raises."""
+    raises. Where q, k or v requires grad (and grad mode is on), the three
+    get the plain version's gradients."""
+    if _grad.needs_grad(q, k, v):
+        return _grad.KernelFunction.apply(
+            lambda q, k, v: _forward(q, k, v, kv_len),
+            lambda q, k, v: flash_decode_plain(q, k, v, kv_len), q, k, v)
+    return _forward(q, k, v, kv_len)
+
+
+def _forward(q, k, v, kv_len):
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kv_len)
     if q.device.type != "cuda":

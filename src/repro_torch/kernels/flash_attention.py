@@ -31,6 +31,9 @@ c`` keys are valid; q is the chunk padded to its bucket (rows past c sit at
 positions >= T, see every valid key, and are never read). The split of the
 keys is planned from the cache's length and fixed; the kernels work out
 each split's keys from T.
+
+Where a gradient is wanted the wrapper runs the kernel inside
+``_grad.KernelFunction``: the backward is the plain version's.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # head sizes the kernel is built for
@@ -132,7 +135,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the whole cache, of which rows ``slot .. slot + B - 1`` are read. A
     tensor on the CPU takes the plain version; a CUDA tensor launches the
     kernel or raises. ``kv_splits`` overrides the plan's split of the keys
-    (bf16 only; 0: the plan's own)."""
+    (bf16 only; 0: the plan's own). Where q, k or v requires grad (and grad
+    mode is on), the three get the plain version's gradients; the
+    ``offsets`` form, the engine's extend step, then raises."""
+    if _grad.needs_grad(q, k, v):
+        if offsets is not None:
+            raise RuntimeError("flash_attention with offsets (the engine's extend "
+                               "step) has no gradient: call it under torch.no_grad()")
+        return _grad.KernelFunction.apply(
+            lambda q, k, v: _forward(q, k, v, kind, window, q_offset, kv_splits),
+            lambda q, k, v: flash_attention_plain(q, k, v, kind, window, q_offset),
+            q, k, v)
+    return _forward(q, k, v, kind, window, q_offset, kv_splits, offsets)
+
+
+def _forward(q, k, v, kind, window, q_offset, kv_splits, offsets=None):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kind, window, q_offset, offsets)
     if q.device.type != "cuda":

@@ -4,13 +4,15 @@ PyTorch version.
 Replaces the TPU kernel ``src/repro/kernels/rmsnorm.py`` (``rmsnorm_pallas``).
 Bound by bytes on the card (x read once, y written once): one block per row
 keeps the row in registers between the sum of squares and the scaling, and
-moves it with 16-byte loads and stores.
+moves it with 16-byte loads and stores. Where a gradient is wanted the
+wrapper runs the kernel inside ``_grad.KernelFunction``: the backward is the
+plain version's.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -25,7 +27,17 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
     """x: (..., d) bf16 or f32; scale: (d,). A tensor on the CPU takes the
-    plain version; a CUDA tensor launches the kernel or raises."""
+    plain version; a CUDA tensor launches the kernel or raises. Where x or
+    scale requires grad (and grad mode is on), both get gradients, those of
+    the plain version."""
+    if _grad.needs_grad(x, scale):
+        return _grad.KernelFunction.apply(
+            lambda x, s: _forward(x, s, eps), lambda x, s: rmsnorm_plain(x, s, eps),
+            x, scale)
+    return _forward(x, scale, eps)
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
     if x.device.type != "cuda":

@@ -11,7 +11,8 @@ by its exps (one per (b, t, d, n), ``ex2.approx`` on the multi-function
 units) at falcon-mamba's prefill. Beyond the Pallas kernel it takes an initial state and returns the
 final one, as the model's scan does, and returns y in f32 (the model's
 scan's type; ``kernels/ops.py:ssm_scan`` casts to ``x.dtype`` as the Pallas
-kernel does).
+kernel does). Where a gradient is wanted the wrapper runs the kernel inside
+``_grad.KernelFunction``: the backward is the plain version's.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 
 MAX_STATE = 16        # most states per channel the kernel is built for
 
@@ -61,7 +62,20 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (Bb, S, N) f32; h0 (Bb, di, N) f32 or None. Returns (y f32, hT); hT is
     written into ``out_state`` (a contiguous f32 (Bb, di, N) tensor, which
     may be ``h0``) when it is given. A tensor on the CPU takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel or raises. Where an input
+    requires grad (and grad mode is on), x, dt, A, B, C and h0 get the
+    plain version's gradients; ``out_state``, written in place by the
+    decode and prefill-state paths, then raises."""
+    inputs = (x, dt, A, B, C, h0)
+    if _grad.needs_grad(*inputs):
+        if out_state is not None:
+            raise RuntimeError("ssm_scan into out_state (written in place) has no "
+                               "gradient: call it under torch.no_grad()")
+        return _grad.KernelFunction.apply(_forward, ssm_scan_plain, *inputs)
+    return _forward(*inputs, out_state)
+
+
+def _forward(x, dt, A, B, C, h0=None, out_state=None):
     if x.device.type == "cpu":
         return ssm_scan_plain(x, dt, A, B, C, h0, out_state)
     if x.device.type != "cuda":

@@ -21,8 +21,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm
 from repro_torch.models.layers import Params, rmsnorm, rmsnorm_init
-from repro_torch.models.transformer import (layer_decode, layer_fwd, layer_init, stack_init,
-                                           unstack)
+from repro_torch.models.transformer import (_remat, layer_decode, layer_fwd, layer_init,
+                                           stack_init, unstack)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -98,8 +98,10 @@ def ssm_stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
 
 
 def ssm_stack_fwd(sp: Params, cfg: ModelConfig, x):
+    """A remat region is one layer, as in the reference."""
+    layer = _remat(lambda x, lp: ssm_layer_fwd(lp, cfg, x), cfg.remat_policy)
     for lp in unstack(sp):
-        x = ssm_layer_fwd(lp, cfg, x)
+        x = layer(x, lp)
     return x
 
 
@@ -140,9 +142,16 @@ def hybrid_stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat
 
 
 def hybrid_stack_fwd(sp: Params, cfg: ModelConfig, x):
+    """A remat region is a group (its SSM layers and the shared block) or a
+    layer of the tail, as in the reference."""
+    def group(x, gp, shared):
+        for lp in unstack(gp):
+            x = ssm_layer_fwd(lp, cfg, x)
+        return layer_fwd(shared, cfg, x, kind="causal")[0]
+
+    group = _remat(group, cfg.remat_policy)
     for gp in unstack(sp["ssm"]):
-        x = ssm_stack_fwd(gp, cfg, x)
-        x, _, _ = layer_fwd(sp["shared_attn"], cfg, x, kind="causal")
+        x = group(x, gp, sp["shared_attn"])
     if sp["tail"] is not None:
         x = ssm_stack_fwd(sp["tail"], cfg, x)
     return x

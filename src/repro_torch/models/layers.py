@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, RoPE, MLPs, embeddings.
+"""Shared building blocks: norms, RoPE, MLPs, embeddings, the loss.
 
 Parameters are plain nested dicts of ``torch.Tensor`` with the reference's
 nesting and shapes (weights are ``(d_in, d_out)`` and applied as ``x @ w``);
@@ -8,7 +8,7 @@ parameter type, with f32 for norms, softmax and logits.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -127,15 +127,48 @@ def embed(p: Params, tokens: torch.Tensor, scale_by_dim: bool = False
     return x
 
 
+def _mm_out_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of one type, accumulated in f32 and returned in f32."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _MmF32(torch.autograd.Function):
+    """``_mm_out_f32`` with the transpose rule of the reference's
+    ``einsum(..., preferred_element_type=f32)``: dx in x's type and dw in
+    w's type, both products accumulated in f32 (the f32 cotangent is
+    rounded to the weights' type on the way in). PyTorch's ``mm`` with
+    ``out_dtype`` has no derivative of its own ("derivative for aten::mm
+    is not implemented", PyTorch 2.11 on the card)."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return _mm_out_f32(x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_out_f32(g.to(w.dtype), w.t()).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_out_f32(x2.t(), g.to(x2.dtype)).to(w.dtype)
+        return dx, dw
+
+
 def _mm_f32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(n, d) @ (d, v) -> (n, v) f32, accumulated in f32 and never rounded
     to a narrower type. Casting a full-vocabulary weight to f32 would copy
     it on every call, so on the card a bf16 product asks the library for an
-    f32 result directly."""
+    f32 result directly, through ``_MmF32`` for its gradient."""
     if x2.dtype == torch.float32:
         return x2 @ w
     if x2.device.type == "cuda":
-        return torch.mm(x2, w, out_dtype=torch.float32)
+        return _MmF32.apply(x2, w)
     return x2.float() @ w.float()
 
 
@@ -144,3 +177,20 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     w = p["unembed"] if "unembed" in p else p["embedding"].t()
     x2 = x.reshape(-1, x.shape[-1])
     return _mm_f32(x2, w).reshape(*x.shape[:-1], w.shape[1])
+
+
+# --------------------------------------------------------------------- #
+#  Loss                                                                  #
+# --------------------------------------------------------------------- #
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE. logits (..., V) f32, labels (...) integers; with
+    ``mask`` the mean over the tokens it weighs."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -5,18 +5,21 @@ with tanh-gated cross attention over vision tokens) and the audio encoder.
 
   m = build_model(cfg)                      # device="cuda" unless told
   params = m.init(generator)
+  loss, metrics = m.loss_fn(params, batch)  # metrics {"ce", "aux"}
   logits = m.forward(params, batch)
   logits, cache = m.prefill(params, batch, max_len)
   logits, cache = m.decode_step(params, tokens, cache, pos)   # cache in place
   cache = m.init_cache(batch_size, max_len)
 
-Batches: {"tokens": (B, S) integer tensor}; the vlm family adds
+Batches: {"tokens": (B, S) integer tensor}, and for ``loss_fn``
+{"labels": (B, S)} and optionally {"loss_mask": (B, S)}; the vlm family adds
 {"vision": (B, n_vision_tokens, d_vision)}, the precomputed patch
 embeddings; the audio family takes {"frames": (B, S, d_model)}, the
 precomputed frame embeddings, in place of tokens (no lookup on the way in).
 Both are cast to the parameters' type. ``forward`` returns the logits (the
 moe family's load-balance loss, which the reference's ``forward`` also
-returns, is the stack's second result). The audio family is an encoder:
+returns, is the stack's second result, and ``loss_fn`` adds 0.01 of it to
+the cross entropy, as the reference's does). The audio family is an encoder:
 ``prefill``, ``decode_step`` and ``init_cache`` raise ValueError, as the
 reference's do.
 
@@ -40,7 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid as hyb
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (_dtype, embed, embed_init, rmsnorm,
-                                       rmsnorm_init, unembed)
+                                       rmsnorm_init, softmax_cross_entropy, unembed)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -51,6 +54,7 @@ class Model(NamedTuple):
     cfg: ModelConfig
     device: torch.device
     init: Callable               # (generator) -> params
+    loss_fn: Callable            # (params, batch) -> (loss, {"ce", "aux"})
     forward: Callable            # (params, batch) -> logits
     prefill: Callable            # (params, batch, max_len) -> (logits, cache)
     decode_step: Callable        # (params, tokens, cache, pos) -> (logits, cache)
@@ -101,19 +105,31 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         if cfg.is_encoder:
             raise ValueError("encoder-only model has no prefill/decode")
 
-    def forward(p, batch: Batch):
+    def _forward(p, batch: Batch):
+        """(logits, aux): aux the MoE's load-balance loss, 0 elsewhere."""
         x = _embed_in(p, batch)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if family == "ssm":
             x = hyb.ssm_stack_fwd(p["stack"], cfg, x)
         elif family == "hybrid":
             x = hyb.hybrid_stack_fwd(p["stack"], cfg, x)
         elif family == "vlm":
-            x, _, _ = tfm.vlm_stack_fwd(p["stack"], cfg, x, _vision(batch))
+            x, aux, _ = tfm.vlm_stack_fwd(p["stack"], cfg, x, _vision(batch))
         elif lg:
-            x, _, _ = tfm.lg_stack_fwd(p["stack"], cfg, x)
+            x, aux, _ = tfm.lg_stack_fwd(p["stack"], cfg, x)
         else:
-            x, _, _ = tfm.uniform_stack_fwd(p["stack"], cfg, x)
-        return unembed(p["embed"], rmsnorm(p["final_ln"], x, cfg.norm_eps))
+            x, aux, _ = tfm.uniform_stack_fwd(p["stack"], cfg, x)
+        return unembed(p["embed"], rmsnorm(p["final_ln"], x, cfg.norm_eps)), aux
+
+    def forward(p, batch: Batch):
+        return _forward(p, batch)[0]
+
+    def loss_fn(p, batch: Batch):
+        logits, aux = _forward(p, batch)
+        loss = softmax_cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        if family == "moe":
+            loss = loss + 0.01 * aux
+        return loss, {"ce": loss, "aux": aux}
 
     def _states(lead: tuple, batch_size: int):
         """Zeroed SSM states with leading dims ``lead``: fixed-size, so
@@ -219,4 +235,4 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         x = rmsnorm(p["final_ln"], x, cfg.norm_eps)
         return unembed(p["embed"], x), cache
 
-    return Model(cfg, device, init, forward, prefill, decode_step, init_cache)
+    return Model(cfg, device, init, loss_fn, forward, prefill, decode_step, init_cache)

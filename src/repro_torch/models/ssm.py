@@ -209,8 +209,9 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     dA_cum = torch.cumsum(dA, dim=2)
     xdt_h = xdt.permute(0, 1, 3, 2, 4)                               # (b,c,h,l,p)
     # 1) intra-chunk: bclm,bchlm,bcmhp->bclhp as (scores * L) @ xdt
-    w = torch.exp(_segsum(dA.transpose(2, 3)))                       # (b,c,h,l,m)
-    w.mul_((Cc @ Bc.transpose(2, 3))[:, :, None])                    # scores (b,c,l,m)
+    # out of place: the product's backward reads the exp's output
+    w = torch.exp(_segsum(dA.transpose(2, 3))) \
+        * (Cc @ Bc.transpose(2, 3))[:, :, None]                      # (b,c,h,l,m)
     y = w @ xdt_h                                                    # (b,c,h,l,p)
     del w
     # 2) chunk states: bcln,bclh,bclhp->bchpn as (decay * xdt)^T @ B

@@ -7,20 +7,62 @@ reference's scan over stacked ``(L, ...)`` layer parameters is a Python
 loop over the same stacked tensors, so the parameter tree keeps the
 reference's shape. A moe layer has ``moe`` (``models/moe.py``, the local
 path) where a dense layer has ``mlp``. Caches are updated in place. No
-rematerialisation and no sharding constraints: one device, inference
-only.
+sharding constraints: one device.
+
+Rematerialisation follows ``cfg.remat_policy`` over the reference's
+regions (``_remat``): a layer of the uniform stack, or ``cfg.layer_group``
+of them; a group of gemma3's stack or of the vlm's, and a layer of its
+tail. It applies only where a gradient is wanted.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import Params, mlp, mlp_init, rmsnorm, rmsnorm_init
 from repro_torch.models.moe import moe_ffn_local, moe_init
+
+
+# the products whose outputs the "minimal" policy keeps: the reference's
+# ``checkpoint_dots``
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_DOTS)
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_requires_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def _remat(fn: Callable, policy: str) -> Callable:
+    """The reference's ``_remat``: ``fn(x, *params)`` recomputed in the
+    backward (``"full"``), recomputed but for its products' outputs, which
+    are kept (``"minimal"``, the reference's ``checkpoint_dots``), or run as
+    it is (``"none"``). The checkpoint is taken only where grad mode is on
+    and x or a parameter requires grad: inference runs ``fn`` as it is."""
+    if policy == "none":
+        return fn
+    if policy not in ("minimal", "full"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    kw = {"context_fn": _save_dots} if policy == "minimal" else {}
+
+    def run(x, *params):
+        if torch.is_grad_enabled() and _requires_grad((x, params)):
+            return checkpoint(fn, x, *params, use_reentrant=False, **kw)
+        return fn(x, *params)
+    return run
 
 
 def unstack(sp: Params) -> list:
@@ -120,18 +162,33 @@ def _kind_for(cfg: ModelConfig) -> str:
 def uniform_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = False):
     """Returns (x, aux, kvs): aux the MoE's load-balance loss summed over
     the layers (f32, 0 for the dense family), as the reference's scan
-    carries it; kvs = (k (L,B,S,KVH,D), v (...)) if collect_kv."""
+    carries it; kvs = (k (L,B,S,KVH,D), v (...)) if collect_kv. A remat
+    region is one layer, or ``cfg.layer_group`` layers where that divides
+    the stack and the policy is not ``"none"``, as in the reference."""
     kind = _kind_for(cfg)
+    g = max(1, cfg.layer_group)
+    if not (g > 1 and cfg.n_layers % g == 0 and cfg.remat_policy != "none"):
+        g = 1
+
+    def group(x, aux, lps):
+        kvs = []
+        for lp in lps:
+            x, kv, a = layer_fwd(lp, cfg, x, kind=kind)
+            if a is not None:
+                aux = aux + a
+            if collect_kv:
+                kvs.append(kv)
+        return x, aux, kvs
+
+    run = _remat(group, cfg.remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ks, vs = [], []
-    for lp in unstack(sp):
-        x, (k, v), a = layer_fwd(lp, cfg, x, kind=kind)
-        if a is not None:
-            aux = aux + a
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
-    return x, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+    layers, kvs = unstack(sp), []
+    for i in range(0, len(layers), g):
+        x, aux, kv = run(x, aux, layers[i:i + g])
+        kvs += kv
+    if not collect_kv:
+        return x, aux, None
+    return x, aux, tuple(torch.stack(u) for u in zip(*kvs))
 
 
 def uniform_stack_extend(sp: Params, cfg: ModelConfig, x, cache_k, cache_v,
@@ -215,22 +272,29 @@ def lg_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = False):
         local_kv, global_kv = buf(g, a.local_ratio, B, W), buf(g, B, S)
         tail_kv = buf(tail, B, W) if tail else None
 
-    def run(lp, kind, dst):
-        nonlocal x, aux
+    def run(x, aux, lp, kind, dst):
         x, kv, f = layer_fwd(lp, cfg, x, kind=kind)
         if f is not None:
             aux = aux + f
         if collect_kv:
             for d, u in zip(dst, kv):
                 d.copy_(to_ring(u, W) if kind == "local" else u)
+        return x, aux
 
-    for i, (lps, gp) in enumerate(zip(unstack(sp["locals"]), unstack(sp["globals"]))):
+    def group(x, aux, lps, gp, i):
         for j, lp in enumerate(unstack(lps)):
-            run(lp, "local", collect_kv and [t[i, j] for t in local_kv])
-        run(gp, "causal", collect_kv and [t[i] for t in global_kv])
+            x, aux = run(x, aux, lp, "local", collect_kv and [t[i, j] for t in local_kv])
+        return run(x, aux, gp, "causal", collect_kv and [t[i] for t in global_kv])
+
+    def tail_layer(x, aux, lp, j):
+        return run(x, aux, lp, "local", collect_kv and [t[j] for t in tail_kv])
+
+    group, tail_layer = (_remat(f, cfg.remat_policy) for f in (group, tail_layer))
+    for i, (lps, gp) in enumerate(zip(unstack(sp["locals"]), unstack(sp["globals"]))):
+        x, aux = group(x, aux, lps, gp, i)
     if sp["tail"] is not None:
         for j, lp in enumerate(unstack(sp["tail"])):
-            run(lp, "local", collect_kv and [t[j] for t in tail_kv])
+            x, aux = tail_layer(x, aux, lp, j)
     return x, aux, ((local_kv, global_kv, tail_kv) if collect_kv else None)
 
 
@@ -296,13 +360,19 @@ def vlm_stack_fwd(sp: Params, cfg: ModelConfig, x, vision, *, collect_kv: bool =
     if collect_kv:
         kvs = tuple(x.new_empty((g, n_self, B, S, a.n_kv_heads, a.head_dim)) for _ in "kv")
         cross = vlm_precompute_cross_kv(sp, cfg, vision)
-    for i, (sps, cp) in enumerate(zip(unstack(sp["selfs"]), unstack(sp["crosses"]))):
+
+    def group(x, sps, cp, vision, i):
         for j, lp in enumerate(unstack(sps)):
             x, kv, _ = layer_fwd(lp, cfg, x, kind="causal")
             if collect_kv:
                 for d, u in zip(kvs, kv):
                     d[i, j].copy_(u)
-        x = _cross_layer_fwd(cp, cfg, x, vision, (cross[0][i], cross[1][i]) if collect_kv else None)
+        return _cross_layer_fwd(cp, cfg, x, vision,
+                                (cross[0][i], cross[1][i]) if collect_kv else None)
+
+    group = _remat(group, cfg.remat_policy)
+    for i, (sps, cp) in enumerate(zip(unstack(sp["selfs"]), unstack(sp["crosses"]))):
+        x = group(x, sps, cp, vision, i)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, ((kvs, cross) if collect_kv else None)
 
