@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, times them at the shapes their paths
-give them, and drives eight paths, counting the kernels' launches on each:
+give them, and drives eleven paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
     continuous-batching engine (rmsnorm, flash_attention, flash_decode),
@@ -23,6 +23,13 @@ give them, and drives eight paths, counting the kernels' launches on each:
     replayed from a CUDA graph), against the
     NumPy backend's chunks, and a batch of the interference phase's
     scenarios on both backends;
+  * the fleet: the colocation scheduler, the fleet scheduler with its
+    scoped repair and fault injector, the trace simulator and the drift
+    monitor with every price on the torch solver on the card (one
+    cache_share launch a solve), through the reference's gate trace on a
+    v5e / v5p fleet and on 12 H100 models (equal to the NumPy backend's at
+    1e-9 with the same decisions, and bit for bit the same twice) and
+    through its fleet-recovery and 256-device scale traces;
   * falcon-mamba-7b at full width and depth through the model facade:
     prefill and greedy decode steps on the selective scan (ssm_scan,
     rmsnorm);
@@ -74,6 +81,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import shutil
@@ -97,10 +105,16 @@ from repro_torch.calib.measure import _stressor_call  # noqa: E402
 from repro_torch.calib import fit as fit_mod  # noqa: E402
 from repro_torch.configs.base import TRAIN_4K, RunConfig  # noqa: E402
 from repro_torch.configs.registry import get_config, tiny_config  # noqa: E402
+from repro_torch.core import estimator as estimator_mod  # noqa: E402
 from repro_torch.core import estimator_torch  # noqa: E402
+from repro_torch.core import scheduler as scheduler_mod  # noqa: E402
+from repro_torch.core.fleet import BEST_EFFORT, SLO, FleetConfig, FleetScheduler  # noqa: E402
+from repro_torch.core.fracsearch import FractionSearchConfig  # noqa: E402
+from repro_torch.core.profile import KernelProfile, WorkloadProfile  # noqa: E402
 from repro_torch.core.backend import get_solver_device, solver_backend  # noqa: E402
 from repro_torch.core.estimator import solve_scenarios  # noqa: E402
-from repro_torch.core.resources import H100, TPU_V5E  # noqa: E402
+from repro_torch.core.resources import H100, RESOURCE_AXES, TPU_V5E, TPU_V5P  # noqa: E402
+from repro_torch.ft.inject import FakeClock, FaultInjector, arrive, kill, storm  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import cache_share as cs_mod  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
@@ -121,6 +135,8 @@ from repro_torch.train.trainer import Trainer, TrainerConfig, make_train_step  #
 from repro_torch.tree import leaves  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig  # noqa: E402
 from repro_torch.serve.engine import chunk_bucket  # noqa: E402
+from repro_torch.sim import Simulator, TraceConfig, generate_trace  # noqa: E402
+from repro_torch.sim.simulator import default_fleet_config  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
 HBM_BYTES_PER_S = 3.35e12
@@ -1654,6 +1670,420 @@ def phase_solver(params, scenarios, records: dict) -> None:
 
 
 # --------------------------------------------------------------------- #
+#  phase 7b: the fleet, every price on the torch solver                  #
+# --------------------------------------------------------------------- #
+# The reference's trace gate (benchmarks/bench_trace.py:45-48): 36 tenants,
+# 240 virtual seconds, dev3 killed at t = 120, on 12 devices alternating
+# v5e and v5p; SLO-class attainment at least 0.95.
+GATE_TRACE = dict(seed=2026, duration=240.0, n_tenants=36, kills=((120.0, "dev3"),))
+GATE_DEVICES = 12
+ATTAINMENT_TARGET = 0.95
+# The reference's scale gate (benchmarks/bench_fleet.py:221-227): 256
+# devices alternating v5e and v5p, 192 tenants in waves of 16, 64 churn
+# mutations; p95 devices touched a scoped repair at most 16. Its 10x replan
+# speed-up over a forced full replay is a wall-clock ratio: printed beside
+# the ratio measured here, not held.
+SCALE_DEVICES, SCALE_INIT, SCALE_WAVE, SCALE_CHURN = 256, 192, 16, 64
+SCALE_TOUCHED_P95 = 16.0
+SCALE_SPEEDUP = 10.0
+SCALE_FULL_MUTATIONS = 3
+FLEET_TOL = 1e-9
+
+
+@contextlib.contextmanager
+def counted_solves(log: dict):
+    """Count and time every solve of a run: each ``solve_batch`` with
+    members (the scheduler's pair pricing calls it directly, everything else
+    through ``solve_scenarios``), by padded bucket, width and device model,
+    and the torch solves among them (``estimator_torch.solve_gathered``).
+    Only this script patches them."""
+    solve_batch, gathered = estimator_mod.solve_batch, estimator_torch.solve_gathered
+
+    def timed(pm, members, dev, *args, **kw):
+        t0 = time.perf_counter()
+        br = solve_batch(pm, members, dev, *args, **kw)
+        S, K = br.mask.shape
+        if K:
+            log["solves"] += 1
+            log["scenarios"] += S
+            log["solve_s"] += time.perf_counter() - t0
+            key = (estimator_torch._bucket(S), K, dev.name)
+            log["shapes"][key] = log["shapes"].get(key, 0) + 1
+        return br
+
+    def counting(*args):
+        log["torch_solves"] += 1
+        return gathered(*args)
+
+    estimator_mod.solve_batch = scheduler_mod.solve_batch = timed
+    estimator_torch.solve_gathered = counting
+    try:
+        yield log
+    finally:
+        estimator_mod.solve_batch = scheduler_mod.solve_batch = solve_batch
+        estimator_torch.solve_gathered = gathered
+
+
+def fleet_run(name: str, backend: str, fn):
+    """Run ``fn()`` on ``backend`` (torch on the card) with the counts at 0
+    just before and read just after; returns (fn's result, the run's solver
+    record). On the torch backend every solve must be a replay of a
+    captured step with one ``cache_share`` launch, and no launch may come
+    from outside the captures."""
+    log = {"solves": 0, "torch_solves": 0, "scenarios": 0, "solve_s": 0.0, "shapes": {}}
+    with solver_backend(backend, device=DEV):
+        before = {id(step): step.calls for step in estimator_torch.captured_steps()}
+        reset_counts()
+        t0 = time.perf_counter()
+        with counted_solves(log):
+            out = fn()
+        wall = time.perf_counter() - t0
+        used = counts(("cache_share",))["cache_share"]
+        steps = estimator_torch.captured_steps()
+    new = [step for step in steps if id(step) not in before]
+    ran = [step for step in steps if step.calls > before.get(id(step), 0)]
+    rec = {"run": name, "backend": backend, "solves": log["solves"],
+           "torch_solves": log["torch_solves"], "scenarios": log["scenarios"],
+           "shapes": [{"bucket": b, "K": k, "model": m, "solves": n}
+                      for (b, k, m), n in sorted(log["shapes"].items())],
+           "graphs_captured": sum(step.graph is not None for step in new),
+           "capture_s": sum(step.capture_s for step in new),
+           "graphs_replayed": len(ran),
+           "replays": sum(step.calls - before.get(id(step), 0) for step in ran),
+           "cache_share_launches": replayed(steps, before).get("cache_share", 0),
+           "cache_share_at_capture": at_capture(new).get("cache_share", 0),
+           "cache_share_outside_replays": used,
+           "solve_s": log["solve_s"], "ms_per_solve": log["solve_s"] / max(log["solves"], 1) * 1e3,
+           "wall_s": wall}
+    if backend == "numpy":
+        if log["torch_solves"] or rec["replays"] or used:
+            raise AssertionError(f"fleet {name}: the NumPy run reached the torch solver: {rec}")
+    elif not (log["solves"] and log["torch_solves"] == log["solves"] == rec["replays"]
+              == rec["cache_share_launches"]
+              and all(step.graph is not None for step in ran)
+              and used == rec["cache_share_at_capture"]):
+        raise AssertionError(f"fleet {name}: {rec['cache_share_launches']} cache_share launches "
+                             f"in {rec['replays']} replays for {log['solves']} solves "
+                             f"({log['torch_solves']} on the torch solver)")
+    return out, rec
+
+
+def values_close(a, b, tol, path="") -> None:
+    """``a`` equals ``b`` in structure, every float at rtol = atol = ``tol``
+    (0: exactly; NaN equals NaN), everything else exactly."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or list(a) != list(b):
+            raise AssertionError(f"{path}: keys differ")
+        for k in a:
+            values_close(a[k], b[k], tol, f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            raise AssertionError(f"{path}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            values_close(x, y, tol, f"{path}[{i}]")
+    elif isinstance(a, float) and isinstance(b, float):
+        if not (a == b or (a != a and b != b)
+                or abs(a - b) <= max(tol * max(abs(a), abs(b)), tol)):
+            raise AssertionError(f"{path}: {a!r} against {b!r}")
+    elif type(a) is not type(b) or a != b:
+        raise AssertionError(f"{path}: {a!r} against {b!r}")
+
+
+def fleet_state(fleet) -> dict:
+    """What a fleet decided and where everything is: the decision log, the
+    placements with their fractions, slowdowns and gains, the unplaced
+    sets and the device states (``RepairRecord.latency_s``, a wall-clock
+    reading, stays out)."""
+    plan = fleet.plan()
+    return {"decisions": [dataclasses.astuple(d) for d in fleet.decisions],
+            "placements": {did: [list(p.workloads), p.slot_fraction, p.predicted_slowdown,
+                                 p.meets_slo, p.throughput_gain]
+                           for did, p in sorted(plan.placements.items())},
+            "queued": sorted(plan.queued), "degraded": sorted(plan.degraded),
+            "device_states": plan.device_states,
+            "repairs": [(r.kind, r.reason, r.full, r.targets, r.devices_touched)
+                        for r in fleet.repairs]}
+
+
+def simulate_trace(dev_model, models: dict, search):
+    """One generate -> simulate -> report pass of the gate trace, its tenants
+    drawn for ``dev_model``, on a fleet of ``models``; ``search`` None takes
+    the backend's default fraction search."""
+    cfg = dataclasses.replace(default_fleet_config(), fraction_search=search)
+    sim = Simulator(generate_trace(TraceConfig(**GATE_TRACE), dev=dev_model), models, cfg)
+    return sim.run(), fleet_state(sim.fleet)
+
+
+def trace_gates(label: str, dev_model, models: dict, runs: list, gate_attainment: bool) -> dict:
+    """The gate trace four times: on NumPy and on torch with one explicit
+    search (the NumPy backend's default), equal at 1e-9 with the same
+    decisions and placements; then twice on torch with its own default
+    search, bit for bit the same. Returns the summary of the last run."""
+    explicit = FractionSearchConfig()
+    (want, want_state), rec = fleet_run(f"{label}_numpy", "numpy",
+                                        lambda: simulate_trace(dev_model, models, explicit))
+    runs.append(rec)
+    (got, got_state), rec = fleet_run(f"{label}_torch", "torch",
+                                      lambda: simulate_trace(dev_model, models, explicit))
+    runs.append(rec)
+    values_close(got, want, FLEET_TOL, f"{label} report")
+    values_close(got_state, want_state, FLEET_TOL, f"{label} fleet")
+    twins = []
+    for i in range(2):
+        out, rec = fleet_run(f"{label}_torch_default_{i}", "torch",
+                             lambda: simulate_trace(dev_model, models, None))
+        runs.append(rec)
+        twins.append(out)
+    (a, a_state), (b, b_state) = twins
+    values_close(a, b, 0.0, f"{label} twin report")
+    values_close(a_state, b_state, 0.0, f"{label} twin fleet")
+    slo = a["slo"]["per_class"].get("slo", {"attainment": 0.0})
+    summary = {"trace": label, "requests": a["requests"]["total"],
+               "tenants": a["trace"]["tenants"], "device_deaths": a["fleet"]["device_deaths"],
+               "event_loop_errors": a["fleet"]["event_loop_errors"],
+               "slo_attainment": slo["attainment"], "slo_missed": slo.get("missed"),
+               "best_effort_attainment": a["slo"]["per_class"].get(
+                   "best_effort", {}).get("attainment"),
+               "attainment_explicit_search": got["slo"]["per_class"]["slo"]["attainment"],
+               "replans": a["fleet"]["replans"], "migrations": a["fleet"]["migrations"],
+               "evictions": a["fleet"]["evictions"],
+               "scenarios_solved": a["fleet"]["scenarios_solved"],
+               "equal_to_numpy_at": FLEET_TOL, "twins_bit_identical": True}
+    if a["fleet"]["event_loop_errors"] or got["fleet"]["event_loop_errors"]:
+        raise AssertionError(f"{label}: event-loop errors {summary}")
+    if gate_attainment:
+        floor = (a["requests"]["total"] >= 1000 and a["trace"]["tenants"] >= 32
+                 and a["fleet"]["device_deaths"] >= 1)
+        if not floor or slo["attainment"] < ATTAINMENT_TARGET:
+            raise AssertionError(f"{label}: bench_trace's gates fail: {summary}")
+    return summary
+
+
+def fleet_decode_mix(dev, n_decode: int, n_aux: int) -> list:
+    """bench_planner.decode_heavy_mix: decodes with a tight 1.15x SLO that
+    only a slot partition rescues in pairs, and short best-effort bursts."""
+    def prof(name, slo, dur, **u):
+        d = {r: u.get(r, 0.0) * dev.capacity(r) for r in RESOURCE_AXES}
+        return WorkloadProfile(name, (KernelProfile(f"{name}#step", demand=d, duration=dur),),
+                               slo_slowdown=slo)
+    return ([prof(f"decode{i}", 1.15, 1.0, mxu=0.4, vpu=0.1, issue=0.1, smem=0.05,
+                  hbm=0.6, l2=0.6) for i in range(n_decode)]
+            + [prof(f"aux{i}", 12.0, 0.08, vpu=0.072, issue=0.004, mxu=0.004,
+                    hbm=0.0016, l2=0.0016) for i in range(n_aux)])
+
+
+def fleet_plans_equal(got, want, tol=FLEET_TOL) -> bool:
+    """bench_fleet.fleet_plans_equal: the same placements, fractions,
+    slowdowns and gains at ``tol``, the same unplaced set."""
+    if set(got.placements) != set(want.placements):
+        return False
+    for did, a in got.placements.items():
+        b = want.placements[did]
+        if a.workloads != b.workloads or set(a.slot_fraction) != set(b.slot_fraction):
+            return False
+        if (any(abs(a.slot_fraction[n] - b.slot_fraction[n]) > tol for n in a.slot_fraction)
+                or any(abs(a.predicted_slowdown[n] - b.predicted_slowdown[n]) > tol
+                       for n in a.workloads)
+                or abs(a.throughput_gain - b.throughput_gain) > tol):
+            return False
+    return sorted(got.queued + got.degraded) == sorted(want.queued + want.degraded)
+
+
+def fleet_recovery() -> dict:
+    """bench_fleet.bench_recovery (gate 1): 4 v5e devices, 4 SLO decodes and
+    6 best-effort bursts, dev1 killed at t = 8; every SLO workload re-placed,
+    the evictions recorded, and the online plan equal to a cold fleet's over
+    the survivors at 1e-9."""
+    cfg = FleetConfig(max_group_size=3, heartbeat_timeout=3.0, backoff_base=1.0,
+                      max_retries=3)
+    works = fleet_decode_mix(TPU_V5E, 4, 6)
+    decodes, auxes = works[:4], works[4:]
+    clock = FakeClock()
+    models = {f"dev{i}": TPU_V5E for i in range(4)}
+    fleet = FleetScheduler(models, cfg, clock=clock)
+    kill_t = 8.0
+    FaultInjector(fleet, clock).run(
+        [arrive(float(i), d, priority=SLO) for i, d in enumerate(decodes)]
+        + storm(4.0, auxes, priority=BEST_EFFORT) + [kill(kill_t, "dev1")],
+        until=30.0)
+    plan = fleet.plan()
+    slo_rate = plan.placement_rate([w.name for w in decodes])
+    pre_kill = {d.workload for d in fleet.decisions
+                if d.time <= kill_t and d.action == "placed"}
+    evicted = {d.workload for d in fleet.decisions if d.action == "evicted"}
+    recorded = all(w.name in evicted for w in auxes
+                   if w.name in pre_kill and w.name not in plan.placed)
+    cold = FleetScheduler({did: m for did, m in models.items() if did != "dev1"}, cfg)
+    for prof, prio in fleet.workloads:
+        cold.submit(prof, priority=prio)
+    res = {"slo_replacement_rate": slo_rate, "evictions": len(evicted),
+           "evictions_recorded": recorded, "event_loop_errors": fleet.stats["errors"],
+           "online_equals_cold": fleet_plans_equal(plan, cold.plan()),
+           "replans": fleet.stats["replans"], "scenarios_solved": fleet.stats["scenarios_solved"]}
+    if not (slo_rate == 1.0 and recorded and evicted and not fleet.stats["errors"]
+            and res["online_equals_cold"]):
+        raise AssertionError(f"fleet recovery: bench_fleet's gate 1 fails: {res}")
+    return res
+
+
+def loose_mix(n: int, prefix: str) -> list:
+    """bench_fleet.loose_mix: loose-SLO (1.5x) workloads, alternating compute-
+    and bandwidth-leaning, demands sized off v5e capacities."""
+    out = []
+    for i in range(n):
+        u = ({"mxu": 0.40, "vpu": 0.05, "issue": 0.06, "hbm": 0.18, "l2": 0.18} if i % 2 == 0
+             else {"mxu": 0.12, "vpu": 0.04, "issue": 0.05, "hbm": 0.38, "l2": 0.38})
+        d = {r: u.get(r, 0.0) * TPU_V5E.capacity(r) for r in RESOURCE_AXES}
+        out.append(WorkloadProfile(f"{prefix}{i}", (KernelProfile(
+            f"{prefix}{i}#step", demand=d, duration=1.0),), slo_slowdown=1.5))
+    return out
+
+
+def scale_models() -> dict:
+    return {f"dev{i:03d}": (TPU_V5E if i % 2 == 0 else TPU_V5P) for i in range(SCALE_DEVICES)}
+
+
+def fleet_scale() -> dict:
+    """bench_fleet.bench_scale (gate 4): the 256-device fleet under its fixed
+    churn (per 8 mutations: 3 arrivals, 3 departures, a drain and a revive);
+    p95 devices touched a scoped repair, the gain against a cold replay of
+    the same pool, the same placed SLO set, no errors; and the replan
+    latency against a forced-full twin's."""
+    cfg = FleetConfig(max_group_size=3, queue_limit=64, heartbeat_timeout=1e9)
+    clock = FakeClock()
+    fleet = FleetScheduler(scale_models(), cfg, clock=clock)
+    init = loose_mix(SCALE_INIT, "s")
+    prios = [SLO if i % 2 == 0 else BEST_EFFORT for i in range(SCALE_INIT)]
+    for w0 in range(0, SCALE_INIT, SCALE_WAVE):
+        fleet.submit_many(list(zip(init[w0:w0 + SCALE_WAVE], prios[w0:w0 + SCALE_WAVE])))
+        clock.advance(1.0)
+    n_init = len(fleet.repairs)
+    churn, drained, ci, si = loose_mix(SCALE_CHURN, "c"), [], 0, 0
+    for m in range(SCALE_CHURN):
+        step = m % 8
+        if step in (0, 2, 4):
+            fleet.submit(churn[ci], priority=(SLO, BEST_EFFORT)[ci % 2])
+            ci += 1
+        elif step in (1, 3, 5):
+            name = init[si].name
+            si += 1
+            if name in fleet:
+                fleet.remove(name)
+        elif step == 6:
+            drained.append(f"dev{(m * 5) % SCALE_DEVICES:03d}")
+            fleet.decommission(drained[-1])
+        else:
+            fleet.heartbeat(drained.pop(0))
+        clock.advance(1.0)
+    recs = fleet.repairs[n_init:]
+    scoped = [r for r in recs if not r.full]
+    touched_p95 = float(np.percentile([r.devices_touched for r in scoped], 95)) if scoped \
+        else float("inf")
+    scoped_lat = float(np.mean([r.latency_s for r in recs]))
+    plan = fleet.plan()
+    slo_names = [p.name for p, prio in fleet.workloads if prio == SLO]
+    full_cfg = dataclasses.replace(cfg, repair_mode="full")
+    cold = FleetScheduler({did: d.model for did, d in fleet.devices.items()
+                           if d.state != "dead"}, full_cfg)
+    cold.submit_many([(p, prio) for p, prio in fleet.workloads])
+    cold_plan = cold.plan()
+    gain_ratio = plan.total_gain / cold_plan.total_gain if cold_plan.total_gain > 0 else 1.0
+    twin = FleetScheduler(scale_models(), full_cfg, clock=FakeClock())
+    twin.submit_many(list(zip(init, prios)))
+    n_twin = len(twin.repairs)
+    twin.submit(loose_mix(1, "t")[0], priority=BEST_EFFORT)
+    twin.remove(init[0].name)
+    twin.decommission("dev030")
+    full_lat = float(np.mean([r.latency_s
+                              for r in twin.repairs[n_twin:][:SCALE_FULL_MUTATIONS]]))
+    speedup = full_lat / max(scoped_lat, 1e-12)
+    res = {"devices": SCALE_DEVICES, "workloads_final": len(fleet),
+           "scoped_repairs": fleet.stats["scoped_repairs"],
+           "full_replays": fleet.stats["full_replays"],
+           "repair_fallbacks": fleet.stats["repair_fallbacks"],
+           "touched_p95": touched_p95, "touched_p95_gate": SCALE_TOUCHED_P95,
+           "gain_ratio_vs_cold": gain_ratio, "divergence_epsilon": cfg.divergence_epsilon,
+           "slo_replacement_rate": plan.placement_rate(slo_names),
+           "slo_sets_match": ({n for n in slo_names if n in plan.placed}
+                              == {n for n in slo_names if n in cold_plan.placed}),
+           "event_loop_errors": fleet.stats["errors"],
+           "scoped_mean_latency_ms": scoped_lat * 1e3, "full_mean_latency_ms": full_lat * 1e3,
+           "replan_speedup": speedup, "reference_speedup_gate": SCALE_SPEEDUP,
+           "speedup_gate_held": speedup >= SCALE_SPEEDUP}
+    if not (touched_p95 <= SCALE_TOUCHED_P95 and gain_ratio >= 1.0 - cfg.divergence_epsilon
+            and res["slo_replacement_rate"] == 1.0 and res["slo_sets_match"]
+            and not fleet.stats["errors"]):
+        raise AssertionError(f"fleet scale: bench_fleet's gate 4 fails: {res}")
+    return res
+
+
+def check_cache_share_at(shapes, rng) -> list:
+    """``cache_share`` against its plain version, bit for bit, and timed at
+    each (bucket, K) that the fleet's solves hit, with a row at the cliff."""
+    out = []
+    for S, K in shapes:
+        ws = rng.random((S, K)) * rng.choice([0.3, 1.0, 2.0], size=(S, 1)) * H100.cache_capacity
+        ws[0, :2] = H100.cache_capacity / 2
+        present = rng.random((S, K)) < 0.85
+        present[0] = True
+        w, p = torch.from_numpy(np.where(present, ws, 0.0)).to(DEV), torch.from_numpy(present).to(DEV)
+        check_exact(f"cache_share ({S}, {K}) fleet", cs_mod.cache_share(w, p, H100.cache_capacity),
+                    cs_mod.cache_share_plain(w, p, H100.cache_capacity))
+        out.append(time_cache_share(rng, S, K))
+    return out
+
+
+def phase_fleet(records: dict) -> None:
+    """The colocation scheduler, the fleet, the trace simulator and the drift
+    monitor with every price on the torch solver on the card: (a) the
+    reference's gate trace on its v5e / v5p fleet, (b) the same trace with
+    its tenants and its 12 devices on the H100 model, (c) bench_fleet's
+    recovery and scale traces. Every torch solve is a replay of a captured
+    step with one ``cache_share`` launch."""
+    runs = []
+    hetero = {f"dev{i}": (TPU_V5E if i % 2 == 0 else TPU_V5P) for i in range(GATE_DEVICES)}
+    traces = [trace_gates("gate_trace", TPU_V5E, hetero, runs, gate_attainment=True),
+              trace_gates("h100_trace", H100, {f"dev{i}": H100 for i in range(GATE_DEVICES)},
+                          runs, gate_attainment=False)]
+    recovery, rec = fleet_run("recovery", "torch", fleet_recovery)
+    runs.append(rec)
+    scale, rec = fleet_run("scale", "torch", fleet_scale)
+    runs.append(rec)
+    for r in runs:
+        emit(phase="fleet_run", **r)
+    # the solver's steps are keyed by (bucket, K, device model): bounded by
+    # the models of the fleets times the buckets and widths they hit
+    keys = {(b, k, m) for r in runs for b, k, m in
+            ((s["bucket"], s["K"], s["model"]) for s in r["shapes"])}
+    models = {m for _, _, m in keys}
+    if not models <= {TPU_V5E.name, TPU_V5P.name, H100.name} or any(k > 3 for _, k, _ in keys):
+        raise AssertionError(f"fleet: solves outside the fleets' models and widths: {keys}")
+    torch_runs = [r for r in runs if r["backend"] == "torch"]
+    launches = sum(r["cache_share_launches"] for r in torch_runs)
+    by_shape = {}
+    for r in torch_runs:
+        for s in r["shapes"]:
+            key = f"({s['bucket']}, {s['K']}) {s['model']}"
+            by_shape[key] = by_shape.get(key, 0) + s["solves"]
+    shapes = sorted({(b, k) for b, k, _ in keys})
+    def totals(field):
+        return {b: sum(r[field] for r in runs if r["backend"] == b) for b in ("numpy", "torch")}
+
+    records["cache_share"]["launches_fleet"] = launches
+    records["cache_share"]["launches_fleet_by_shape"] = by_shape
+    records["cache_share"]["fleet"] = check_cache_share_at(shapes, np.random.default_rng(7))
+    records["cache_share"]["max_abs_err_fleet"] = 0.0
+    emit(phase="fleet", traces=traces, recovery=recovery, scale=scale,
+         solves=totals("solves"), scenarios=totals("scenarios"),
+         ms_per_solve={b: totals("solve_s")[b] / max(totals("solves")[b], 1) * 1e3
+                       for b in ("numpy", "torch")},
+         wall_s={r["run"]: r["wall_s"] for r in runs}, wall_s_total=totals("wall_s"),
+         graph_keys=len(keys),
+         solver_graphs=sum(s.graph is not None for s in estimator_torch.captured_steps()),
+         cache_share_launches=launches, cache_share_launches_by_shape=by_shape)
+
+
+# --------------------------------------------------------------------- #
 #  phases 8 and 9: the model facade at full width (falcon-mamba, zamba2) #
 # --------------------------------------------------------------------- #
 def facade_weights(cfg):
@@ -2713,6 +3143,10 @@ def main() -> int:
     emit(phase="solver_done", seconds=time.perf_counter() - t0)
     del params
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_fleet(records)
+    emit(phase="fleet_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     phase_falcon_mamba(records)

@@ -22,7 +22,7 @@ class StragglerMonitor:
     ``clock`` stamps detection events; it defaults to ``time.monotonic``
     (wall-clock ``time.time`` would let NTP jumps skew event timelines)
     and is injectable so tests and the fault-injection harness
-    (a fault-injection harness) run on a deterministic virtual clock.
+    (repro_torch.ft.inject) run on a deterministic virtual clock.
     """
 
     def __init__(self, factor: float = 3.0, alpha: float = 0.2,
@@ -65,7 +65,7 @@ class HeartbeatTracker:
 
     Timeout math runs on ``clock`` — ``time.monotonic`` by default, so an
     NTP step on the controller can never mass-declare workers dead — and
-    the clock is injectable (tests and a fault-injection harness pass a virtual
+    the clock is injectable (tests / repro_torch.ft.inject pass a virtual
     clock, so no test ever sleeps).  An explicit ``now`` always wins,
     including ``now=0.0`` (the old ``now or time.time()`` treated a zero
     timestamp as "unset").
