@@ -5,13 +5,23 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, times them at the shapes their paths
-give them, and drives eleven paths, counting the kernels' launches on each:
+give them, and drives twelve paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
     continuous-batching engine (rmsnorm, flash_attention, flash_decode),
     whose decode and extend steps replay CUDA graphs captured when the
     engine is built (``repro_torch.graphs``), against the same serve on the
     steps' bodies run uncaptured;
+  * the dry run: ``launch/dryrun`` counts qwen3-1.7b and llama3.1-8b at
+    full width and depth on ``meta`` tensors on the host (train_4k,
+    prefill_32k, decode_32k and the engine's decode step; the card's
+    memory must not move), llama3.1-8b (the paper's §4.2/§4.3 decode
+    workload, 16.06 GB) is served as qwen3-1.7b is, each engine-shape
+    record predicts its decode replay on the H100 model beside the
+    measured one (its products held to the hand count), and
+    ``launch/profile``'s entry point prices every record on the card (the
+    torch solver, one cache_share launch a solve) and, with one explicit
+    search, on NumPy and on the card, with the same plan;
   * interference: the paper's §4 measure → fit → validate loop, the four
     stressor kernels on their own CUDA streams beside two full-width
     attention victims replayed from CUDA graphs
@@ -83,6 +93,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import shutil
 import statistics
@@ -110,7 +121,7 @@ from repro_torch.core import estimator_torch  # noqa: E402
 from repro_torch.core import scheduler as scheduler_mod  # noqa: E402
 from repro_torch.core.fleet import BEST_EFFORT, SLO, FleetConfig, FleetScheduler  # noqa: E402
 from repro_torch.core.fracsearch import FractionSearchConfig  # noqa: E402
-from repro_torch.core.profile import KernelProfile, WorkloadProfile  # noqa: E402
+from repro_torch.core.profile import KernelProfile, WorkloadProfile, from_dryrun_json  # noqa: E402
 from repro_torch.core.backend import get_solver_device, solver_backend  # noqa: E402
 from repro_torch.core.estimator import solve_scenarios  # noqa: E402
 from repro_torch.core.resources import H100, RESOURCE_AXES, TPU_V5E, TPU_V5P  # noqa: E402
@@ -122,7 +133,9 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.kernels import ssm_scan as ssm_mod  # noqa: E402
 from repro_torch.kernels import stressors as st_mod  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
 from repro_torch.launch import gpu_native  # noqa: E402
+from repro_torch.launch import profile as profile_mod  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -558,10 +571,10 @@ def time_flash_decode(rng, kv_len, label, B=8, H=16, KVH=8, D=128, T=1025) -> di
             "bound_ms": b_ms, "bound_by": by}
 
 
-def time_flash_attention(rng, S, pos0, KVH=8) -> dict:
-    """S queries at pos0 over slot 3 of L caches (8 x 1,025 positions; 16
+def time_flash_attention(rng, S, pos0, KVH=8, H=16) -> dict:
+    """S queries at pos0 over slot 3 of L caches (8 x 1,025 positions; H
     query heads of 128 over ``KVH``), qwen3-1.7b's by default."""
-    B, H, D, L = 1, 16, 128, 4
+    B, D, L = 1, 128, 4
     ck, cv = path_cache(rng, L, 8, 1025, KVH, D, BF)
     q = randn(rng, (B, S, H, D), BF)
     T = pos0 + S
@@ -590,19 +603,20 @@ def time_flash_attention(rng, S, pos0, KVH=8) -> dict:
             "bound_ms": b_ms, "bound_by": by}
 
 
-def time_flash_attention_offsets(rng, pos0, KVH=8) -> dict:
+def time_flash_attention_offsets(rng, pos0, KVH=8, H=16) -> dict:
     """Row 2 on the captured extend step's path: 128 queries at pos0 with
     slot, pos0 and c read from device memory over the whole cache (8 slots
     x 1,025 positions, the splits planned for 1,025 keys), beside the
     integer-offset call over the slot's view, in the same run."""
-    S, H, D, L, slot = 128, 16, 128, 4, 3
+    S, D, L, slot = 128, 128, 4, 3
     ck, cv = path_cache(rng, L, 8, 1025, KVH, D, BF)
     q = randn(rng, (1, S, H, D), BF)
     off = torch.tensor([slot, pos0, S], device=DEV)
     T = pos0 + S
     pairs = sum(min(T, s + pos0 + 1) for s in range(S))
     b_ms, by = bound((2 * q.numel() + 2 * T * KVH * D) * 2, 4 * pairs * H * D, BF)
-    return {"shape": f"S={S} c={S} pos0={pos0} over a (8, 1025, {KVH}, {D}) cache, device offsets",
+    return {"shape": f"S={S} c={S} pos0={pos0} H={H} over a (8, 1025, {KVH}, {D}) cache, "
+                     "device offsets",
             "dtype": "bfloat16",
             **time_ms(lambda i: fa_mod.flash_attention(q, ck[i], cv[i], "causal", offsets=off), L),
             "integer_offset_ms": time_ms(lambda i: fa_mod.flash_attention(
@@ -1106,8 +1120,9 @@ def padding(eng) -> dict:
             "padding_share_of_rows": (rows - real) / rows if rows else 0.0}
 
 
-def phase_serve_full(records: dict) -> dict:
-    """Returns the model's parameters, which the solver phase serves again."""
+def phase_serve_full(records: dict) -> tuple:
+    """Returns the model's parameters, which the solver phase serves again,
+    and the profiles of its decode and extend replays."""
     cfg = get_config("qwen3-1.7b")
     L, max_new = cfg.n_layers, 32
     gen = torch.Generator(device=DEV)
@@ -1140,7 +1155,7 @@ def phase_serve_full(records: dict) -> dict:
     emit(phase="serve_full_logits", max_abs_err=errs,
          tolerance={"rtol": 0.15, "atol": 0.3})
     emit(phase="step_profile", **profiles)
-    return params
+    return params, profiles
 
 
 def serve_checked(cfg, ecfg, prompts, max_new, params) -> dict:
@@ -1439,6 +1454,216 @@ def read_trace(prof, wall_ms: float, step=None, n: int = 4) -> dict:
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "kernels_per_step": sum(c for _, c in kernels.values()) / n,
             "top_kernels_ms_per_step": {name[:60]: round(t / 1e3 / n, 4) for name, (t, _) in top}}
+
+
+# --------------------------------------------------------------------- #
+#  the dry run: counts on the host, llama3.1-8b served, the plan priced  #
+# --------------------------------------------------------------------- #
+DRYRUN_MODELS = ("qwen3-1.7b", "llama3.1-8b")
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", dryrun_mod.ENGINE_DECODE)
+DRYRUN_DIR = Path(__file__).resolve().parent / "results" / "dryrun_torch_smoke"
+FLOP_GATE = 1e-3                   # the engine-shape record against the hand count
+PRICE_TOL = 1e-9                   # the torch solver against NumPy
+LLAMA_NORMS = [(128, 4096), (8, 4096)]   # a chunk, a decode step
+
+
+def hand_decode_flops(cfg, B: int, T: int) -> float:
+    """One decode step's products by hand: 2 B x (the products' weight
+    elements: q, k, v, o, the gated MLP's three, and the unembedding) +
+    4 B H D T L for attention over the whole cache of T rows."""
+    a = cfg.attn
+    per_layer = (cfg.d_model * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim
+                 + a.n_heads * a.head_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
+    weights = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_size
+    return 2.0 * B * weights + 4.0 * B * a.n_heads * a.head_dim * T * cfg.n_layers
+
+
+def count_cells() -> dict:
+    """Every cell of ``DRYRUN_SHAPES`` of both models counted on ``meta``
+    by ``launch/dryrun.run_cell`` into ``DRYRUN_DIR``: its host seconds, and
+    the gate that the card's allocated memory does not move while it
+    counts. Returns {(arch, shape): record}."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    recs = {}
+    for arch in DRYRUN_MODELS:
+        for shape in DRYRUN_SHAPES:
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            rec = dryrun_mod.run_cell(arch, shape, results=DRYRUN_DIR)
+            host_s = time.perf_counter() - t0
+            moved = torch.cuda.memory_allocated() - before
+            name = rec["shape"]
+            if moved:
+                raise AssertionError(f"dryrun {arch} {name}: the card's allocated memory "
+                                     f"moved by {moved} bytes while counting on meta")
+            emit(phase="dryrun_cell", arch=arch, shape=name, host_s=host_s,
+                 count_s=rec["compile_s"], aten_calls=rec["hlo_size_chars"],
+                 hlo_exec=rec["hlo_exec"], memory=rec["memory"], run=rec["run"],
+                 cuda_allocated_moved_bytes=moved)
+            recs[(arch, name)] = rec
+    return recs
+
+
+def check_llama_kernels(rng, H, KVH, D) -> dict:
+    """The three kernels of the llama3.1-8b serve against their plain
+    versions at its shapes: the norms of a chunk and a decode step,
+    ``flash_attention`` with device offsets over the engine's cache (8
+    slots x 1,025 positions) at the path's chunks, and ``flash_decode``
+    over that cache at a decode batch's mixed lengths, G 4."""
+    errs = {"rmsnorm": 0.0, "flash_attention": 0.0}
+    for shape in LLAMA_NORMS:
+        x, s = randn(rng, shape, BF), randn(rng, (shape[-1],), F32)
+        errs["rmsnorm"] = max(errs["rmsnorm"], check_close(
+            f"rmsnorm{shape} llama", rms_mod.rmsnorm(x, s), rms_mod.rmsnorm_plain(x, s), BF))
+    ck, cv = path_cache(rng, 1, 8, 1025, KVH, D, BF)
+    for S, c, pos0 in ((128, 128, 0), (128, 128, 512), (128, 100, 900), (16, 1, 40)):
+        q = randn(rng, (1, S, H, D), BF)
+        off = torch.tensor([3, pos0, c], device=DEV)
+        errs["flash_attention"] = max(errs["flash_attention"], check_attention(
+            f"flash_attention llama offsets pos0 {pos0} c {c}",
+            fa_mod.flash_attention(q, ck[0], cv[0], "causal", offsets=off),
+            fa_mod.flash_attention_plain(q, ck[0], cv[0], "causal", offsets=off), BF))
+    q = randn(rng, (8, 1, H, D), BF)
+    lens = torch.tensor(MIXED_LENS, device=DEV)
+    errs["flash_decode"] = check_attention(
+        "flash_decode llama", dec_mod.flash_decode(q, ck[0], cv[0], lens),
+        dec_mod.flash_decode_plain(q, ck[0], cv[0], lens), BF)
+    return errs
+
+
+def serve_llama(records: dict) -> dict:
+    """llama3.1-8b at full width and depth (32 layers, d_model 4,096, 32 / 8
+    heads of 128, vocab 128,256; seeded random bf16 weights, 16.06 GB)
+    served through the engine with the qwen3 mix under ``serve_checked``'s
+    gates, its steps' logits against the plain versions, the profiles of a
+    decode and an extend replay; then its three kernels at its shapes.
+    Returns the step profiles."""
+    cfg = get_config("llama3.1-8b")
+    a, L = cfg.attn, cfg.n_layers
+    m, params, weights = facade_weights(cfg)
+    emit(phase="llama_weights", n_params_by_config=cfg.n_params(), **weights)
+    prompts = serve_prompts(cfg, np.random.default_rng(0))
+    stats = serve_checked(cfg, EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128),
+                          prompts, 32, params)
+    emit(phase="llama_serve", config=cfg.name, **stats)
+    for name in SERVING:
+        records[name]["launches_llama31_8b"] = stats["launches"][name]
+    records["rmsnorm"]["launches_llama31_8b_per_step"] = 2 * L + 1
+    eng = Engine(cfg, params=params, ecfg=EngineConfig(max_slots=8, max_len=1024), device=DEV)
+    errs, profiles, _ = step_logits_and_profiles(eng, np.random.default_rng(0))
+    del eng, m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="llama_serve_logits", max_abs_err=errs, tolerance={"rtol": 0.15, "atol": 0.3})
+    emit(phase="llama_step_profile", **profiles)
+    rng = np.random.default_rng(4)
+    kerr = check_llama_kernels(rng, a.n_heads, a.n_kv_heads, a.head_dim)
+    kvh, H = a.n_kv_heads, a.n_heads
+    times = {
+        "rmsnorm": [time_rmsnorm(rng, (1, 128, cfg.d_model)), time_rmsnorm(rng, (8, 1, cfg.d_model))],
+        "flash_attention": [time_flash_attention(rng, 128, 512, KVH=kvh, H=H),
+                            time_flash_attention_offsets(rng, 512, KVH=kvh, H=H)],
+        "flash_decode": [time_flash_decode(rng, MIXED_LENS,
+                                           f"B=8 H={H} KVH={kvh} D={a.head_dim} G={H // kvh} "
+                                           "T=1025 mixed", H=H, KVH=kvh)],
+    }
+    # the serve's launches at each timed shape (serve_checked's ``want``):
+    # the norms of the extend chunks and of the decode steps, attention
+    # in the extend step's device-offset form, decode attention
+    n_dec, n_ext = stats["decode_steps"], stats["prefill_chunks"]
+    for t, n in zip(times["rmsnorm"] + times["flash_attention"] + times["flash_decode"],
+                    ((2 * L + 1) * n_ext, (2 * L + 1) * n_dec, 0, L * n_ext, L * n_dec)):
+        t["launches"] = n
+    emit(phase="llama_kernels", max_abs_err=kerr, tolerance={"bfloat16": TOL[BF]}, times=times)
+    for name in SERVING:
+        records[name]["max_abs_err_llama31_8b"] = kerr[name]
+        records[name]["llama31_8b"] = times[name]
+    return profiles
+
+
+def predictions(recs: dict, measured: dict) -> dict:
+    """Each model's engine-shape decode record as a profile
+    (``from_dryrun_json``), its ``isolated_time`` on the ``H100`` model
+    beside the measured replay's device time; the record's products
+    against the hand count (the gate, ``FLOP_GATE``)."""
+    out = {}
+    shape = dryrun_mod.ENGINE_DECODE
+    for arch in DRYRUN_MODELS:
+        rec = recs[(arch, shape.name)]
+        want = hand_decode_flops(get_config(arch), shape.global_batch, shape.seq_len)
+        got = rec["hlo_exec"]["mxu_flops"]
+        if abs(got - want) > FLOP_GATE * want:
+            raise AssertionError(f"dryrun {arch}: the decode record's mxu_flops {got:.6g} "
+                                 f"against the hand count {want:.6g}")
+        prof = from_dryrun_json(rec)
+        predicted_ms = prof.isolated_time(H100) * 1e3
+        busy = measured[arch].get("device_busy_ms")
+        out[arch] = {"mxu_flops": got, "hand_count": want, "rel_err": got / want - 1,
+                     "hbm_bytes": rec["hlo_exec"]["hbm_bytes"],
+                     "bottleneck_on_h100_model": prof.bottleneck(H100),
+                     "predicted_ms_h100_model": predicted_ms,
+                     "measured_replay_device_ms": busy, "measured_replay_wall_ms":
+                     measured[arch].get("wall_ms"),
+                     "measured_over_predicted": (busy / predicted_ms
+                                                 if isinstance(busy, float) else "not measured")}
+    return out
+
+
+def price_records() -> dict:
+    """``launch/profile``'s entry point over the phase's records. First as a
+    user runs it, ``main(["--plan"])``: the torch solver on the card with
+    its default search, every solve a replay with one ``cache_share``
+    launch (``fleet_run``'s gate). Then with one explicit fraction search
+    (the NumPy backend's default), ``--backend numpy`` and the default
+    torch: the same bottlenecks, rankings and placements, scores and the
+    plan's numbers within ``PRICE_TOL``."""
+    profs = profile_mod.load_profiles(results=DRYRUN_DIR)
+    argv = ["--plan", "--results", str(DRYRUN_DIR)]
+    printed = {}
+
+    def run(name, extra=(), search=None):
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            fps, plan = profile_mod.main(argv + list(extra), search=search)
+        printed[name] = text.getvalue()
+        return ([[phase, neck, {a: float(v) for a, v in scores.items()}, list(ranked)]
+                 for phase, neck, scores, ranked in fps],
+                [[list(p.workloads), {k: float(v) for k, v in p.slot_fraction.items()},
+                  {k: float(v) for k, v in p.predicted_slowdown.items()}, bool(p.meets_slo),
+                  float(p.throughput_gain)] for p in plan.placements], list(plan.solo))
+
+    search = FractionSearchConfig()
+    (_, rec_main) = fleet_run("dryrun_profile_main", "torch", lambda: run("main"))
+    (want, rec_np) = fleet_run("dryrun_profile_numpy", "numpy",
+                               lambda: run("numpy", ("--backend", "numpy"), search))
+    (got, rec_t) = fleet_run("dryrun_profile_torch", "torch", lambda: run("torch", (), search))
+    values_close(got, want, PRICE_TOL, "dryrun profile")
+    fps, placements, solo = got
+    return {"profiles": len(profs), "fingerprints": [
+                {"phase": n, "bottleneck": b, "top4": r[:4],
+                 "scores": {a: s[a] for a in r[:4]}} for n, b, s, r in fps],
+            "placements": [{"workloads": w, "predicted_slowdown": sl, "meets_slo": ok,
+                            "gain": g} for w, _, sl, ok, g in placements], "solo": solo,
+            "main": rec_main, "main_printed": printed["main"].splitlines(),
+            "numpy": rec_np, "torch": rec_t, "equal_at": PRICE_TOL}
+
+
+def phase_dryrun(records: dict, qwen3_profiles: dict) -> None:
+    """The parallel and launch layers' card path. (a) ``launch/dryrun``
+    counts qwen3-1.7b and llama3.1-8b at full width and depth on ``meta``,
+    on the host, in each of their cells and at the engine's decode shape;
+    (b) llama3.1-8b is served on the card, its decode replay profiled; (c)
+    each engine-shape record, as a profile, predicts its decode step's
+    time on the ``H100`` model beside the measured replay; (d)
+    ``launch/profile`` prices every record on the torch solver and on
+    NumPy."""
+    recs = count_cells()
+    measured = {"qwen3-1.7b": qwen3_profiles["decode"],
+                "llama3.1-8b": serve_llama(records)["decode"]}
+    emit(phase="dryrun_prediction", device_model=H100.name, **predictions(recs, measured))
+    priced = price_records()
+    records["cache_share"]["launches_dryrun_profile"] = priced["main"]["cache_share_launches"]
+    emit(phase="dryrun_profile", **priced)
 
 
 # what the resident blocks of one H100 SM share (CUDA C programming guide,
@@ -3127,8 +3352,14 @@ def main() -> int:
     emit(phase="serve_small_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    params = phase_serve_full(records)
+    params, qwen3_profiles = phase_serve_full(records)
     emit(phase="serve_full_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_dryrun(records, qwen3_profiles)
+    emit(phase="dryrun_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     phase_residency()
@@ -3194,6 +3425,10 @@ def main() -> int:
         rec["floor_us"] = floor_us
         rec["launches_x_gap_ms"] = rec["launches"] * max(
             0.0, rec["ms"] - max(rec["bound_ms"], floor_us / 1e3))
+        if "llama31_8b" in rec:     # the llama3.1-8b serve, each timed shape by its launches
+            rec["launches_x_gap_ms_llama31_8b"] = sum(
+                t["launches"] * max(0.0, t["ms"] - max(t["bound_ms"], floor_us / 1e3))
+                for t in rec["llama31_8b"])
     emit(kernels=list(records.values()))
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,13 @@ axis (FLOPs, bytes, instructions); ``utilization(dev)`` converts to the
 fraction of each axis consumed while the kernel runs at full speed, which
 is what the interference estimator consumes.
 
-Profiles come from two sources here:
+Profiles come from three sources here:
   * ``analytic_*``: closed-form profiles of the microbenchmark stressors;
   * the serve engine's analytic per-phase profiles
-    (``repro_torch.serve.engine.Engine._phase_profile``).
+    (``repro_torch.serve.engine.Engine._phase_profile``);
+  * the dry run's executed counts (``from_hlo_stats`` over a
+    ``repro_torch.core.hlo.ModuleStats``, ``from_dryrun_json`` over a
+    record of ``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -236,8 +239,49 @@ class ProfileMatrix:
 
 
 # --------------------------------------------------------------------- #
-#  Analytic profiles                                                     #
+#  Builders                                                              #
 # --------------------------------------------------------------------- #
+# instructions per unit of work on TPU: one MXU issue drives a 128x128x8
+# systolic pass (~2.6e5 flops); one VPU issue drives 8x128 lanes x2 (fma)
+_MXU_FLOPS_PER_ISSUE = 128 * 128 * 8 * 2
+_VPU_FLOPS_PER_ISSUE = 8 * 128 * 2
+
+
+def _issue_demand(mxu_flops: float, vpu_flops: float) -> float:
+    return (mxu_flops / _MXU_FLOPS_PER_ISSUE
+            + vpu_flops / _VPU_FLOPS_PER_ISSUE)
+
+
+def from_hlo_stats(name: str, stats, n_devices: int = 1) -> KernelProfile:
+    """Build a per-device phase profile from repro_torch.core.hlo.ModuleStats."""
+    return KernelProfile(
+        name=name,
+        demand={
+            "mxu": stats.mxu_flops,
+            "vpu": stats.vpu_flops,
+            "issue": _issue_demand(stats.mxu_flops, stats.vpu_flops),
+            "hbm": stats.hbm_bytes,
+            "l2": stats.hbm_bytes,
+            "smem": stats.mxu_flops / 9.0,     # MXU operand re-streaming
+            "ici": stats.collective_bytes,
+        })
+
+
+def from_dryrun_json(rec: dict, name: Optional[str] = None) -> KernelProfile:
+    h = rec["hlo_exec"]
+    return KernelProfile(
+        name=name or f"{rec['arch']}:{rec['shape']}",
+        demand={
+            "mxu": h["mxu_flops"],
+            "vpu": h["vpu_flops"],
+            "issue": _issue_demand(h["mxu_flops"], h["vpu_flops"]),
+            "hbm": h["hbm_bytes"],
+            "l2": h["hbm_bytes"],
+            "smem": h["mxu_flops"] / 9.0,
+            "ici": rec["collectives"]["total_bytes"],
+        })
+
+
 def analytic_matmul(name: str, m: int, n: int, k: int, dtype_bytes: int = 2,
                     iters: int = 1) -> KernelProfile:
     flops = 2.0 * m * n * k * iters

@@ -10,8 +10,8 @@ and the useful-compute ratio MODEL_FLOPS / HLO_FLOPs (remat/redundancy).
 
 The records follow the JSON schema of the reference package's dry run
 (``src/repro/launch/dryrun.py``); this package's writer of that schema is
-still to come, and this reader is carried over unchanged so that it finds
-its consumer in place.
+``repro_torch.launch.dryrun``, whose one-device records (``dev1``) this
+reader takes as they are.
 """
 from __future__ import annotations
 

@@ -18,9 +18,12 @@ import torch
 
 
 def needs_grad(*inputs: Optional[torch.Tensor]) -> bool:
-    """Grad mode is on and some input requires grad."""
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                           for t in inputs)
+    """Grad mode is on and some input requires grad, on the CPU or the
+    card. On ``meta`` (the dry run's count) there is no kernel: the wrapper
+    runs its plain version and autograd differentiates it as it stands,
+    as the reference's autodiff runs over its jnp code (no recompute)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad and t.device.type != "meta" for t in inputs)
 
 
 class KernelFunction(torch.autograd.Function):

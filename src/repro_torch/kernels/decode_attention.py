@@ -80,8 +80,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_len: torch.Tensor) -> torch.Tensor:
     """q: (B, 1, H, D); k, v: (B, T, KVH, D), possibly strided views of the
     cache; kv_len: (B,) int32 or int64 tensor, each >= 1. A tensor on the
-    CPU takes the plain version; a CUDA tensor launches the kernels or
-    raises. Where q, k or v requires grad (and grad mode is on), the three
+    CPU takes the plain version, and so does one on ``meta`` (shapes only:
+    the dry run's count); a CUDA tensor launches the kernels or raises. Where q, k or v requires grad (and grad mode is on), the three
     get the plain version's gradients."""
     if _grad.needs_grad(q, k, v):
         return _grad.KernelFunction.apply(
@@ -91,7 +91,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _forward(q, k, v, kv_len):
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_decode_plain(q, k, v, kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")

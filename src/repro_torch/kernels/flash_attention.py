@@ -133,7 +133,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, S, H, D); k, v: (B, T, KVH, D), possibly strided views, or
     with ``offsets`` (a device int64 tensor ``[slot, pos0, c]``, q_offset 0)
     the whole cache, of which rows ``slot .. slot + B - 1`` are read. A
-    tensor on the CPU takes the plain version; a CUDA tensor launches the
+    tensor on the CPU takes the plain version, and so does one on ``meta``
+    (shapes only: the dry run's count); a CUDA tensor launches the
     kernel or raises. ``kv_splits`` overrides the plan's split of the keys
     (bf16 only; 0: the plan's own). Where q, k or v requires grad (and grad
     mode is on), the three get the plain version's gradients; the
@@ -150,7 +151,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _forward(q, k, v, kind, window, q_offset, kv_splits, offsets=None):
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, kind, window, q_offset, offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")

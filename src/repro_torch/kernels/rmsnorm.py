@@ -27,7 +27,8 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
     """x: (..., d) bf16 or f32; scale: (d,). A tensor on the CPU takes the
-    plain version; a CUDA tensor launches the kernel or raises. Where x or
+    plain version, and so does one on ``meta`` (shapes only: the dry run's
+    count); a CUDA tensor launches the kernel or raises. Where x or
     scale requires grad (and grad mode is on), both get gradients, those of
     the plain version."""
     if _grad.needs_grad(x, scale):
@@ -38,7 +39,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 
 
 def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return rmsnorm_plain(x, scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm: unsupported device {x.device}")

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch._loops import steps
 from repro_torch.kernels import _build, _grad
 
 MAX_STATE = 16        # most states per channel the kernel is built for
@@ -40,13 +41,13 @@ def ssm_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dt, A, B, C, xf = dt.float(), A.float(), B.float(), C.float(), x.float()
     h = (torch.zeros((Bb, di, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float().clone())
-    ys = []
-    for t in range(S):
+    ys, loop = [], steps(S, x.device)      # two steps for all S when counted
+    for t in loop:
         dA = torch.exp(dt[:, t, :, None] * A)
         dBx = (dt[:, t] * xf[:, t])[..., None] * B[:, t, None, :]
         h = dA * h + dBx
-        ys.append((h * C[:, t, None, :]).sum(-1))
-    y = torch.stack(ys, 1)
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    y = loop.stack(ys, 1)
     if out_state is not None:
         out_state.copy_(h)
         h = out_state
@@ -62,7 +63,8 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (Bb, S, N) f32; h0 (Bb, di, N) f32 or None. Returns (y f32, hT); hT is
     written into ``out_state`` (a contiguous f32 (Bb, di, N) tensor, which
     may be ``h0``) when it is given. A tensor on the CPU takes the plain
-    version; a CUDA tensor launches the kernel or raises. Where an input
+    version, and so does one on ``meta`` (shapes only: the dry run's
+    count); a CUDA tensor launches the kernel or raises. Where an input
     requires grad (and grad mode is on), x, dt, A, B, C and h0 get the
     plain version's gradients; ``out_state``, written in place by the
     decode and prefill-state paths, then raises."""
@@ -76,7 +78,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _forward(x, dt, A, B, C, h0=None, out_state=None):
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ssm_scan_plain(x, dt, A, B, C, h0, out_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan: unsupported device {x.device}")

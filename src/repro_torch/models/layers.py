@@ -131,7 +131,7 @@ def _mm_out_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b of one type, accumulated in f32 and returned in f32."""
     if a.dtype == torch.float32:
         return a @ b
-    if a.device.type == "cuda":
+    if a.device.type in ("cuda", "meta"):
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
@@ -167,7 +167,7 @@ def _mm_f32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     f32 result directly, through ``_MmF32`` for its gradient."""
     if x2.dtype == torch.float32:
         return x2 @ w
-    if x2.device.type == "cuda":
+    if x2.device.type in ("cuda", "meta"):      # meta: the card's product, counted
         return _MmF32.apply(x2, w)
     return x2.float() @ w.float()
 

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN with sort-based grouped dispatch: the local
-(single-device) path of ``src/repro/models/moe.py``.
+"""Mixture-of-Experts FFN with sort-based grouped dispatch: the twin of
+``src/repro/models/moe.py``.
 
 Each token is routed to its top-k experts by an f32 router. The (token,
 expert) assignments are sorted by expert with a stable sort, as
@@ -7,8 +7,17 @@ expert) assignments are sorted by expert with a stable sort, as
 capacity buffer ``(E, cap, d)`` with one trash row beyond it for the
 dropped ones; the expert FFNs run as three batched products over the
 buffer; and each token sums its kept contributions, weighted by its gates.
-Expert parallelism (the reference's ``moe_ffn`` over a mesh) is not ported
-(ROADMAP A10), so nothing here takes a ``ParallelContext``.
+
+Two entry points share that math, as in the reference:
+  ``moe_ffn_local``  — single-device path (E_local = E);
+  ``moe_ffn``        — expert parallelism over a ``ParallelContext``: each
+                       rank of the model axis routes every token of its
+                       data shard, dispatches only to its ``E / n_model``
+                       local experts, and the partial outputs are summed
+                       with an ``all_reduce`` over the model axis (no
+                       token all-to-all). The model's stacks call the local
+                       path; the sharded forward that would thread a
+                       context through them is ROADMAP A10b.
 
 Nothing here waits for the host or takes a shape from the data (no
 ``.item()``, no ``nonzero``, no boolean-mask indexing): the engine captures
@@ -26,13 +35,39 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, _normal, dense_init, mlp
+
+
+class ParallelContext(NamedTuple):
+    """How model-internal collectives see the mesh (a ``DeviceMesh`` with
+    dim names). mesh=None => local."""
+    mesh: Optional[object] = None
+    data_axes: Tuple[str, ...] = ()
+    model_axis: Optional[str] = None
+
+    def _size(self, axis: str) -> int:
+        return int(self.mesh.shape[self.mesh.mesh_dim_names.index(axis)])
+
+    @property
+    def n_model_shards(self) -> int:
+        if self.mesh is None or self.model_axis is None:
+            return 1
+        return self._size(self.model_axis)
+
+    @property
+    def n_data_shards(self) -> int:
+        if self.mesh is None:
+            return 1
+        return math.prod(self._size(a) for a in self.data_axes) or 1
+
+
+LOCAL_CTX = ParallelContext()
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16) -> Params:
@@ -166,6 +201,42 @@ def moe_ffn_local(p: Params, cfg: ModelConfig, x: torch.Tensor,
     out = _dispatch_compute_combine(xf, gates, ids, p["w_gate"], p["w_up"], p["w_down"],
                                     cap, cfg.act if cfg.act != "geglu" else "gelu",
                                     n_real, cap_real)
+    if cfg.moe.n_shared_experts:       # one MLP, silu whatever cfg.act is, as in the reference
+        out = out + mlp(p["shared"], xf, "silu")
+    return out.reshape(B, S, d), aux
+
+
+def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ParallelContext):
+    """Expert parallelism over ``ctx.model_axis``. x (B, S, d): this rank's
+    data shard; the experts' weights whole (E, ...), of which this rank
+    reads its slice. Every rank of the model axis holds the same
+    x, routes all its tokens, and computes the contributions of its local
+    experts ``[idx * n_local, (idx + 1) * n_local)`` with the capacity of
+    its B * S tokens; the partial outputs are summed over the model axis
+    (``all_reduce``, differentiable), the shared experts added, and aux
+    averaged over the model and data axes. With ``ctx.mesh`` None, or one
+    model shard, this is ``moe_ffn_local``."""
+    if ctx.mesh is None or ctx.n_model_shards == 1:
+        return moe_ffn_local(p, cfg, x)
+    from torch.distributed.nn import functional as dist_fn
+    B, S, d = x.shape
+    E = cfg.moe.n_experts
+    n_model = ctx.n_model_shards
+    assert E % n_model == 0, f"experts {E} not divisible by model axis {n_model}"
+    n_local = E // n_model
+    lo = ctx.mesh.get_local_rank(ctx.model_axis) * n_local
+    cap = capacity(B * S, cfg)
+    act = cfg.act if cfg.act != "geglu" else "gelu"
+    xf = x.reshape(-1, d)
+    gates, ids, aux = _route(p["router"], xf, cfg)
+    # the other ranks' experts go to this rank's drop bucket, n_local
+    local_ids = torch.where((ids >= lo) & (ids < lo + n_local), ids - lo, n_local)
+    wg, wu, wd = (p[k][lo:lo + n_local] for k in ("w_gate", "w_up", "w_down"))
+    out = _dispatch_compute_combine(xf, gates, local_ids, wg, wu, wd, cap, act)
+    out = dist_fn.all_reduce(out, group=ctx.mesh.get_group(ctx.model_axis))
+    aux = dist_fn.all_reduce(aux, group=ctx.mesh.get_group(ctx.model_axis)) / n_model
+    for a in ctx.data_axes:
+        aux = dist_fn.all_reduce(aux, group=ctx.mesh.get_group(a)) / ctx._size(a)
     if cfg.moe.n_shared_experts:       # one MLP, silu whatever cfg.act is, as in the reference
         out = out + mlp(p["shared"], xf, "silu")
     return out.reshape(B, S, d), aux

@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch._loops import steps
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ssm_scan as _scan
 from repro_torch.models.layers import Params, dense_init, rmsnorm, rmsnorm_init
@@ -222,7 +223,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     chunk_decay = torch.exp(dA_cum[:, :, -1])                        # (b,c,h)
     h = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
     h_in = torch.empty_like(states)
-    for c in range(nc):
+    for c in steps(nc, x.device):          # two chunks for all when counted
         h_in[:, c] = h
         h = chunk_decay[:, c, :, None, None] * h + states[:, c]
     # 4) state -> output within the chunk: bcln,bchpn,bclh->bclhp as

@@ -1,13 +1,14 @@
 """Distributed-optimization collectives, the twin of
-``src/repro/parallel/collectives.py``: so far the int8 quantiser of the
+``src/repro/parallel/collectives.py``: the int8 quantiser of the
 gradients, ``compress_grads_int8``, which the train step applies with
-``RunConfig.use_grad_compression``. The compressed all-reduce over a
-process group (``psum_int8`` and the ring variant) waits for the parallel
-layer (ROADMAP A10).
+``RunConfig.use_grad_compression``, and the compressed all-reduce over a
+``torch.distributed`` process group, ``psum_int8``, with
+``ring_allreduce_int8`` applying it to every leaf of a tree.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import map_leaves
 
@@ -36,3 +37,28 @@ def compress_grads_int8(grads):
         return dequantize_int8(q, s).to(g.dtype)
 
     return map_leaves(comp, grads)
+
+
+def psum_int8(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Compressed all-reduce of ``x`` over ``group``, the reference's
+    arithmetic: each rank quantises with its own scale, the int8 payloads
+    are summed widened to int32 (exact), and the sum is multiplied by the
+    **largest** of the ranks' scales. That is not the dequantised sum
+    (sum_r q_r * s_r) unless the scales are equal: a rank of smaller scale
+    has its share scaled up by s_max / s_r. The reference does the same;
+    kept as it is. Returns f32."""
+    q, s = quantize_int8(x)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    s_max = s.clone()
+    dist.all_reduce(s_max, op=dist.ReduceOp.MAX, group=group)
+    return total.float() * s_max
+
+
+def ring_allreduce_int8(group=None):
+    """The compressed all-reduce of a tree over ``group``: returns
+    ``call(tree)``, ``psum_int8`` at every leaf (``None`` stays)."""
+    def call(tree):
+        return map_leaves(lambda x: psum_int8(x, group), tree)
+
+    return call

@@ -61,3 +61,30 @@ def test_sources_name_no_jax_import():
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1].split(".")[0]
                 assert mod not in ("jax", "jaxlib", "repro"), (f, ln)
+
+
+ALONE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+failed = []
+for n in names:
+    for m in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[m]
+    try:
+        importlib.import_module(n)
+    except Exception as e:
+        failed.append(f"{n}: {type(e).__name__}: {e}")
+print("ALONE", len(names), failed)
+"""
+
+
+def test_every_module_imports_first():
+    """Each module imports as the first of the package (no import cycle
+    that only another module's earlier import hides)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", ALONE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("ALONE")][-1]
+    assert int(line.split()[1]) >= 30 and line.endswith(" []"), line

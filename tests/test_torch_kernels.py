@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.kernels import ops as jops
 from repro.kernels.decode_attention import flash_decode_bkgd
@@ -293,16 +294,19 @@ def test_rmsnorm_leading_dims_and_strided_rows():
 
 
 def test_wrappers_refuse_other_devices():
-    """A wrapper takes the plain version for a CPU tensor only; any other
-    device without the kernel raises instead of falling back."""
-    x = torch.zeros(2, 8, device="meta")
-    with pytest.raises(ValueError):
-        ops.rmsnorm(x, torch.ones(8, device="meta"))
-    q = torch.zeros(1, 1, 2, 16, device="meta")
-    with pytest.raises(ValueError):
-        ops.flash_attention(q, q, q)
-    with pytest.raises(ValueError):
-        dec_mod.flash_decode(q, q, q, torch.ones(1, dtype=torch.int32, device="meta"))
+    """A wrapper takes the plain version for a CPU tensor (and a ``meta``
+    one: the dry run's count of shapes, ``tests/test_torch_dryrun.py``)
+    only; any other device without the kernel raises instead of falling
+    back: here fake ``xpu`` tensors, which need no such device."""
+    with FakeTensorMode():
+        x = torch.zeros(2, 8, device="xpu")
+        with pytest.raises(ValueError):
+            ops.rmsnorm(x, torch.ones(8, device="xpu"))
+        q = torch.zeros(1, 1, 2, 16, device="xpu")
+        with pytest.raises(ValueError):
+            ops.flash_attention(q, q, q)
+        with pytest.raises(ValueError):
+            dec_mod.flash_decode(q, q, q, torch.ones(1, dtype=torch.int32, device="xpu"))
 
 
 # ------------------------------ the build ----------------------------- #

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs.registry import get_config as jax_get_config
 from repro.configs.registry import tiny_config as jax_tiny_config
@@ -269,9 +270,12 @@ def test_decode_continues_the_prefill_exactly_in_f32():
 
 
 def test_scan_wrapper_refuses_what_the_kernel_does_not_take():
-    """A CPU tensor takes the plain version; any other device without the
-    kernel raises instead of falling back."""
-    x = torch.zeros(1, 4, 8, device="meta")
-    with pytest.raises(ValueError, match="ssm_scan"):
-        ssm_scan(x, x, torch.zeros(8, 4, device="meta"), torch.zeros(1, 4, 4, device="meta"),
-                 torch.zeros(1, 4, 4, device="meta"))
+    """A CPU tensor takes the plain version (and a ``meta`` one: the dry
+    run's count of shapes); any other device without the kernel raises
+    instead of falling back: here fake ``xpu`` tensors, which need no such
+    device."""
+    with FakeTensorMode():
+        x = torch.zeros(1, 4, 8, device="xpu")
+        with pytest.raises(ValueError, match="ssm_scan"):
+            ssm_scan(x, x, torch.zeros(8, 4, device="xpu"), torch.zeros(1, 4, 4, device="xpu"),
+                     torch.zeros(1, 4, 4, device="xpu"))
