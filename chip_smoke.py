@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, times them at the shapes their paths
-give them, and drives twelve paths, counting the kernels' launches on each:
+give them, and drives fifteen paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
     continuous-batching engine (rmsnorm, flash_attention, flash_decode),
@@ -40,6 +40,10 @@ give them, and drives twelve paths, counting the kernels' launches on each:
     v5e / v5p fleet and on 12 H100 models (equal to the NumPy backend's at
     1e-9 with the same decisions, and bit for bit the same twice) and
     through its fleet-recovery and 256-device scale traces;
+  * the examples: the seven twins of the reference's examples
+    (``repro_torch.examples``) as a user runs them, on the card with the
+    H100 model and the torch solver, each launching its path's kernels,
+    the four that only price again on NumPy with the same decisions;
   * falcon-mamba-7b at full width and depth through the model facade:
     prefill and greedy decode steps on the selective scan (ssm_scan,
     rmsnorm);
@@ -53,6 +57,11 @@ give them, and drives twelve paths, counting the kernels' launches on each:
     one, a tail of 2 local layers; local decode over a ring of the window's
     rows) at head_dim 256 with 4 / 1 heads, with flash_attention and
     flash_decode checked and timed at its shapes;
+  * gemma-2b at full width and depth served through the engine as
+    llama3.1-8b is, its chunks priced on the torch solver on the card: 8
+    query heads over one KV head of 256 (MQA) in flash_decode;
+  * gemma3-4b at full width and depth through the model facade: a 4 x 2,048
+    prompt, so that its 1,024-token window cuts, 8 / 4 heads of 256;
   * moonshot-v1-16b-a3b (the moe family: 64 experts, top 6, and 2 shared)
     at full width and depth, 57 GB of weights, served through the engine
     with its captured steps as qwen3-1.7b is, its logits held against the
@@ -93,6 +102,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib
 import io
 import json
 import shutil
@@ -122,7 +132,7 @@ from repro_torch.core import scheduler as scheduler_mod  # noqa: E402
 from repro_torch.core.fleet import BEST_EFFORT, SLO, FleetConfig, FleetScheduler  # noqa: E402
 from repro_torch.core.fracsearch import FractionSearchConfig  # noqa: E402
 from repro_torch.core.profile import KernelProfile, WorkloadProfile, from_dryrun_json  # noqa: E402
-from repro_torch.core.backend import get_solver_device, solver_backend  # noqa: E402
+from repro_torch.core.backend import get_solver_device, solver_backend, warmup_solver  # noqa: E402
 from repro_torch.core.estimator import solve_scenarios  # noqa: E402
 from repro_torch.core.resources import H100, RESOURCE_AXES, TPU_V5E, TPU_V5P  # noqa: E402
 from repro_torch.ft.inject import FakeClock, FaultInjector, arrive, kill, storm  # noqa: E402
@@ -143,6 +153,8 @@ from repro_torch.models.hybrid import hybrid_split  # noqa: E402
 from repro_torch.models.transformer import lg_split, vlm_split  # noqa: E402
 from repro_torch.core.scenario import Scenario  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.examples import printed_alike  # noqa: E402
+from repro_torch.examples.fleet_failover import decode_heavy_mix  # noqa: E402
 from repro_torch.train.optimizer import Optimizer, global_norm  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig, make_train_step  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
@@ -571,10 +583,10 @@ def time_flash_decode(rng, kv_len, label, B=8, H=16, KVH=8, D=128, T=1025) -> di
             "bound_ms": b_ms, "bound_by": by}
 
 
-def time_flash_attention(rng, S, pos0, KVH=8, H=16) -> dict:
+def time_flash_attention(rng, S, pos0, KVH=8, H=16, D=128) -> dict:
     """S queries at pos0 over slot 3 of L caches (8 x 1,025 positions; H
-    query heads of 128 over ``KVH``), qwen3-1.7b's by default."""
-    B, D, L = 1, 128, 4
+    query heads of D over ``KVH``), qwen3-1.7b's by default."""
+    B, L = 1, 4
     ck, cv = path_cache(rng, L, 8, 1025, KVH, D, BF)
     q = randn(rng, (B, S, H, D), BF)
     T = pos0 + S
@@ -603,12 +615,12 @@ def time_flash_attention(rng, S, pos0, KVH=8, H=16) -> dict:
             "bound_ms": b_ms, "bound_by": by}
 
 
-def time_flash_attention_offsets(rng, pos0, KVH=8, H=16) -> dict:
+def time_flash_attention_offsets(rng, pos0, KVH=8, H=16, D=128) -> dict:
     """Row 2 on the captured extend step's path: 128 queries at pos0 with
     slot, pos0 and c read from device memory over the whole cache (8 slots
     x 1,025 positions, the splits planned for 1,025 keys), beside the
     integer-offset call over the slot's view, in the same run."""
-    S, D, L, slot = 128, 128, 4, 3
+    S, L, slot = 128, 4, 3
     ck, cv = path_cache(rng, L, 8, 1025, KVH, D, BF)
     q = randn(rng, (1, S, H, D), BF)
     off = torch.tensor([slot, pos0, S], device=DEV)
@@ -1208,7 +1220,8 @@ def step_logits_and_profiles(eng, rng) -> tuple:
     128, and 100 tokens padded to 128) and one decode step (slot 3 at
     position 356, the other slots idle), each replayed against its body run
     uncaptured on the plain versions, on the same static input, at the
-    reference's bf16 tolerance; then the profiles of a decode replay and of
+    reference's bf16 tolerance, and for a dense model the last extend and
+    the decode step against the forward over the slot's 357 tokens; then the profiles of a decode replay and of
     a 128-token extend replay. For the moe family the body also runs
     uncaptured on the kernels, recording each layer's routing, and must
     equal the replay bit for bit; the plain run replays that routing
@@ -1243,11 +1256,18 @@ def step_logits_and_profiles(eng, rng) -> tuple:
         tally[:] += agreement(kern, plain, tokens, eng.cfg.n_layers)
 
     for pos0, c in ((0, 128), (128, 128), (256, 100)):
-        got = eng._extend(tok[pos0:pos0 + c], 3, pos0).clone()
-        check(f"extend_pos0_{pos0}_c{c}", got, eng.steps[chunk_bucket(c)], slice(None),
+        extended = eng._extend(tok[pos0:pos0 + c], 3, pos0).clone()
+        check(f"extend_pos0_{pos0}_c{c}", extended, eng.steps[chunk_bucket(c)], slice(None),
               slice(0, c))
     got = eng._decode(dtok, pos).clone()
     check("decode", got, eng.steps["decode"], slice(3, 4), slice(3, 4))
+    if not moe:     # the moe forward's capacity would drop other tokens than the steps'
+        with torch.no_grad():
+            full = eng.model.forward(eng.params, {"tokens": torch.from_numpy(
+                np.r_[tok[:356], dtok[3]])[None].to(DEV)})
+        errs["extend_vs_forward"] = logits_close("extend vs forward", extended[0, 0], full[0, 355])
+        errs["decode_vs_forward"] = logits_close("decode vs forward", got[3, 0], full[0, 356])
+        del full
     n = 2 if moe else 4             # a moe replay launches about 5,600 kernels
     profiles = {"decode": profile_step(lambda: eng._decode(dtok, pos).argmax(-1).tolist(),
                                        eng.steps["decode"], n),
@@ -1464,7 +1484,6 @@ DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", dryrun_mod.ENGINE_DECO
 DRYRUN_DIR = Path(__file__).resolve().parent / "results" / "dryrun_torch_smoke"
 FLOP_GATE = 1e-3                   # the engine-shape record against the hand count
 PRICE_TOL = 1e-9                   # the torch solver against NumPy
-LLAMA_NORMS = [(128, 4096), (8, 4096)]   # a chunk, a decode step
 
 
 def hand_decode_flops(cfg, B: int, T: int) -> float:
@@ -1505,68 +1524,78 @@ def count_cells() -> dict:
     return recs
 
 
-def check_llama_kernels(rng, H, KVH, D) -> dict:
-    """The three kernels of the llama3.1-8b serve against their plain
-    versions at its shapes: the norms of a chunk and a decode step,
-    ``flash_attention`` with device offsets over the engine's cache (8
-    slots x 1,025 positions) at the path's chunks, and ``flash_decode``
-    over that cache at a decode batch's mixed lengths, G 4."""
+def check_served_kernels(rng, cfg) -> dict:
+    """The three kernels of a serve through the engine (llama3.1-8b's,
+    gemma-2b's) against their plain versions at its shapes: the norms of a
+    chunk and a decode step, ``flash_attention`` with device offsets over
+    the engine's cache (8 slots x 1,025 positions) at the path's chunks,
+    and ``flash_decode`` over that cache at a decode batch's mixed
+    lengths, at the config's heads."""
+    a, name = cfg.attn, cfg.name
+    H, KVH, D = a.n_heads, a.n_kv_heads, a.head_dim
     errs = {"rmsnorm": 0.0, "flash_attention": 0.0}
-    for shape in LLAMA_NORMS:
+    for shape in ((128, cfg.d_model), (8, cfg.d_model)):     # a chunk, a decode step
         x, s = randn(rng, shape, BF), randn(rng, (shape[-1],), F32)
         errs["rmsnorm"] = max(errs["rmsnorm"], check_close(
-            f"rmsnorm{shape} llama", rms_mod.rmsnorm(x, s), rms_mod.rmsnorm_plain(x, s), BF))
+            f"rmsnorm{shape} {name}", rms_mod.rmsnorm(x, s), rms_mod.rmsnorm_plain(x, s), BF))
     ck, cv = path_cache(rng, 1, 8, 1025, KVH, D, BF)
     for S, c, pos0 in ((128, 128, 0), (128, 128, 512), (128, 100, 900), (16, 1, 40)):
         q = randn(rng, (1, S, H, D), BF)
         off = torch.tensor([3, pos0, c], device=DEV)
         errs["flash_attention"] = max(errs["flash_attention"], check_attention(
-            f"flash_attention llama offsets pos0 {pos0} c {c}",
+            f"flash_attention {name} offsets pos0 {pos0} c {c}",
             fa_mod.flash_attention(q, ck[0], cv[0], "causal", offsets=off),
             fa_mod.flash_attention_plain(q, ck[0], cv[0], "causal", offsets=off), BF))
     q = randn(rng, (8, 1, H, D), BF)
     lens = torch.tensor(MIXED_LENS, device=DEV)
     errs["flash_decode"] = check_attention(
-        "flash_decode llama", dec_mod.flash_decode(q, ck[0], cv[0], lens),
+        f"flash_decode {name} G {H // KVH}", dec_mod.flash_decode(q, ck[0], cv[0], lens),
         dec_mod.flash_decode_plain(q, ck[0], cv[0], lens), BF)
     return errs
 
 
-def serve_llama(records: dict) -> dict:
-    """llama3.1-8b at full width and depth (32 layers, d_model 4,096, 32 / 8
-    heads of 128, vocab 128,256; seeded random bf16 weights, 16.06 GB)
-    served through the engine with the qwen3 mix under ``serve_checked``'s
-    gates, its steps' logits against the plain versions, the profiles of a
-    decode and an extend replay; then its three kernels at its shapes.
+def serve_at_full_size(cfg, key: str, label: str, records: dict, backend: str) -> dict:
+    """A dense decoder at full width and depth (seeded random bf16 weights)
+    served through the engine with the qwen3 mix, its chunks priced on the
+    solver ``backend`` (torch: on the card, one ``cache_share`` launch a
+    solve, ``fleet_run``'s gates): first its three kernels against their
+    plain versions at its shapes, before any graph captures them; then the
+    serve under ``serve_checked``'s gates, its steps' logits against the
+    plain versions, the profiles of a decode and an extend replay; then the
+    kernels timed, each shape with the serve's launches at it. ``key``
+    names its entries in the ``kernels`` rows, ``label`` its phases.
     Returns the step profiles."""
-    cfg = get_config("llama3.1-8b")
     a, L = cfg.attn, cfg.n_layers
+    rng = np.random.default_rng(4)
+    kerr = check_served_kernels(rng, cfg)
     m, params, weights = facade_weights(cfg)
-    emit(phase="llama_weights", n_params_by_config=cfg.n_params(), **weights)
+    emit(phase=f"{label}_weights", n_params_by_config=cfg.n_params(), **weights)
     prompts = serve_prompts(cfg, np.random.default_rng(0))
-    stats = serve_checked(cfg, EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128),
-                          prompts, 32, params)
-    emit(phase="llama_serve", config=cfg.name, **stats)
+    ecfg = EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128)
+    stats, solver = fleet_run(f"{label}_serve", backend,
+                              lambda: serve_checked(cfg, ecfg, prompts, 32, params))
+    emit(phase=f"{label}_serve", config=cfg.name, solver=solver, **stats)
     for name in SERVING:
-        records[name]["launches_llama31_8b"] = stats["launches"][name]
-    records["rmsnorm"]["launches_llama31_8b_per_step"] = 2 * L + 1
+        records[name][f"launches_{key}"] = stats["launches"][name]
+    records["rmsnorm"][f"launches_{key}_per_step"] = 2 * L + 1
+    if backend == "torch":
+        records["cache_share"][f"launches_{key}"] = solver["cache_share_launches"]
     eng = Engine(cfg, params=params, ecfg=EngineConfig(max_slots=8, max_len=1024), device=DEV)
+    kv_bytes = sum(t.numel() * t.element_size() for t in leaves(eng.cache))
     errs, profiles, _ = step_logits_and_profiles(eng, np.random.default_rng(0))
     del eng, m, params
     gc.collect()
     torch.cuda.empty_cache()
-    emit(phase="llama_serve_logits", max_abs_err=errs, tolerance={"rtol": 0.15, "atol": 0.3})
-    emit(phase="llama_step_profile", **profiles)
-    rng = np.random.default_rng(4)
-    kerr = check_llama_kernels(rng, a.n_heads, a.n_kv_heads, a.head_dim)
-    kvh, H = a.n_kv_heads, a.n_heads
+    emit(phase=f"{label}_serve_logits", max_abs_err=errs, tolerance={"rtol": 0.15, "atol": 0.3})
+    emit(phase=f"{label}_step_profile", kv_cache_bytes=kv_bytes, **profiles)
+    kvh, H, D = a.n_kv_heads, a.n_heads, a.head_dim
     times = {
         "rmsnorm": [time_rmsnorm(rng, (1, 128, cfg.d_model)), time_rmsnorm(rng, (8, 1, cfg.d_model))],
-        "flash_attention": [time_flash_attention(rng, 128, 512, KVH=kvh, H=H),
-                            time_flash_attention_offsets(rng, 512, KVH=kvh, H=H)],
+        "flash_attention": [time_flash_attention(rng, 128, 512, KVH=kvh, H=H, D=D),
+                            time_flash_attention_offsets(rng, 512, KVH=kvh, H=H, D=D)],
         "flash_decode": [time_flash_decode(rng, MIXED_LENS,
-                                           f"B=8 H={H} KVH={kvh} D={a.head_dim} G={H // kvh} "
-                                           "T=1025 mixed", H=H, KVH=kvh)],
+                                           f"B=8 H={H} KVH={kvh} D={D} G={H // kvh} "
+                                           "T=1025 mixed", H=H, KVH=kvh, D=D)],
     }
     # the serve's launches at each timed shape (serve_checked's ``want``):
     # the norms of the extend chunks and of the decode steps, attention
@@ -1575,10 +1604,10 @@ def serve_llama(records: dict) -> dict:
     for t, n in zip(times["rmsnorm"] + times["flash_attention"] + times["flash_decode"],
                     ((2 * L + 1) * n_ext, (2 * L + 1) * n_dec, 0, L * n_ext, L * n_dec)):
         t["launches"] = n
-    emit(phase="llama_kernels", max_abs_err=kerr, tolerance={"bfloat16": TOL[BF]}, times=times)
+    emit(phase=f"{label}_kernels", max_abs_err=kerr, tolerance={"bfloat16": TOL[BF]}, times=times)
     for name in SERVING:
-        records[name]["max_abs_err_llama31_8b"] = kerr[name]
-        records[name]["llama31_8b"] = times[name]
+        records[name][f"max_abs_err_{key}"] = kerr[name]
+        records[name][key] = times[name]
     return profiles
 
 
@@ -1659,7 +1688,8 @@ def phase_dryrun(records: dict, qwen3_profiles: dict) -> None:
     NumPy."""
     recs = count_cells()
     measured = {"qwen3-1.7b": qwen3_profiles["decode"],
-                "llama3.1-8b": serve_llama(records)["decode"]}
+                "llama3.1-8b": serve_at_full_size(get_config("llama3.1-8b"), "llama31_8b",
+                                                  "llama", records, "numpy")["decode"]}
     emit(phase="dryrun_prediction", device_model=H100.name, **predictions(recs, measured))
     priced = price_records()
     records["cache_share"]["launches_dryrun_profile"] = priced["main"]["cache_share_launches"]
@@ -2084,19 +2114,6 @@ def trace_gates(label: str, dev_model, models: dict, runs: list, gate_attainment
     return summary
 
 
-def fleet_decode_mix(dev, n_decode: int, n_aux: int) -> list:
-    """bench_planner.decode_heavy_mix: decodes with a tight 1.15x SLO that
-    only a slot partition rescues in pairs, and short best-effort bursts."""
-    def prof(name, slo, dur, **u):
-        d = {r: u.get(r, 0.0) * dev.capacity(r) for r in RESOURCE_AXES}
-        return WorkloadProfile(name, (KernelProfile(f"{name}#step", demand=d, duration=dur),),
-                               slo_slowdown=slo)
-    return ([prof(f"decode{i}", 1.15, 1.0, mxu=0.4, vpu=0.1, issue=0.1, smem=0.05,
-                  hbm=0.6, l2=0.6) for i in range(n_decode)]
-            + [prof(f"aux{i}", 12.0, 0.08, vpu=0.072, issue=0.004, mxu=0.004,
-                    hbm=0.0016, l2=0.0016) for i in range(n_aux)])
-
-
 def fleet_plans_equal(got, want, tol=FLEET_TOL) -> bool:
     """bench_fleet.fleet_plans_equal: the same placements, fractions,
     slowdowns and gains at ``tol``, the same unplaced set."""
@@ -2121,7 +2138,7 @@ def fleet_recovery() -> dict:
     the survivors at 1e-9."""
     cfg = FleetConfig(max_group_size=3, heartbeat_timeout=3.0, backoff_base=1.0,
                       max_retries=3)
-    works = fleet_decode_mix(TPU_V5E, 4, 6)
+    works = decode_heavy_mix(TPU_V5E, 4, 6)
     decodes, auxes = works[:4], works[4:]
     clock = FakeClock()
     models = {f"dev{i}": TPU_V5E for i in range(4)}
@@ -2309,6 +2326,170 @@ def phase_fleet(records: dict) -> None:
 
 
 # --------------------------------------------------------------------- #
+#  phase 7c: the examples' twins on the card                             #
+# --------------------------------------------------------------------- #
+# each twin of the reference's examples and the kernels its run launches
+EXAMPLES = {"quickstart": ("cache_share",), "fleet_failover": ("cache_share",),
+            "trace_serving": ("cache_share",), "calibrate_profiles": ("cache_share",),
+            "serve_colocation": SERVING + ("cache_share",),
+            "profile_interference": ("cache_share",),
+            "train_tiny_lm": ("rmsnorm", "flash_attention")}
+TRAIN_TWIN_STEPS = 60          # of the example's 300
+TRAIN_TWIN_CKPT = Path(__file__).resolve().parent / "results" / "tiny_lm_torch_smoke"
+FIT_TOL = 1e-6                 # twin 4's fitted utilizations, torch against NumPy
+
+
+@contextlib.contextmanager
+def recorded_steps(steps: list):
+    """Append every step captured in the body (``graphs.capture``) to
+    ``steps``, so that its replays can be counted. Only this script does
+    so."""
+    saved = graphs.capture
+
+    def capture(body, device, name):
+        steps.append(saved(body, device, name))
+        return steps[-1]
+    graphs.capture = capture
+    try:
+        yield steps
+    finally:
+        graphs.capture = saved
+
+
+def run_twin(name: str, argv: list) -> dict:
+    """``repro_torch.examples.<name>.main(argv)`` as a user runs it, with the
+    counts at 0 just before: its printout, its result, its seconds, and the
+    launches on the card by kernel: the wrappers' counts (eager launches,
+    the warm-ups and captures of new steps) plus the replays of every
+    captured step, the solver's older ones included."""
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    old = list(estimator_torch.captured_steps())
+    solver, new = {id(step): step.calls for step in old}, []
+    reset_counts()
+    t0 = time.perf_counter()
+    with recorded_steps(new), contextlib.redirect_stdout(io.StringIO()) as out:
+        ret = mod.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    for steps, since in ((old, solver), (new, None)):
+        for k, n in replayed(steps, since).items():
+            launches[k] += n
+    return {"printed": out.getvalue(), "result": ret, "seconds": seconds, "launches": launches,
+            "graphs_captured": len(new)}
+
+
+def decisions(name: str, ret):
+    """What a twin decided, for the comparison across backends: twin 1's
+    placements (members in order) and solo lists, twin 2's final
+    placement, twin 3's SLO attainment by class, twin 4's fitted
+    utilizations."""
+    if name == "quickstart":
+        return [[[list(p.workloads) for p in plan.placements], list(plan.solo)] for plan in ret]
+    if name == "fleet_failover":
+        fleet = ret[0]
+        return {did: list(p.workloads) for did, p in sorted(fleet.plan().placements.items())}
+    if name == "trace_serving":
+        report, _ = ret
+        return {cls: att["attainment"] for cls, att in report["slo"]["per_class"].items()}
+    return {n: {k: v for k, v in params.items() if k.startswith("u:")} for n, params in ret.items()}
+
+
+def check_serve_twin_shapes(rng) -> float:
+    """The serve twin's engine (``tiny_config(qwen3-1.7b)`` in its own bf16,
+    4 slots x 769 positions, head_dim 16) at the shapes no other phase
+    launches: serial mode's whole 512-token prompt in one extend step, and
+    a 64-token chunk deep in it, against the plain version with the same
+    device offsets."""
+    cfg = tiny_config(get_config("qwen3-1.7b"))
+    a = cfg.attn
+    ck, cv = path_cache(rng, 1, 4, 769, a.n_kv_heads, a.head_dim, BF)
+    worst = 0.0
+    for S, c, pos0 in ((512, 512, 0), (64, 64, 448)):
+        q = randn(rng, (1, S, a.n_heads, a.head_dim), BF)
+        off = torch.tensor([3, pos0, c], device=DEV)
+        worst = max(worst, check_attention(
+            f"flash_attention serve twin S {S} pos0 {pos0} D {a.head_dim}",
+            fa_mod.flash_attention(q, ck[0], cv[0], "causal", offsets=off),
+            fa_mod.flash_attention_plain(q, ck[0], cv[0], "causal", offsets=off), BF))
+    return worst
+
+
+def phase_examples(records: dict) -> None:
+    """The seven twins of the reference's examples (``repro_torch.examples``)
+    run on the card as a user runs them, with their defaults: ``cuda``, the
+    ``H100`` device model and the torch solver (train_tiny_lm at
+    ``TRAIN_TWIN_STEPS`` steps; profile_interference over the ``dryrun``
+    phase's records). Each must launch the kernels of its path
+    (``EXAMPLES``). The four twins that only price run again with
+    ``--backend numpy``: the same decisions (``decisions``), twins 2-4's
+    printouts alike to the last printed digit (``printed_alike``), twin 3's
+    report equal to its own twin run, twin 4's fits within ``FIT_TOL``."""
+    serve_err = check_serve_twin_shapes(np.random.default_rng(6))
+    out = {}
+    shutil.rmtree(TRAIN_TWIN_CKPT, ignore_errors=True)
+    argv = {"train_tiny_lm": ["--steps", str(TRAIN_TWIN_STEPS), "--ckpt", str(TRAIN_TWIN_CKPT)]}
+    saved = profile_mod.RESULTS
+    profile_mod.RESULTS = DRYRUN_DIR
+    try:
+        for name, kernels in EXAMPLES.items():
+            run = run_twin(name, argv.get(name, []))
+            missing = [k for k in kernels if not run["launches"][k]]
+            if missing:
+                raise AssertionError(f"example {name}: no launch of {missing}: {run['launches']}")
+            rec = {"seconds": run["seconds"], "launches": run["launches"],
+                   "graphs_captured": run["graphs_captured"],
+                   "printed_tail": run["printed"].splitlines()[-3:]}
+            if name in ("quickstart", "fleet_failover", "trace_serving", "calibrate_profiles"):
+                host = run_twin(name, ["--backend", "numpy"])
+                if any(host["launches"].values()):
+                    raise AssertionError(f"example {name}: the NumPy run launched {host['launches']}")
+                got, want = decisions(name, run["result"]), decisions(name, host["result"])
+                if name == "calibrate_profiles":
+                    values_close(got, want, FIT_TOL, f"example {name}")
+                elif got != want:
+                    raise AssertionError(f"example {name}: torch decided {got}, NumPy {want}")
+                alike = printed_alike(run["printed"], host["printed"])
+                if name != "quickstart" and not alike:
+                    raise AssertionError(f"example {name}: the printouts differ:\n"
+                                         f"{run['printed']}\n{host['printed']}")
+                rec.update(numpy_seconds=host["seconds"], decisions_equal=True,
+                           printouts_alike=alike)
+            if name == "fleet_failover" and "cold plan over survivors: True" not in run["printed"]:
+                raise AssertionError("example fleet_failover: online plan != cold plan")
+            if name == "trace_serving":
+                report, twin = run["result"]
+                if report != twin:
+                    raise AssertionError("example trace_serving: same seed, another report")
+                rec["slo_attainment"] = decisions(name, run["result"])
+            if name == "serve_colocation":
+                i_serial, i_aware, prices = run["result"]
+                rec.update(interleaved_serial=i_serial, interleaved_aware=i_aware,
+                           chunk_prices=[float(x) for x in prices],
+                           max_abs_err_new_shapes=serve_err)
+            if name == "profile_interference":
+                fps, plan = run["result"]
+                if fps is None or len(fps) != len(DRYRUN_MODELS) * len(DRYRUN_SHAPES):
+                    raise AssertionError(f"example profile_interference: priced {fps}")
+                rec["solo"] = list(plan.solo)
+            if name == "train_tiny_lm":
+                losses = [h[1] for h in run["result"]]
+                if len(losses) < 2 or not np.isfinite(losses).all():
+                    raise AssertionError(f"example train_tiny_lm: losses {losses}")
+                rec.update(steps=TRAIN_TWIN_STEPS, losses=losses,
+                           verdict=run["printed"].split("(")[-1].split(")")[0])
+            emit(phase="example", name=name, **rec)
+            out[name] = rec
+    finally:
+        profile_mod.RESULTS = saved
+    for name in SERVING + ("cache_share",):
+        records[name]["launches_examples"] = sum(r["launches"][name] for r in out.values())
+    emit(phase="examples", seconds={n: r["seconds"] for n, r in out.items()},
+         numpy_seconds={n: r["numpy_seconds"] for n, r in out.items() if "numpy_seconds" in r},
+         train_verdict=out["train_tiny_lm"]["verdict"])
+
+
+# --------------------------------------------------------------------- #
 #  phases 8 and 9: the model facade at full width (falcon-mamba, zamba2) #
 # --------------------------------------------------------------------- #
 def facade_weights(cfg):
@@ -2371,27 +2552,27 @@ def facade_generate(m, params, B: int, S: int, n_dec: int, extra=None) -> tuple:
     return run, used, prompt, tok, cache
 
 
-def facade_logits(m, params, prompt, extra=None) -> dict:
+def facade_logits(m, params, prompt, extra=None, n: int = 128) -> dict:
     """The kernels against the plain versions through the facade, at the
-    reference's bf16 tolerance: a 128-token prefill and one decode step;
+    reference's bf16 tolerance: an ``n``-token prefill and one decode step;
     then prefill and decode against forward at their positions. ``extra``
     as ``facade_generate``'s."""
-    name, short, errs, extra = m.cfg.name, prompt[:, :128], {}, extra or {}
+    name, short, errs, extra = m.cfg.name, prompt[:, :n], {}, extra or {}
     with torch.no_grad():
-        got, got_cache = m.prefill(params, {**extra, "tokens": short}, 129)
+        got, got_cache = m.prefill(params, {**extra, "tokens": short}, n + 1)
         with plain_versions():
-            plain, plain_cache = m.prefill(params, {**extra, "tokens": short}, 129)
-        errs["prefill_128"] = logits_close(f"{name} prefill", got, plain)
+            plain, plain_cache = m.prefill(params, {**extra, "tokens": short}, n + 1)
+        errs[f"prefill_{n}"] = logits_close(f"{name} prefill", got, plain)
         nxt = got.argmax(-1)
-        got_d, _ = m.decode_step(params, nxt, got_cache, 128)
+        got_d, _ = m.decode_step(params, nxt, got_cache, n)
         with plain_versions():
-            plain_d, _ = m.decode_step(params, nxt, plain_cache, 128)
+            plain_d, _ = m.decode_step(params, nxt, plain_cache, n)
         errs["decode"] = logits_close(f"{name} decode", got_d, plain_d)
         full = m.forward(params, {**extra, "tokens": torch.cat([short, nxt], 1)})
         errs["prefill_vs_forward"] = logits_close(f"{name} prefill vs forward",
-                                                  got[:, 0], full[:, 127])
+                                                  got[:, 0], full[:, n - 1])
         errs["decode_vs_forward"] = logits_close(f"{name} decode vs forward",
-                                                 got_d[:, 0], full[:, 128])
+                                                 got_d[:, 0], full[:, n])
     return errs
 
 
@@ -2623,8 +2804,8 @@ def check_gemma3_kernels(rng, B, S, n_dec, a, d_model) -> tuple:
     refused = [expect_refusal("flash_attention, f32 queries at head_dim 256", lambda: fa_mod.flash_attention(
                    q[:1, :64].float(), k[:1, :64], v[:1, :64], "causal")),
                expect_refusal("flash_decode, 16 query heads a KV head at head_dim 256",
-                              lambda: dec_mod.flash_decode(randn(rng, (B, 1, 16, D), BF), ck[0], cv[0],
-                                                           torch.full((B,), T, device=DEV)))]
+                              lambda: dec_mod.flash_decode(randn(rng, (B, 1, 16 * KVH, D), BF), ck[0],
+                                                           cv[0], torch.full((B,), T, device=DEV)))]
     return errs, refused
 
 
@@ -2689,6 +2870,96 @@ def phase_gemma3(records: dict) -> None:
     for name in SERVING:
         records[name]["max_abs_err_gemma3"] = errs[name]
         records[name]["gemma3"] = times[name]
+
+
+# --------------------------------------------------------------------- #
+#  phase 10b: gemma-2b through the engine, gemma3-4b through the facade  #
+# --------------------------------------------------------------------- #
+def phase_gemma_2b(records: dict) -> None:
+    """gemma-2b as the repo configures it (18 layers, d_model 2,048, 8 query
+    heads over one KV head of 256 (MQA: G 8), d_ff 16,384 geglu, vocab
+    256,000 tied, the embedding scaled; bf16, seeded random weights) served
+    through the engine at full width and depth as llama3.1-8b is
+    (``serve_at_full_size``: 8 slots x 1,024 positions, steps captured,
+    interference_aware), every chunk priced on the torch solver on the
+    card; ``flash_decode`` at B 8, 8 / 1 heads of 256 and ``flash_attention``
+    at the engine's chunk held against their plain versions before the
+    engine's graphs capture them."""
+    with solver_backend("torch", device=DEV):
+        warmup_solver(H100, ks=(2,), buckets=(8,))      # captured outside the counted serve
+    serve_at_full_size(get_config("gemma-2b"), "gemma_2b", "gemma_2b", records, "torch")
+
+
+GEMMA3_4B_PROMPT = 2048    # twice the local window, so that it cuts on the local layers
+GEMMA3_4B_LOGITS = 1280    # the logits' prompt: past the window too
+
+
+def phase_gemma3_4b(records: dict) -> None:
+    """gemma3-4b as the repo configures it (34 layers: 5 groups of 5 local
+    layers, window 1,024, and a global one, then a tail of 4 local layers;
+    d_model 2,560, 8 / 4 heads of 256 (G 2), d_ff 10,240 geglu, vocab
+    262,144 tied; bf16, seeded random weights, 3,879,907,840 parameters)
+    through the model facade as gemma3-1b is: first both attention kernels
+    against their plain versions at its shapes (``check_gemma3_kernels``:
+    the causal global layers and the windowed local ones over the whole
+    prompt, the global cache and the local ring in decode); then a prefill
+    of 4 x 2,048 tokens, so that the window cuts, and 32 greedy decode
+    steps, the launch gate, the profiles of a step and a prefill, the
+    logits of a 1,280-token prefill against the plain versions and against
+    forward; then the kernels timed beside their bounds and SDPA's."""
+    cfg = get_config("gemma3-4b")
+    g, tail = lg_split(cfg)
+    a, L, B, S, n_dec = cfg.attn, cfg.n_layers, 4, GEMMA3_4B_PROMPT, 32
+    rng = np.random.default_rng(5)
+    errs, refused = check_gemma3_kernels(rng, B, S, n_dec, a, cfg.d_model)
+    m, params, weights = facade_weights(cfg)
+    emit(phase="gemma3_4b_weights", groups=g, tail=tail, local_layers=g * a.local_ratio + tail,
+         n_params_by_config=cfg.n_params(), **weights)
+    run, used, prompt, tok, cache = facade_generate(m, params, B, S, n_dec)
+    want = {name: 0 for name in used}
+    want.update(rmsnorm=(2 * L + 1) * (1 + n_dec), flash_attention=L, flash_decode=L * n_dec)
+    if used != want:
+        raise AssertionError(f"gemma3-4b: launches {used}, the stack implies {want}")
+    emit(phase="gemma3_4b", ring_rows=a.local_window,
+         cache_bytes=sum(t.numel() * t.element_size() for t in cache.values()), **run)
+    for name in SERVING:
+        records[name]["launches_gemma3_4b"] = used[name]
+    emit(phase="gemma3_4b_step_profile",
+         decode=profile_step(lambda: m.decode_step(params, tok, cache, S + n_dec - 1)[0]
+                             .argmax(-1).tolist()),
+         prefill=profile_step(lambda: m.prefill(params, {"tokens": prompt}, S + n_dec)[0]
+                              .argmax(-1).tolist(), n=2))
+    del cache
+    emit(phase="gemma3_4b_logits", max_abs_err=facade_logits(m, params, prompt, n=GEMMA3_4B_LOGITS),
+         tolerance={"rtol": 0.15, "atol": 0.3})
+    del m, params
+    torch.cuda.empty_cache()
+    T, mid = S + n_dec, S + n_dec // 2
+    H, KVH, D = a.n_heads, a.n_kv_heads, a.head_dim
+    times = {
+        "rmsnorm": [time_rmsnorm(rng, (B * S, cfg.d_model), 4), time_rmsnorm(rng, (B, cfg.d_model))],
+        "flash_attention": [time_flash_attention_prefill(rng, B, S, H, KVH, D),
+                            time_flash_attention_prefill(rng, B, S, H, KVH, D, "local",
+                                                         a.local_window)],
+        "flash_decode": [time_flash_decode(rng, [mid] * B, f"B={B} H={H} KVH={KVH} D={D} T={T} "
+                                           f"kv_len {mid}", B=B, H=H, KVH=KVH, D=D, T=T),
+                         time_flash_decode(rng, [a.local_window] * B, f"B={B} H={H} KVH={KVH} "
+                                           f"D={D} local ring T={a.local_window}, all valid",
+                                           B=B, H=H, KVH=KVH, D=D, T=a.local_window)],
+    }
+    # the run's launches at each timed shape: the prefill's and the steps'
+    # norms; the global and the local layers' prompt attention; decode
+    # over the global caches and over the local rings
+    local = g * a.local_ratio + tail
+    for t, n in zip(times["rmsnorm"] + times["flash_attention"] + times["flash_decode"],
+                    (2 * L + 1, (2 * L + 1) * n_dec, L - local, local, (L - local) * n_dec,
+                     local * n_dec)):
+        t["launches"] = n
+    emit(phase="gemma3_4b_kernels", max_abs_err=errs,
+         tolerance={"bfloat16": TOL[BF], "float32": TOL[F32]}, refused=refused, times=times)
+    for name in SERVING:
+        records[name]["max_abs_err_gemma3_4b"] = errs[name]
+        records[name]["gemma3_4b"] = times[name]
 
 
 # --------------------------------------------------------------------- #
@@ -3380,6 +3651,12 @@ def main() -> int:
     emit(phase="fleet_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    phase_examples(records)
+    emit(phase="examples_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     phase_falcon_mamba(records)
     emit(phase="falcon_mamba_done", seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
@@ -3393,6 +3670,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_gemma3(records)
     emit(phase="gemma3_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_gemma_2b(records)
+    emit(phase="gemma_2b_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_gemma3_4b(records)
+    emit(phase="gemma3_4b_done", seconds=time.perf_counter() - t0)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3425,10 +3714,11 @@ def main() -> int:
         rec["floor_us"] = floor_us
         rec["launches_x_gap_ms"] = rec["launches"] * max(
             0.0, rec["ms"] - max(rec["bound_ms"], floor_us / 1e3))
-        if "llama31_8b" in rec:     # the llama3.1-8b serve, each timed shape by its launches
-            rec["launches_x_gap_ms_llama31_8b"] = sum(
-                t["launches"] * max(0.0, t["ms"] - max(t["bound_ms"], floor_us / 1e3))
-                for t in rec["llama31_8b"])
+        for key in ("llama31_8b", "gemma_2b", "gemma3_4b"):
+            if key in rec:          # a path's run, each timed shape by its launches
+                rec[f"launches_x_gap_ms_{key}"] = sum(
+                    t["launches"] * max(0.0, t["ms"] - max(t["bound_ms"], floor_us / 1e3))
+                    for t in rec[key])
     emit(kernels=list(records.values()))
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

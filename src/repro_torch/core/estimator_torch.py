@@ -29,7 +29,6 @@ On a CUDA device the step is captured into a CUDA graph at its first use
 from __future__ import annotations
 
 import functools
-import json
 from typing import Dict, Tuple
 
 import numpy as np
@@ -225,8 +224,9 @@ _steps: Dict[tuple, tuple] = {}    # (bucket, K, DeviceModel, device) -> (input,
 
 def _step(S: int, K: int, dev: DeviceModel, device: torch.device) -> tuple:
     """The static input and the step of one (bucket, K, device model) on
-    ``device``, captured on a CUDA device at the first call (the capture's
-    time is printed as a JSON line)."""
+    ``device``, captured on a CUDA device at the first call (its seconds in
+    the step's ``capture_s``; nothing is printed: a program's standard
+    output is its own)."""
     key = (S, K, dev, device)
     if key not in _steps:
         inp = graphs.StaticInput(S * K * (_N_AXES + len(_FIELDS)), F64, device)
@@ -235,11 +235,7 @@ def _step(S: int, K: int, dev: DeviceModel, device: torch.device) -> tuple:
             torch.from_numpy(dev.capacity_vector()).to(device),
             float(dev.cache_capacity), float(dev.n_slots),
             torch.from_numpy(_PER_SLOT_MASK).to(device))
-        step = graphs.capture(body, device, f"solve_{S}x{K}_{dev.name}")
-        if step.graph is not None:
-            print(json.dumps({"graph_captured": step.name, "seconds": step.capture_s}),
-                  flush=True)
-        _steps[key] = (inp, step)
+        _steps[key] = (inp, graphs.capture(body, device, f"solve_{S}x{K}_{dev.name}"))
     return _steps[key]
 
 

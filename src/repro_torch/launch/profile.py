@@ -55,9 +55,10 @@ def plan(profs, dev=H100, group_size: int = 2, search=None):
     return sched.plan()
 
 
-def main(argv=None, search=None):
+def main(argv=None, search=None, device="cuda"):
     """The CLI; returns (fingerprints, plan or None) as priced (``search``:
-    the plan's ``FractionSearchConfig``, None for the backend's default)."""
+    the plan's ``FractionSearchConfig``, None for the backend's default;
+    ``device``: where the torch solver runs)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--plan", action="store_true",
@@ -76,7 +77,7 @@ def main(argv=None, search=None):
     if not profs:
         print("no dry-run artifacts found; run repro_torch.launch.dryrun first")
         return None, None
-    with solver_backend(args.backend, device="cuda"):
+    with solver_backend(args.backend, device=device):
         fps = fingerprints(profs, dev)
         p = plan(profs, dev, args.group_size, search) if args.plan else None
     print(f"{'phase':44s} {'bottleneck':11s} sensitivity fingerprint "

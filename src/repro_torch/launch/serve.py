@@ -1,6 +1,12 @@
 """Serving entry point: continuous batching with interference-aware chunked
 prefill.
 
+``main`` prices every prefill chunk on the torch solver on ``--device`` by
+default: on the card each price is a torch solve with one ``cache_share``
+launch; ``--backend numpy`` prices on the NumPy solver on the host
+(ROADMAP C19). ``serve`` is the library function and prices on the
+process-wide backend (``repro_torch.core.backend``).
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --requests 8 --mode interference_aware            # on the GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
@@ -15,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config, tiny_config
+from repro_torch.core.backend import SOLVER_BACKENDS, solver_backend
 from repro_torch.serve import Engine, EngineConfig
 
 
@@ -50,6 +57,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a GPU) or cpu")
+    ap.add_argument("--backend", default="torch", choices=SOLVER_BACKENDS,
+                    help="the chunk prices' solver: torch on --device (default) or numpy")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -60,10 +69,11 @@ def main(argv=None):
     for _ in range(args.requests):
         plen = int(rng.integers(8, args.max_len - args.max_new - 1))
         prompts.append(rng.integers(1, cfg.vocab_size, size=plen).tolist())
-    eng, metrics, dt = serve(
-        cfg, EngineConfig(max_slots=args.slots, max_len=args.max_len,
-                          mode=args.mode, seed=args.seed),
-        prompts, args.max_new, device=args.device)
+    with solver_backend(args.backend, device=args.device):
+        eng, metrics, dt = serve(
+            cfg, EngineConfig(max_slots=args.slots, max_len=args.max_len,
+                              mode=args.mode, seed=args.seed),
+            prompts, args.max_new, device=args.device)
     toks = sum(m["new_tokens"] for m in metrics.values())
     print(f"mode={args.mode} device={eng.device}: {len(metrics)} requests, "
           f"{toks} tokens in {dt:.2f}s")

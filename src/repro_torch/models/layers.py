@@ -123,7 +123,10 @@ def embed(p: Params, tokens: torch.Tensor, scale_by_dim: bool = False
           ) -> torch.Tensor:
     x = p["embedding"][tokens]
     if scale_by_dim:
-        x = x * torch.tensor(math.sqrt(x.shape[-1]), dtype=x.dtype, device=x.device)
+        # the reference's scale rounded to x's dtype, as a Python number: a
+        # tensor made on the card would be a host copy, which a CUDA graph
+        # capture refuses (ROADMAP C20)
+        x = x * torch.tensor(math.sqrt(x.shape[-1]), dtype=x.dtype).item()
     return x
 
 

@@ -5,8 +5,8 @@
 The twins of tests/test_fleet.py, tests/test_repair.py and
 tests/test_ft.py's fake-clock case, run on the port; the helpers that the
 reference's tests take from benchmarks/bench_fleet.py (``cold_fleet``,
-``fleet_plans_equal``) and bench_planner.py (``decode_heavy_mix``) are
-restated here. Then the same scripted kill, storm and straggler go through
+``fleet_plans_equal``) are restated here, and bench_planner.py's
+``decode_heavy_mix`` is the port's, in ``repro_torch.examples.fleet_failover``. Then the same scripted kill, storm and straggler go through
 both packages' ``FaultInjector`` into both packages' fleets: the decision
 logs and the placements are equal, bit for bit on the NumPy backend and
 at 1e-9 on the port's torch backend (``device="cpu"``).
@@ -23,28 +23,11 @@ from repro_torch.core import (BEST_EFFORT, SLO, TPU_V5E, TPU_V5P,
                               FleetConfig, FleetScheduler, KernelProfile,
                               RepairScope, WorkloadProfile, solver_backend)
 from repro_torch.core.resources import RESOURCE_AXES
+from repro_torch.examples.fleet_failover import decode_heavy_mix
 from repro_torch.ft.inject import (FakeClock, FaultInjector, arrive,
                                    depart, kill, slow, storm)
 
 TOL = 1e-9
-
-
-def decode_heavy_mix(dev, n_decode=4, n_aux=2, core=None):
-    """bench_planner.decode_heavy_mix over the port's profile classes (or
-    the module ``core``'s)."""
-    kp = core.KernelProfile if core else KernelProfile
-    wp = core.WorkloadProfile if core else WorkloadProfile
-
-    def prof(name, slo, dur, **u):
-        d = {r: u.get(r, 0.0) * dev.capacity(r) for r in RESOURCE_AXES}
-        return wp(name, (kp(f"{name}#step", demand=d, duration=dur),),
-                  slo_slowdown=slo)
-
-    decodes = [prof(f"decode{i}", 1.15, 1.0, mxu=0.4, vpu=0.1, issue=0.1,
-                    smem=0.05, hbm=0.6, l2=0.6) for i in range(n_decode)]
-    aux = [prof(f"aux{i}", 12.0, 0.08, vpu=0.072, issue=0.004, mxu=0.004,
-                hbm=0.0016, l2=0.0016) for i in range(n_aux)]
-    return decodes + aux
 
 
 def fleet_plans_equal(got, want, tol=TOL):

@@ -109,6 +109,41 @@ def test_embed_scales_by_dim():
     close(got, want, rtol=1e-6, atol=1e-6)
 
 
+def test_embed_scale_is_a_host_number_rounded_as_the_reference_rounds_it():
+    """ROADMAP C20: the scale is the reference's, rounded to the embedding's
+    dtype (bf16 bit for bit at d_model 2,048, gemma-2b's), and no tensor is
+    made on the embedding's device for it: a CUDA graph capture refuses the
+    host copy that makes one (the engine's captured steps of gemma-2b). On
+    ``meta``, the card's stand-in here, no op of ``embed`` reads a scalar
+    tensor on that device."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    rng = np.random.default_rng(5)
+    e = rng.standard_normal((20, 2048), dtype=np.float32)
+    tok = rng.integers(0, 20, size=(2, 5))
+    want = jlayers.embed({"embedding": jnp.asarray(e, jnp.bfloat16)},
+                         jnp.asarray(tok, jnp.int32), scale_by_dim=True)
+    got = layers.embed({"embedding": torch.from_numpy(e).bfloat16()}, torch.from_numpy(tok),
+                       scale_by_dim=True)
+    assert np.array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+    class Scalars(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.on_device = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.on_device += [str(func) for a in args if isinstance(a, torch.Tensor)
+                               and a.device.type == "meta" and a.dim() == 0]
+            return func(*args, **(kwargs or {}))
+
+    emb = {"embedding": torch.empty((20, 2048), dtype=torch.bfloat16, device="meta")}
+    with Scalars() as seen:
+        out = layers.embed(emb, torch.zeros((2, 5), dtype=torch.int64, device="meta"),
+                           scale_by_dim=True)
+    assert out.shape == (2, 5, 2048) and seen.on_device == []
+
+
 # ------------------------- weights carried across ---------------------- #
 def test_from_jax_params_keeps_the_tree():
     jm, jp, m, p = both_models("bfloat16")

@@ -12,7 +12,8 @@ placements.
 
 The workloads are drawn by the reference's generators
 (benchmarks/bench_planner.py), restated here over either package's
-profile classes, so that both packages see the same numbers.
+profile classes, so that both packages see the same numbers;
+``decode_heavy_mix`` is the port's, in ``repro_torch.examples.fleet_failover``.
 """
 import dataclasses
 
@@ -29,6 +30,7 @@ from repro_torch.core import (FRACTION_FLOOR, LEGACY_SEARCH, TPU_V5E,
                               plan_colocation, search_group_fractions)
 from repro_torch.core.resources import RESOURCE_AXES
 from repro_torch.core.scheduler import _PARTITION_FRACTIONS, Placement, Plan
+from repro_torch.examples.fleet_failover import decode_heavy_mix
 
 TOL = 1e-9
 
@@ -58,23 +60,6 @@ def random_workloads(rng, n, dev, core=tc):
               for j in range(int(rng.integers(1, 3)))),
         slo_slowdown=float(rng.uniform(1.1, 1.6)))
         for i in range(n)]
-
-
-def decode_heavy_mix(dev, n_decode=4, n_aux=2, core=tc):
-    """bench_planner.decode_heavy_mix: bandwidth-bound decodes with a tight
-    1.15x SLO that only a slot partition rescues in pairs, and short
-    best-effort VPU bursts that pack beside them in k-way groups."""
-    def prof(name, slo, dur, **u):
-        d = {r: u.get(r, 0.0) * dev.capacity(r) for r in RESOURCE_AXES}
-        return core.WorkloadProfile(
-            name, (core.KernelProfile(f"{name}#step", demand=d, duration=dur),),
-            slo_slowdown=slo)
-
-    decodes = [prof(f"decode{i}", 1.15, 1.0, mxu=0.4, vpu=0.1, issue=0.1,
-                    smem=0.05, hbm=0.6, l2=0.6) for i in range(n_decode)]
-    aux = [prof(f"aux{i}", 12.0, 0.08, vpu=0.072, issue=0.004, mxu=0.004,
-                hbm=0.0016, l2=0.0016) for i in range(n_aux)]
-    return decodes + aux
 
 
 def to_ref(w):

@@ -17,12 +17,14 @@ from repro.core import H100 as JAX_H100
 from repro.serve import Engine as JaxEngine
 from repro.serve import EngineConfig as JaxEngineConfig
 from repro_torch.configs.registry import get_config, tiny_config
-from repro_torch.core import H100, TPU_V5E
+from repro_torch.core import H100, TPU_V5E, backend
+from repro_torch.launch import serve as serve_mod
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serve import Engine as _Engine
 from repro_torch.serve import EngineConfig, SlotAllocator
+from repro_torch.serve import engine as engine_mod
 from repro_torch.serve.kvcache import Sequence
 
 QWEN3 = "qwen3-1.7b"
@@ -359,3 +361,29 @@ def test_token_out_of_vocabulary_raises():
     eng.submit([1, 2, CFG.vocab_size], max_new=1)
     with pytest.raises(IndexError):
         eng.run_until_done()
+
+
+@pytest.mark.parametrize("argv, want", [
+    ([], ("torch", "cpu")),
+    (["--backend", "numpy"], ("numpy", None)),
+])
+def test_launch_serve_prices_on_its_backend_and_device(argv, want, monkeypatch, capsys):
+    """ROADMAP C19: ``launch.serve.main`` runs the engine's chunk pricing on
+    the torch solver on ``--device`` unless ``--backend numpy`` is given,
+    and restores the process-wide backend afterwards."""
+    seen = []
+
+    def watched(*args, **kw):
+        seen.append((backend.get_solver_backend(), backend.get_solver_device().type))
+        return solve(*args, **kw)
+
+    solve = engine_mod.solve_scenarios
+    monkeypatch.setattr(engine_mod, "solve_scenarios", watched)
+    before = (backend.get_solver_backend(), backend.get_solver_device())
+    metrics = serve_mod.main(["--tiny", "--device", "cpu", "--requests", "2"] + argv)
+    assert len(metrics) == 2 and seen
+    assert all(b == want[0] for b, _ in seen), seen
+    if want[1] is not None:
+        assert all(d == want[1] for _, d in seen), seen
+    assert (backend.get_solver_backend(), backend.get_solver_device()) == before
+    assert "device=cpu" in capsys.readouterr().out
