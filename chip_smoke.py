@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, times them at the shapes their paths
-give them, and drives fifteen paths, counting the kernels' launches on each:
+give them, and drives seventeen paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
     continuous-batching engine (rmsnorm, flash_attention, flash_decode),
@@ -22,6 +22,19 @@ give them, and drives fifteen paths, counting the kernels' launches on each:
     ``launch/profile``'s entry point prices every record on the card (the
     torch solver, one cache_share launch a solve) and, with one explicit
     search, on NumPy and on the card, with the same plan;
+  * one chip of the production meshes: the same two models' cells counted
+    on one chip of the reference's 16x16 and 2x16x16 meshes by a child
+    process (``--pod-counts``: no card, a ``fake`` world of 256 / 512 ranks
+    of its own) that runs beside the train phase, whose host waits on the
+    card, and is read after it: each chip's products beside the one-device
+    count's split over the chips, and both meshes' records priced as the
+    one-device ones;
+  * the sharded forward: qwen3-1.7b at full width and depth over a (1, 1)
+    CUDA mesh of an NCCL world of one rank, its parameters, prompt, ids and
+    cache DTensors, on the three kernels through ``local_map``, against the
+    unsharded facade (logits and launches), and the card's half of a
+    decode over a cache split between two ranks (``flash_decode``'s
+    per-split partials);
   * interference: the paper's §4 measure → fit → validate loop, the four
     stressor kernels on their own CUDA streams beside two full-width
     attention victims replayed from CUDA graphs
@@ -105,7 +118,9 @@ import gc
 import importlib
 import io
 import json
+import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -116,6 +131,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -146,9 +162,12 @@ from repro_torch.kernels import stressors as st_mod  # noqa: E402
 from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
 from repro_torch.launch import gpu_native  # noqa: E402
 from repro_torch.launch import profile as profile_mod  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.moe import ParallelContext  # noqa: E402
+from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.models.hybrid import hybrid_split  # noqa: E402
 from repro_torch.models.transformer import lg_split, vlm_split  # noqa: E402
 from repro_torch.core.scenario import Scenario  # noqa: E402
@@ -1639,7 +1658,7 @@ def predictions(recs: dict, measured: dict) -> dict:
     return out
 
 
-def price_records() -> dict:
+def price_records(results: Path = DRYRUN_DIR, mesh: str = "dev1") -> dict:
     """``launch/profile``'s entry point over the phase's records. First as a
     user runs it, ``main(["--plan"])``: the torch solver on the card with
     its default search, every solve a replay with one ``cache_share``
@@ -1647,8 +1666,8 @@ def price_records() -> dict:
     (the NumPy backend's default), ``--backend numpy`` and the default
     torch: the same bottlenecks, rankings and placements, scores and the
     plan's numbers within ``PRICE_TOL``."""
-    profs = profile_mod.load_profiles(results=DRYRUN_DIR)
-    argv = ["--plan", "--results", str(DRYRUN_DIR)]
+    profs = profile_mod.load_profiles(mesh_tag=mesh, results=results)
+    argv = ["--plan", "--results", str(results), "--mesh", mesh]
     printed = {}
 
     def run(name, extra=(), search=None):
@@ -1662,11 +1681,12 @@ def price_records() -> dict:
                   float(p.throughput_gain)] for p in plan.placements], list(plan.solo))
 
     search = FractionSearchConfig()
-    (_, rec_main) = fleet_run("dryrun_profile_main", "torch", lambda: run("main"))
-    (want, rec_np) = fleet_run("dryrun_profile_numpy", "numpy",
+    (_, rec_main) = fleet_run(f"dryrun_profile_{mesh}_main", "torch", lambda: run("main"))
+    (want, rec_np) = fleet_run(f"dryrun_profile_{mesh}_numpy", "numpy",
                                lambda: run("numpy", ("--backend", "numpy"), search))
-    (got, rec_t) = fleet_run("dryrun_profile_torch", "torch", lambda: run("torch", (), search))
-    values_close(got, want, PRICE_TOL, "dryrun profile")
+    (got, rec_t) = fleet_run(f"dryrun_profile_{mesh}_torch", "torch",
+                             lambda: run("torch", (), search))
+    values_close(got, want, PRICE_TOL, f"dryrun profile {mesh}")
     fps, placements, solo = got
     return {"profiles": len(profs), "fingerprints": [
                 {"phase": n, "bottleneck": b, "top4": r[:4],
@@ -1677,7 +1697,7 @@ def price_records() -> dict:
             "numpy": rec_np, "torch": rec_t, "equal_at": PRICE_TOL}
 
 
-def phase_dryrun(records: dict, qwen3_profiles: dict) -> None:
+def phase_dryrun(records: dict, qwen3_profiles: dict) -> dict:
     """The parallel and launch layers' card path. (a) ``launch/dryrun``
     counts qwen3-1.7b and llama3.1-8b at full width and depth on ``meta``,
     on the host, in each of their cells and at the engine's decode shape;
@@ -1694,6 +1714,286 @@ def phase_dryrun(records: dict, qwen3_profiles: dict) -> None:
     priced = price_records()
     records["cache_share"]["launches_dryrun_profile"] = priced["main"]["cache_share_launches"]
     emit(phase="dryrun_profile", **priced)
+    return recs
+
+
+# ----------------------------- pod counts ----------------------------- #
+POD_DIR = Path(__file__).resolve().parent / "results" / "dryrun_torch_pods"
+POD_LOG = POD_DIR.parent / "dryrun_torch_pods.log"
+POD_WAIT_S = 900
+# a chip's products lie between the whole step's over the chips (a perfect
+# split) and the whole step's (nothing split); float sums, so this much slack
+SPLIT_SLACK = 1e-9
+
+
+def pod_counts() -> int:
+    """The child process's work (``--pod-counts``): every cell of
+    ``DRYRUN_SHAPES`` of both models on one chip of the reference's 16x16
+    mesh and of its 2x16x16 mesh, each counted by ``launch/dryrun.run_cell``
+    in a ``fake`` world of 256 or 512 ranks of its own, into ``POD_DIR``,
+    with a JSON line a cell. Its process has no card (``CUDA_VISIBLE_DEVICES``
+    empty) and its own default process group, apart from the NCCL world of
+    one card that ``phase_sharded_forward`` makes in the parent."""
+    torch.set_num_threads(1)         # shapes on meta: nothing to compute
+    shutil.rmtree(POD_DIR, ignore_errors=True)
+    POD_DIR.mkdir(parents=True)
+    for arch in DRYRUN_MODELS:
+        for shape in DRYRUN_SHAPES:
+            for multi_pod in (False, True):
+                t0 = time.perf_counter()
+                rec = dryrun_mod.run_cell(arch, shape, multi_pod=multi_pod, results=POD_DIR)
+                emit(phase="pod_count", arch=arch, shape=rec["shape"],
+                     mesh=dryrun_mod.mesh_tag(multi_pod), host_s=time.perf_counter() - t0,
+                     count_s=rec["compile_s"])
+    return 0
+
+
+def start_pod_counts() -> subprocess.Popen:
+    """``pod_counts`` in a child process, started just before the train
+    phase: its host work runs beside a phase whose host waits on the card,
+    and no phase that times the host runs beside it. ``phase_dryrun_mesh``,
+    after the train phase, waits for it."""
+    POD_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with open(POD_LOG, "w") as log:
+        return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--pod-counts"],
+                                stdout=log, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def phase_dryrun_mesh(records: dict, dev1: dict, proc: subprocess.Popen) -> None:
+    """One chip of the production meshes. The child's counts of qwen3-1.7b
+    and llama3.1-8b in ``count_cells``' cells under ``pod1`` and ``pod2``:
+    each chip's products, bytes and collective bytes by kind, the host
+    seconds of its count, and its products over the ``dev1`` record's
+    split over the chips (1 for a perfect split; more where ``sanitize``
+    left an axis whole: the replication it leaves). Gates: every count
+    finished, its products between the perfect split and the whole step,
+    a collective in every cell. Then ``launch/profile`` prices the records
+    of each mesh as ``price_records`` prices the one-device ones: on the
+    torch solver on the card, one ``cache_share`` launch a solve, and with
+    one explicit search on NumPy and on the card, the same plan."""
+    t0 = time.perf_counter()
+    code = proc.wait(timeout=POD_WAIT_S)
+    waited = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in POD_LOG.read_text().splitlines() if ln.startswith("{")]
+    if code != 0:
+        raise AssertionError(f"pod counts exited {code}: {POD_LOG.read_text()[-3000:]}")
+    host = {(ln["arch"], ln["shape"], ln["mesh"]): ln for ln in lines
+            if ln.get("phase") == "pod_count"}
+    for arch in DRYRUN_MODELS:
+        for shape in DRYRUN_SHAPES:
+            name = shape if isinstance(shape, str) else shape.name
+            one = dev1[(arch, name)]["hlo_exec"]["mxu_flops"]
+            for multi_pod in (False, True):
+                tag = dryrun_mod.mesh_tag(multi_pod)
+                rec = json.loads((POD_DIR / dryrun_mod.cell_file(
+                    arch, name, multi_pod=multi_pod)).read_text())
+                got = rec["hlo_exec"]["mxu_flops"]
+                replication = got / (one / rec["n_chips"])
+                coll = rec["collectives"]
+                if not (1 - SPLIT_SLACK <= replication
+                        and got <= one * (1 + SPLIT_SLACK) and coll["total_bytes"] > 0):
+                    raise AssertionError(f"dryrun {arch} {name} {tag}: a chip's products {got:.6g} "
+                                         f"against dev1's {one:.6g} over {rec['n_chips']}, "
+                                         f"collectives {coll}")
+                emit(phase="dryrun_mesh_cell", arch=arch, shape=name, mesh=tag,
+                     mesh_shape=rec["mesh"], n_chips=rec["n_chips"], recipe=rec["recipe"],
+                     mxu_flops=got, hbm_bytes=rec["hlo_exec"]["hbm_bytes"],
+                     collective_bytes_by_kind=coll["bytes_by_kind"],
+                     collective_count_by_kind=coll["count_by_kind"],
+                     collective_bytes=coll["total_bytes"],
+                     host_s=host[(arch, name, tag)]["host_s"],
+                     count_s=host[(arch, name, tag)]["count_s"],
+                     dev1_mxu_flops=one, mxu_over_dev1_per_chip=replication)
+    launches = 0
+    for tag in ("pod1", "pod2"):
+        priced = price_records(POD_DIR, tag)
+        launches += priced["main"]["cache_share_launches"]
+        emit(phase="dryrun_mesh_profile", mesh=tag, **priced)
+    records["cache_share"]["launches_dryrun_mesh_profile"] = launches
+    emit(phase="dryrun_mesh", waited_for_counts_s=waited,
+         counts_host_s=sum(ln["host_s"] for ln in host.values()), cells=len(host))
+
+
+# ---------------------------- sharded forward ---------------------------- #
+SHARDED_RECIPE = "tp_serve"
+
+
+def _whole(t):
+    return t.full_tensor() if type(t).__name__ == "DTensor" else t
+
+
+def facade_steps(m, params, prompt, n_dec: int, feed=None, ctx=None, place=None) -> dict:
+    """A prefill of ``prompt`` and ``n_dec`` decode steps through the facade,
+    under ``ctx`` (its tensors placed by ``place``) or on one device: the
+    prefill's and each step's logits (f32, on the host), the ids each step
+    was fed (``feed``: those ids; else its own greedy ones), the launches
+    of the run (after one short unmeasured run) and each step's host
+    seconds until its ids are on the host."""
+    kw = {} if ctx is None else {"ctx": ctx}
+    place = place or (lambda x, what: x)
+    B, S = prompt.shape
+    with torch.no_grad():
+        lg, cache = m.prefill(params, {"tokens": place(prompt[:, :64], "tokens")}, S, **kw)
+        m.decode_step(params, place(_whole(lg).argmax(-1), "tokens"), place(cache, "cache"), 64,
+                      **kw)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        lg, cache = m.prefill(params, {"tokens": place(prompt, "tokens")}, S + n_dec, **kw)
+        cache = place(cache, "cache")
+        logits = [_whole(lg).float().cpu()]
+        ids = [feed[:, :1] if feed is not None else logits[0].argmax(-1)]
+        prefill_s = time.perf_counter() - t0
+        steps = []
+        for i in range(n_dec):
+            t1 = time.perf_counter()
+            lg, cache = m.decode_step(params, place(ids[-1].to(DEV), "tokens"), cache, S + i, **kw)
+            logits.append(_whole(lg).float().cpu())
+            ids.append(feed[:, i + 1:i + 2] if feed is not None else logits[-1].argmax(-1))
+            steps.append(time.perf_counter() - t1)
+        used = counts(("rmsnorm", "flash_attention", "flash_decode"))
+    return {"logits": torch.cat(logits, 1), "ids": torch.cat(ids, 1), "launches": used,
+            "prefill_ms": prefill_s * 1e3, "step_ms": [t * 1e3 for t in steps],
+            "cache": cache}
+
+
+def facade_steps_plain(m, params, prompt, run: dict) -> dict:
+    """The kernels of a ``facade_steps`` run held against their plain
+    versions at its shapes, at the reference's bf16 tolerance: its prefill
+    of the whole prompt (``flash_attention`` over every row, ``rmsnorm``
+    over B * S rows), its first decode step (``flash_decode`` over S + 1
+    valid rows of the cache) fed its ids over the plain prefill's cache,
+    and its last step (every row valid) over the run's own cache."""
+    B, S = prompt.shape
+    n_dec = run["logits"].shape[1] - 1
+    got, ids, name = run["logits"], run["ids"].to(DEV), m.cfg.name
+    with torch.no_grad(), plain_versions():
+        lg, cache = m.prefill(params, {"tokens": prompt}, S + n_dec)
+        err = {"prefill": logits_close(f"{name} prefill", got[:, :1], lg.float().cpu())}
+        lg, _ = m.decode_step(params, ids[:, :1], cache, S)
+        err["first_step"] = logits_close(f"{name} first step", got[:, 1:2], lg.float().cpu())
+        lg, _ = m.decode_step(params, ids[:, -2:-1], run["cache"], S + n_dec - 1)
+        err["last_step"] = logits_close(f"{name} last step", got[:, -1:], lg.float().cpu())
+    return err
+
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def merge_ranks(parts) -> tuple:
+    """The sequence-parallel decode's merge of each rank's (m, l, acc),
+    as ``kernels/decode_attention.py`` makes it across ranks: the max, then
+    the rescaled sums."""
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    l = sum(l * torch.exp(m - top) for m, l, _ in parts)
+    acc = sum(a * torch.exp(m - top)[..., None] for m, _, a in parts)
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def check_sequence_parallel_decode(rng) -> dict:
+    """The card's half of a decode over a cache whose sequence two ranks
+    split (the serving recipes' cache): ``flash_decode``'s kernels over each
+    rank's block of rows, their per-split partials merged
+    (``decode_attention.partials``, a row of length 0 included) against
+    the plain partials, and the two ranks' merge against
+    ``flash_decode_plain`` over the whole cache, at qwen3's decode shapes
+    (16 / 8 heads of 128, 8 sequences, 1,056 rows)."""
+    B, H, KVH, D, T = 8, 16, 8, 128, 1056
+    q = randn(rng, (B, 1, H, D), BF)
+    k, v = (randn(rng, (B, T, KVH, D), BF) for _ in "kv")
+    lens = torch.tensor([1040, 300, 528, 529, 1, 1056, 700, 64], device=DEV)
+    half = T // 2
+    before = counts(("flash_decode",))["flash_decode"]
+    parts, plain, err = [], [], {}
+    for c in range(2):
+        local = torch.clamp(lens - c * half, 0, half)
+        ks, vs = k[:, c * half:(c + 1) * half], v[:, c * half:(c + 1) * half]
+        parts.append(dec_mod.partials(q, ks, vs, local))
+        plain.append(dec_mod.partials_plain(q, ks, vs, local))
+        ok = local > 0
+        (m, l, a), (m0, l0, a0) = parts[-1], plain[-1]
+        err[f"rank{c}_m"] = check_close(f"partials m, rank {c}", m[ok], m0[ok], F32, tol=1e-3)
+        err[f"rank{c}_o"] = check_attention(f"partials o, rank {c}", (a / l[..., None])[ok],
+                                            (a0 / l0[..., None])[ok], BF)
+        if (l[~ok] != 0).any() or (a[~ok] != 0).any():
+            raise AssertionError("partials: a row of no key kept a weight")
+    got = merge_ranks(parts).reshape(B, 1, H, D)
+    want = dec_mod.flash_decode_plain(q, k, v, lens)
+    err["merged"] = check_attention("sequence-parallel decode", got, want, BF)
+    launches = counts(("flash_decode",))["flash_decode"] - before
+    if launches != 2:
+        raise AssertionError(f"partials: {launches} flash_decode launches for two ranks' blocks")
+    return {"max_abs_err": err, "launches": launches, "shape": [B, H, KVH, D, T],
+            "lengths": lens.tolist()}
+
+
+def phase_sharded_forward(records: dict) -> None:
+    """The sharded forward on the card: qwen3-1.7b at full width and depth
+    (random bf16 weights from seed 0) over a (1, 1) ``("data", "model")``
+    CUDA mesh of an NCCL world of one rank (``tcp://localhost``), its
+    parameters placed by ``param_specs`` under ``tp_serve``, the prompt and
+    the ids over the data axis, the cache by ``cache_specs``: a prefill of 4
+    x 1,024 tokens and 32 decode steps through the facade's ``ctx``, fed the
+    ids the unsharded facade chose. Gates: the unsharded run's kernels
+    against their plain versions at these shapes (``facade_steps_plain``),
+    the launches of ``rmsnorm``, ``flash_attention`` and ``flash_decode``
+    equal the unsharded run's, and the logits equal its logits within the
+    reference's bf16 tolerance (bit for bit is reported). Beside them each
+    decode step's wall time and device-idle share, sharded and not
+    (``profile_step``)."""
+    cfg = get_config("qwen3-1.7b")
+    B, S, n_dec = 4, 1024, 32
+    m, params, weights = facade_weights(cfg)
+    rng = np.random.default_rng(11)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, S))).to(DEV)
+    plain = facade_steps(m, params, prompt, n_dec)
+    err_plain = facade_steps_plain(m, params, prompt, plain)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        da = shd.data_axes_of(mesh)
+        ctx = ParallelContext(mesh, da, "model")
+        placed = shd.distribute(params, mesh, shd.param_specs(cfg, SHARDED_RECIPE, mesh, params))
+
+        def place(x, what):
+            if what == "cache":
+                return shd.distribute(x, mesh, shd.cache_specs(cfg, SHARDED_RECIPE, mesh, x))
+            return shd.distribute(x, mesh, shd.sanitize((da, None), x.shape, mesh))
+        sharded = facade_steps(m, placed, prompt, n_dec, feed=plain["ids"], ctx=ctx, place=place)
+        if sharded["launches"] != plain["launches"]:
+            raise AssertionError(f"sharded forward: launches {sharded['launches']}, the "
+                                 f"unsharded run's {plain['launches']}")
+        bit = bool(torch.equal(sharded["logits"], plain["logits"]))
+        err = logits_close("qwen3 sharded forward", sharded["logits"], plain["logits"])
+        # the last step again, over the cache's last row
+        tok = place(plain["ids"][:, -2:-1].to(DEV), "tokens")
+        prof_s = profile_step(lambda: _whole(m.decode_step(
+            placed, tok, sharded["cache"], S + n_dec - 1, ctx=ctx)[0]).argmax(-1).tolist())
+    finally:
+        dist.destroy_process_group()
+    tok = plain["ids"][:, -2:-1].to(DEV)
+    prof_p = profile_step(lambda: m.decode_step(params, tok, plain["cache"], S + n_dec - 1)[0]
+                          .argmax(-1).tolist())
+    for name in ("rmsnorm", "flash_attention", "flash_decode"):
+        records[name]["launches_sharded_forward"] = sharded["launches"][name]
+    emit(phase="sequence_parallel_decode",
+         **check_sequence_parallel_decode(np.random.default_rng(12)))
+    emit(phase="sharded_forward", config=cfg.name, mesh={"data": 1, "model": 1},
+         recipe=SHARDED_RECIPE, batch=B, prompt_tokens=S, decode_steps=n_dec,
+         n_params=weights["n_params"], launches=sharded["launches"],
+         launches_unsharded=plain["launches"], logits_bit_equal=bit, max_abs_err=err,
+         max_abs_err_against_plain=err_plain,
+         tolerance={"rtol": 0.15, "atol": 0.3},
+         prefill_ms={"sharded": sharded["prefill_ms"], "unsharded": plain["prefill_ms"]},
+         decode_step_ms_median={"sharded": statistics.median(sharded["step_ms"]),
+                                "unsharded": statistics.median(plain["step_ms"])},
+         decode_step_profile={"sharded": prof_s, "unsharded": prof_p})
+
 
 
 # what the resident blocks of one H100 SM share (CUDA C programming guide,
@@ -3575,6 +3875,17 @@ def main() -> int:
               "and does not run on the CPU", file=sys.stderr)
         return 1
     t_all = time.perf_counter()
+    pods = []                         # the pod counts' child, once started
+    try:
+        return run_phases(t_all, pods)
+    finally:
+        for proc in pods:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_phases(t_all: float, pods: list) -> int:
     smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"])
     clocks = run_text(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -3627,8 +3938,14 @@ def main() -> int:
     emit(phase="serve_full_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    phase_dryrun(records, qwen3_profiles)
+    dev1 = phase_dryrun(records, qwen3_profiles)
     emit(phase="dryrun_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_sharded_forward(records)
+    emit(phase="sharded_forward_done", seconds=time.perf_counter() - t0)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3703,9 +4020,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    pods.append(start_pod_counts())   # host work beside the train phase
     t0 = time.perf_counter()
     phase_train(records)
     emit(phase="train_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_dryrun_mesh(records, dev1, pods[0])
+    emit(phase="dryrun_mesh_done", seconds=time.perf_counter() - t0)
 
     emit(phase="total", seconds=time.perf_counter() - t_all)
     for rec in records.values():
@@ -3727,6 +4051,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--pod-counts"]:     # the child started by start_pod_counts
+        sys.exit(pod_counts())
     try:
         code = main()
     except Exception as exc:          # the boundary: report, then fail

@@ -29,6 +29,20 @@ counter keeps them. ``hbm_bytes_boundary`` adds the eager model beside
 them: every op that moves data reads its operands and writes its result,
 as each op is its own kernel when PyTorch runs eagerly.
 
+**One rank's work under a mesh.** The reference's dry run reads the
+module after SPMD partitioning: per device shapes, and the collectives the
+partitioner inserted. Here the sharded step runs over DTensors on ``meta``
+blocks in a one-process ``fake`` world (``launch/mesh.py``). A dispatch
+mode sees a DTensor op before DTensor does, at its global shapes, and never
+sees the collectives DTensor issues inside the op's dispatch; so for an op
+with a DTensor operand the counter returns ``NotImplemented`` (the hook
+``CommDebugMode`` uses), DTensor runs, and what it runs on the local
+blocks, its redistributions' functional collectives and the local compute,
+comes back into the counter with plain tensors at one rank's shapes. The
+shape propagation DTensor does on ``FakeTensor``s is not work and is not
+counted. A collective's bytes follow ``_traffic`` on its local operand
+and result.
+
 **Loops.** A ``while`` body counts trip-count times in the reference. Here
 ``with counter.loop(trips):`` counts what runs inside it ``trips`` times,
 and ``steps(n, device)`` (from the leaf module ``repro_torch._loops``,
@@ -67,7 +81,8 @@ _COLLECTIVE_OPS = {"allreduce_": "all-reduce", "all_reduce": "all-reduce",
                    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
                    "all_to_all_single": "all-to-all",
                    "send": "collective-permute", "broadcast_": "collective-broadcast",
-                   "broadcast": "collective-broadcast"}
+                   "broadcast": "collective-broadcast",
+                   "shard_dim_alltoall": "all-to-all"}
 
 _REDUCE = {"sum", "mean", "amax", "amin", "max", "min", "argmax", "argmin", "prod",
            "var", "var_mean", "std", "std_mean", "logsumexp", "linalg_vector_norm",
@@ -108,6 +123,11 @@ def _tensors(x) -> List[torch.Tensor]:
     if isinstance(x, dict):
         return [t for v in x.values() for t in _tensors(v)]
     return []
+
+
+def _fake(x) -> bool:
+    """Any FakeTensor among x's tensors: DTensor's shape propagation."""
+    return any(type(t).__name__ == "FakeTensor" for t in _tensors(x))
 
 
 def _bytes(ts) -> int:
@@ -242,9 +262,11 @@ class Counter(TorchDispatchMode):
         self._live -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(t.__name__ == "DTensor" for t in types):
+            return NotImplemented       # DTensor runs it; its local ops come back here
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not self._quiet:
+        if not self._quiet and not _fake((args, kwargs, out)):
             self._count(func, args, kwargs, out)
         return out
 
@@ -255,7 +277,7 @@ class Counter(TorchDispatchMode):
         m, st = self._multiplicity(), self.stats
         self.ops += 1
         site = self.by_site is not None and f"{name:24s} {_site()}"
-        if ns in ("c10d", "_c10d_functional") and name in _COLLECTIVE_OPS:
+        if ns in ("c10d", "_c10d_functional", "_dtensor") and name in _COLLECTIVE_OPS:
             kind = _COLLECTIVE_OPS[name]
             b = m * _traffic(kind, _bytes(ins), _bytes(outs))
             st.coll_bytes_by_kind[kind] += b

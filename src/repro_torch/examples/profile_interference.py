@@ -19,8 +19,8 @@ def main(argv=None):
     without records."""
     args = arguments(__doc__).parse_args(argv)
     resolve_device(args.device)
-    return profile.main(["--plan", "--device", args.device_model, "--backend", args.backend],
-                        device=args.device)
+    return profile.main(["--plan", "--device", args.device_model, "--backend", args.backend,
+                         "--mesh", "dev1"], device=args.device)
 
 
 if __name__ == "__main__":

@@ -34,6 +34,14 @@ each split's keys from T.
 
 Where a gradient is wanted the wrapper runs the kernel inside
 ``_grad.KernelFunction``: the backward is the plain version's.
+
+Over DTensors (``_mesh``) each rank attends with its own shard: the batch
+and the heads may be split across ranks, the sequence and head_dim may not.
+Where a mesh dim splits q's heads and leaves k and v whole (KV heads that
+do not divide the model axis, which the reference's sanitised constraint
+leaves replicated), each rank slices the KV heads its query heads read,
+as the reference's expansion of k and v to every query head followed by
+its head-sharded constraint gives each device.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, _grad
+from repro_torch.kernels import _build, _grad, _mesh
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # head sizes the kernel is built for
@@ -139,6 +147,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (bf16 only; 0: the plan's own). Where q, k or v requires grad (and grad
     mode is on), the three get the plain version's gradients; the
     ``offsets`` form, the engine's extend step, then raises."""
+    if _mesh.any_dtensor(q, k, v):
+        return _sharded(q, k, v, kind, window, q_offset, kv_splits, offsets)
     if _grad.needs_grad(q, k, v):
         if offsets is not None:
             raise RuntimeError("flash_attention with offsets (the engine's extend "
@@ -148,6 +158,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lambda q, k, v: flash_attention_plain(q, k, v, kind, window, q_offset),
             q, k, v)
     return _forward(q, k, v, kind, window, q_offset, kv_splits, offsets)
+
+
+def kv_head_slice(H: int, KVH: int, c: int, n: int) -> slice:
+    """The KV heads that query heads ``[c * H / n, (c + 1) * H / n)`` read
+    (query head h reads KV head h // (H / KVH)): whole groups, or the one
+    KV head a group of query heads shares."""
+    G, Hl = H // KVH, H // n
+    if Hl % G and G % Hl:
+        raise ValueError(f"flash_attention: {H} query heads split {n} ways do "
+                         f"not tile the groups of {G} over {KVH} KV heads")
+    lo = c * Hl // G
+    return slice(lo, lo + max(1, Hl // G))
+
+
+def _sharded(q, k, v, kind, window, q_offset, kv_splits, offsets):
+    name = "flash_attention"
+    if offsets is not None:
+        raise ValueError(f"{name}: the offsets form (the engine's extend step) "
+                         "takes no DTensor")
+    mesh = _mesh.mesh_of(q, k, v)
+    qp = _mesh.check(name, "q", q, mesh, (0, 2))
+    kp = _mesh.check(name, "k", k, mesh, (0, 2))
+    if _mesh.placements(v, mesh) != kp:
+        _mesh.refuse(name, "v", _mesh.placements(v, mesh), f"k is placed {kp}")
+    head_dims = []        # mesh dims that split q's heads and leave k's whole
+    for i, (a, b) in enumerate(zip(qp, kp)):
+        da, db = _mesh.shard_dim(a, 4), _mesh.shard_dim(b, 4)
+        if da == 2 and db is None:
+            head_dims.append(i)
+        elif da != db:
+            _mesh.refuse(name, "q and k", (qp, kp),
+                         f"mesh dim {i} splits q's dim {da} and k's {db}")
+    if head_dims and any(_mesh.shard_dim(b, 4) == 2 for b in kp):
+        _mesh.refuse(name, "q and k", (qp, kp), "k's heads are split on other mesh dims")
+    heads = (kv_head_slice(q.shape[2], k.shape[2], *_mesh.coordinate(mesh, head_dims))
+             if head_dims else slice(None))
+
+    def run(q, k, v):
+        return flash_attention(q, k[:, :, heads], v[:, :, heads], kind, window,
+                               q_offset, kv_splits)
+    return _mesh.local(run, mesh, (q, k, v), list(qp))
 
 
 def _forward(q, k, v, kind, window, q_offset, kv_splits, offsets=None):

@@ -6,13 +6,14 @@ Bound by bytes on the card (x read once, y written once): one block per row
 keeps the row in registers between the sum of squares and the scaling, and
 moves it with 16-byte loads and stores. Where a gradient is wanted the
 wrapper runs the kernel inside ``_grad.KernelFunction``: the backward is the
-plain version's.
+plain version's. Over DTensors it normalises each rank's rows
+(``_mesh``): the rows may be split across ranks, the last dim may not.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, _grad
+from repro_torch.kernels import _build, _grad, _mesh
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -31,6 +32,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     count); a CUDA tensor launches the kernel or raises. Where x or
     scale requires grad (and grad mode is on), both get gradients, those of
     the plain version."""
+    if _mesh.any_dtensor(x, scale):
+        mesh = _mesh.mesh_of(x, scale)
+        pl = _mesh.check("rmsnorm", "x", x, mesh, range(x.ndim - 1))
+        _mesh.check("rmsnorm", "scale", scale, mesh, ())
+        return _mesh.local(lambda x, s: rmsnorm(x, s, eps), mesh, (x, scale), list(pl))
     if _grad.needs_grad(x, scale):
         return _grad.KernelFunction.apply(
             lambda x, s: _forward(x, s, eps), lambda x, s: rmsnorm_plain(x, s, eps),

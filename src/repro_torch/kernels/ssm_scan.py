@@ -12,7 +12,10 @@ units) at falcon-mamba's prefill. Beyond the Pallas kernel it takes an initial s
 final one, as the model's scan does, and returns y in f32 (the model's
 scan's type; ``kernels/ops.py:ssm_scan`` casts to ``x.dtype`` as the Pallas
 kernel does). Where a gradient is wanted the wrapper runs the kernel inside
-``_grad.KernelFunction``: the backward is the plain version's.
+``_grad.KernelFunction``: the backward is the plain version's. Over
+DTensors (``_mesh``) each rank scans its own batch rows and channels (the
+reference's constraint: batch over the data axes, channels over the model
+axis); the time axis and the states may not be split.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch._loops import steps
-from repro_torch.kernels import _build, _grad
+from repro_torch.kernels import _build, _grad, _mesh
 
 MAX_STATE = 16        # most states per channel the kernel is built for
 
@@ -69,12 +72,37 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     plain version's gradients; ``out_state``, written in place by the
     decode and prefill-state paths, then raises."""
     inputs = (x, dt, A, B, C, h0)
+    if _mesh.any_dtensor(*inputs, out_state):
+        return _sharded(*inputs, out_state)
     if _grad.needs_grad(*inputs):
         if out_state is not None:
             raise RuntimeError("ssm_scan into out_state (written in place) has no "
                                "gradient: call it under torch.no_grad()")
         return _grad.KernelFunction.apply(_forward, ssm_scan_plain, *inputs)
     return _forward(*inputs, out_state)
+
+
+def _sharded(x, dt, A, B, C, h0, out_state):
+    name = "ssm_scan"
+    mesh = _mesh.mesh_of(x, dt, A, B, C, h0, out_state)
+    xp = _mesh.check(name, "x", x, mesh, (0, 2))
+    Shard, R = _mesh._types()[1], _mesh._types()[2]()
+    # what each input's placements must be, given x's: (batch, channel) maps
+    want = {"dt": (dt, {0: Shard(0), 2: Shard(2)}), "A": (A, {0: R, 2: Shard(0)}),
+            "B": (B, {0: Shard(0), 2: R}), "C": (C, {0: Shard(0), 2: R}),
+            "h0": (h0, {0: Shard(0), 2: Shard(1)}),
+            "out_state": (out_state, {0: Shard(0), 2: Shard(1)})}
+    for what, (t, rule) in want.items():
+        if t is None:
+            continue
+        need = tuple(R if _mesh.shard_dim(p, 3) is None else rule[_mesh.shard_dim(p, 3)]
+                     for p in xp)
+        if _mesh.placements(t, mesh) != need:
+            _mesh.refuse(name, what, _mesh.placements(t, mesh), f"x is placed {xp}")
+    hp = [R if _mesh.shard_dim(p, 3) is None else want["h0"][1][_mesh.shard_dim(p, 3)]
+          for p in xp]
+    args = (x, dt, A, B, C, h0, out_state)
+    return _mesh.local(ssm_scan, mesh, args, (list(xp), hp))
 
 
 def _forward(x, dt, A, B, C, h0=None, out_state=None):

@@ -13,15 +13,23 @@ Pallas kernel. The steps are those a user runs: ``make_train_step`` (train),
 ``Model.prefill`` or ``forward`` for an encoder (prefill) and
 ``Model.decode_step`` (decode, one token a sequence over a full cache).
 
-Counts are for **one device**: the reference's ``run_cell(...,
-mesh=<a 1x1 mesh>)``, every recipe realised as replication and no
-collective. The files are tagged ``dev1``, never ``pod1``, because a
-per-chip count under the production 16x16 or 2x16x16 mesh needs a sharded
-forward, which is not ported (ROADMAP A10b); asking for it raises.
+Counts are **per chip**. Under the production meshes (``multi_pod=False``:
+the reference's 16x16 ``pod1``, ``True``: its 2x16x16 ``pod2``) the step is
+the sharded forward: the ``meta`` parameters placed by ``param_specs``, the
+batch by ``batch_specs``, a decode cache by ``cache_specs`` (and a
+prefill's cache left there, as the reference's out_shardings leave it),
+the optimiser state by ``param_specs`` of its tree, each a DTensor of one
+rank's blocks in a one-process ``fake`` world of 256 or 512 ranks
+(``launch/mesh.py:fake_world``), stepped with the reference's
+``ParallelContext``; the counter counts rank 0's local work and the
+collectives DTensor issues (``core/hlo.py``). ``multi_pod=None``, the
+default, is one device (``dev1``: the reference's 1x1 mesh, every recipe
+realised as replication, no collective). Files are tagged ``dev1``,
+``pod1`` or ``pod2``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.1-8b --shape decode_32k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--skip-done]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod | --both-meshes | --mesh pod1] [--skip-done]
 """
 from __future__ import annotations
 
@@ -39,20 +47,24 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs.base import SHAPES, RunConfig, ShapeConfig, supports_shape
 from repro_torch.configs.registry import get_config, valid_cells
 from repro_torch.core import hlo as hlo_mod
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import build_model
+from repro_torch.models.moe import ParallelContext
 from repro_torch.parallel import sharding as shd
 from repro_torch.train.optimizer import get_optimizer
 from repro_torch.train.trainer import make_train_step
 from repro_torch.tree import leaves, map_leaves
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
-MESH_TAG = "dev1"
 ONE_DEVICE = {"data": 1, "model": 1}
 # the serving engine's decode step: 8 slots, a cache of 1,024 positions and
 # the trash row (``serve/engine.py``), one token a slot
 ENGINE_DECODE = ShapeConfig("decode_engine", 1025, 8, "decode")
-A10B = ("the per-device count under the production mesh needs a sharded "
-        "forward, which is not ported (ROADMAP A10b); this dry run counts one device")
+
+
+def mesh_tag(multi_pod: Optional[bool]) -> str:
+    """``dev1`` (one device), ``pod1`` (16x16) or ``pod2`` (2x16x16)."""
+    return "dev1" if multi_pod is None else ("pod2" if multi_pod else "pod1")
 
 
 # ----------------------------------------------------------------- #
@@ -107,8 +119,13 @@ def input_specs(cfg, shape, model):
             "pos": f((B,), torch.int64)}
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if type(t).__name__ == "DTensor" else t
+
+
 def _tree_bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in leaves(tree)
+    """One rank's bytes of a tree's tensors (a DTensor's local block)."""
+    return sum(_local(t).numel() * t.element_size() for t in leaves(tree)
                if isinstance(t, torch.Tensor))
 
 
@@ -116,21 +133,53 @@ def _shape_of(shape: Union[str, ShapeConfig]) -> ShapeConfig:
     return shape if isinstance(shape, ShapeConfig) else SHAPES[shape]
 
 
-def count_cell(cfg, shape: ShapeConfig, run: RunConfig, by_site: bool = False):
-    """Build the cell on ``meta`` and run its step under a counter.
-    Returns (counter, arguments' bytes, outputs' bytes, aliased bytes,
-    build seconds, count seconds)."""
+def place_cell(cfg, shape: ShapeConfig, mesh, recipe: str, params, ins, opt_state=None):
+    """The reference's placement of a cell (``src/repro/launch/dryrun.py``,
+    ``run_cell``): the parameters and the optimiser state by
+    ``param_specs``, the batch by ``batch_specs`` (the data axes where none
+    is given), a decode step's tokens over the data axes and its cache by
+    ``cache_specs``, every spec sanitised. Returns (params, ins, opt_state)
+    as DTensors over ``mesh``; the position stays whole."""
+    da = shd.data_axes_of(mesh)
+    params = shd.distribute(params, mesh, shd.param_specs(cfg, recipe, mesh, params))
+    if opt_state is not None:
+        opt_state = shd.distribute(opt_state, mesh,
+                                   shd.param_specs(cfg, recipe, mesh, opt_state))
+    if shape.kind == "decode":
+        tok = shd.sanitize((da,), ins["tokens"].shape, mesh)
+        ins = dict(ins, tokens=shd.distribute(ins["tokens"], mesh, tok),
+                   cache=shd.distribute(ins["cache"], mesh,
+                                        shd.cache_specs(cfg, recipe, mesh, ins["cache"])))
+    else:
+        specs = shd.batch_specs(cfg, recipe, mesh, shape.kind)
+        specs = shd.sanitize_tree({k: specs.get(k, (da, None)) for k in ins}, ins, mesh)
+        ins = shd.distribute(ins, mesh, specs)
+    return params, ins, opt_state
+
+
+def count_cell(cfg, shape: ShapeConfig, run: RunConfig, by_site: bool = False,
+               mesh=None, recipe: Optional[str] = None):
+    """Build the cell on ``meta`` and run its step under a counter: on one
+    device, or with ``mesh`` (a ``DeviceMesh`` of the ``fake`` world) the
+    sharded step of one rank under ``recipe``. Returns (counter, arguments'
+    bytes, outputs' bytes, aliased bytes, build seconds, count seconds)."""
     t0 = time.perf_counter()
     model = build_model(cfg, device="meta")
     params = meta_params(cfg)
     ins = input_specs(cfg, shape, model)
+    opt = get_optimizer(run.optimizer) if shape.kind == "train" else None
+    opt_state = opt.init(params) if opt is not None else None
+    ctx = ParallelContext()
+    if mesh is not None:
+        da = shd.data_axes_of(mesh)
+        ctx = ParallelContext(mesh, da, "model",
+                              feature_shard_decode=(recipe == "tp2d_serve"))
+        params, ins, opt_state = place_cell(cfg, shape, mesh, recipe, params, ins, opt_state)
     arg_bytes = _tree_bytes(params) + _tree_bytes(ins)
     alias = 0
     if shape.kind == "train":
-        opt = get_optimizer(run.optimizer)
-        opt_state = opt.init(params)
         arg_bytes += _tree_bytes(opt_state)
-        step = make_train_step(model, opt, run)
+        step = make_train_step(model, opt, run, ctx)
 
         def go():
             return step(params, opt_state, ins)
@@ -138,14 +187,19 @@ def count_cell(cfg, shape: ShapeConfig, run: RunConfig, by_site: bool = False):
         def go():
             with torch.no_grad():
                 if cfg.is_encoder:
-                    return model.forward(params, ins)
-                return model.prefill(params, ins, shape.seq_len)
+                    return model.forward(params, ins, ctx)
+                logits, cache = model.prefill(params, ins, shape.seq_len, ctx)
+                if mesh is not None:    # the reference's out_shardings: the cache placed
+                    cache = shd.distribute(cache, mesh, shd.cache_specs(
+                        cfg, recipe, mesh, cache))
+                return logits, cache
     else:
         alias = _tree_bytes(ins["cache"])          # updated in place
 
         def go():
             with torch.no_grad():
-                return model.decode_step(params, ins["tokens"], ins["cache"], ins["pos"])
+                return model.decode_step(params, ins["tokens"], ins["cache"], ins["pos"],
+                                         ctx)
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
     with hlo_mod.Counter(by_site=by_site) as counter:
@@ -155,34 +209,45 @@ def count_cell(cfg, shape: ShapeConfig, run: RunConfig, by_site: bool = False):
     return counter, arg_bytes, out_bytes, alias, t_build, t_count
 
 
-def run_cell(arch: str, shape_name: Union[str, ShapeConfig], *, multi_pod: bool = False,
-             run: Optional[RunConfig] = None, save: bool = True, mesh=None,
-             tag: str = "", results: Optional[Path] = None) -> dict:
-    """One cell on one device. ``shape_name`` names a cell of ``SHAPES`` or
-    is a ``ShapeConfig`` (``ENGINE_DECODE``). ``multi_pod`` and a mesh of
-    more than one device raise ``NotImplementedError`` (ROADMAP A10b)."""
-    if multi_pod:
-        raise NotImplementedError(f"multi-pod mesh: {A10B}")
-    mesh_shape = dict(ONE_DEVICE) if mesh is None else shd.mesh_shape(mesh)
-    if math.prod(mesh_shape.values()) != 1:
-        raise NotImplementedError(f"mesh {mesh_shape}: {A10B}")
+def run_cell(arch: str, shape_name: Union[str, ShapeConfig], *,
+             multi_pod: Optional[bool] = None, run: Optional[RunConfig] = None,
+             save: bool = True, mesh=None, tag: str = "",
+             results: Optional[Path] = None) -> dict:
+    """One cell. ``shape_name`` names a cell of ``SHAPES`` or is a
+    ``ShapeConfig`` (``ENGINE_DECODE``). ``multi_pod`` None counts one
+    device (``dev1``); False or True one chip of the production mesh
+    (``pod1``, ``pod2``), built in a ``fake`` world of this process unless
+    ``mesh`` (a ``DeviceMesh`` over an initialised world) is given."""
     cfg = get_config(arch)
     shape = _shape_of(shape_name)
     if not supports_shape(cfg, shape):
         return {"arch": arch, "shape": shape.name, "skipped": True}
-    run = run or default_run(cfg, shape, 1)
+    if mesh is None and multi_pod is not None:
+        n = 512 if multi_pod else 256
+        with mesh_mod.fake_world(n):
+            return run_cell(arch, shape, multi_pod=multi_pod, run=run, save=save,
+                            mesh=mesh_mod.make_production_mesh(multi_pod=multi_pod,
+                                                               device_type="cpu"),
+                            tag=tag, results=results)
+    mesh_shape = dict(ONE_DEVICE) if mesh is None else shd.mesh_shape(mesh)
+    n_chips = math.prod(mesh_shape.values())
+    data_axes = shd.data_axes_of(mesh) if mesh is not None else ()
+    n_data = math.prod(mesh_shape[a] for a in data_axes) if data_axes else 1
+    run = run or default_run(cfg, shape, n_data)
     cfg = cfg.with_overrides(attn_impl="flashref",
                              remat_policy=run.remat_policy or cfg.remat_policy,
                              layer_group=run.layer_group or cfg.layer_group)
     recipe = run.sharding_recipe
     if recipe == "auto":
         recipe = shd.pick_recipe(cfg, shape)
-    counter, arg_bytes, out_bytes, alias, t_build, t_count = count_cell(cfg, shape, run)
+    sharded = mesh is not None and n_chips > 1
+    counter, arg_bytes, out_bytes, alias, t_build, t_count = count_cell(
+        cfg, shape, run, mesh=mesh if sharded else None, recipe=recipe)
     st = counter.stats
     result = {
         "arch": arch, "shape": shape.name, "kind": shape.kind,
-        "mesh": mesh_shape, "n_chips": 1,
-        "recipe": recipe, "multi_pod": False, "tag": tag,
+        "mesh": mesh_shape, "n_chips": n_chips,
+        "recipe": recipe, "multi_pod": bool(multi_pod), "tag": tag,
         "run": {"num_microbatches": run.num_microbatches,
                 "optimizer": run.optimizer,
                 "remat": run.remat_policy or cfg.remat_policy,
@@ -217,12 +282,13 @@ def run_cell(arch: str, shape_name: Union[str, ShapeConfig], *, multi_pod: bool 
     if save:
         out_dir = results or RESULTS
         out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / cell_file(arch, shape.name, tag)).write_text(json.dumps(result, indent=1))
+        (out_dir / cell_file(arch, shape.name, tag, multi_pod)).write_text(
+            json.dumps(result, indent=1))
     return result
 
 
-def cell_file(arch: str, shape: str, tag: str = "") -> str:
-    return f"{arch}__{shape}__{MESH_TAG}" + (f"__{tag}" if tag else "") + ".json"
+def cell_file(arch: str, shape: str, tag: str = "", multi_pod: Optional[bool] = None) -> str:
+    return f"{arch}__{shape}__{mesh_tag(multi_pod)}" + (f"__{tag}" if tag else "") + ".json"
 
 
 def main(argv=None):
@@ -230,28 +296,31 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--multi-pod", action="store_true",
-                    help="the production 2x16x16 mesh: not ported (raises, ROADMAP A10b)")
+    ap.add_argument("--mesh", choices=("dev1", "pod1"), default="dev1",
+                    help="one device (default) or one chip of the 16x16 mesh")
+    ap.add_argument("--multi-pod", dest="mesh", action="store_const", const="pod2",
+                    help="one chip of the 2x16x16 mesh")
+    ap.add_argument("--both-meshes", dest="mesh", action="store_const", const="both",
+                    help="pod1 and pod2")
     ap.add_argument("--skip-done", action="store_true")
     ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(f"--multi-pod: {A10B}")
+    meshes = {"dev1": [None], "pod1": [False], "pod2": [True], "both": [False, True]}[args.mesh]
 
     cells = valid_cells() if args.all else [(args.arch, args.shape)]
     ok = fail = 0
     t_all = time.perf_counter()
-    for arch, shape in cells:
-        if args.skip_done and (RESULTS / cell_file(arch, shape, args.tag)).exists():
-            print(f"SKIP {arch} {shape}")
+    for (arch, shape), mp in ((c, mp) for c in cells for mp in meshes):
+        if args.skip_done and (RESULTS / cell_file(arch, shape, args.tag, mp)).exists():
+            print(f"SKIP {arch} {shape} {mesh_tag(mp)}")
             continue
         try:
             t0 = time.perf_counter()
-            r = run_cell(arch, shape, tag=args.tag)
+            r = run_cell(arch, shape, multi_pod=mp, tag=args.tag)
             dt = time.perf_counter() - t0
             if r.get("skipped"):
                 continue
-            print(f"OK   {arch:28s} {shape:12s} dev1 count={r['compile_s']:6.1f}s "
+            print(f"OK   {arch:28s} {shape:12s} {mesh_tag(mp)} count={r['compile_s']:6.1f}s "
                   f"total={dt:6.1f}s mxu_flops={r['hlo_exec']['mxu_flops']:.4g} "
                   f"hbm={r['hlo_exec']['hbm_bytes']:.4g}B "
                   f"coll={r['collectives']['total_bytes']:.3g}B")

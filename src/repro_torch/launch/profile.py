@@ -9,11 +9,13 @@ a torch solve there, with one ``cache_share`` launch; ``--backend numpy``
 prices on the NumPy solver on the host. The reference prices on its
 ``TPU_V5E`` model; this package prices on its ``H100`` model unless
 ``--device`` names another ``DeviceModel`` of ``core/resources.py``
-(ROADMAP C18). The records are this package's one-device dry run
-(``launch/dryrun.py``, files tagged ``dev1``).
+(ROADMAP C18). The records are this package's dry run
+(``launch/dryrun.py``): one chip of the production 16x16 mesh (files tagged
+``pod1``) by default, as the reference reads its own, or ``--mesh pod2``
+(2x16x16) or ``dev1`` (one device).
 
   PYTHONPATH=src python -m repro_torch.launch.profile --arch llama3-405b [--plan] \\
-      [--backend numpy]
+      [--backend numpy] [--mesh dev1]
 """
 from __future__ import annotations
 
@@ -24,10 +26,10 @@ from pathlib import Path
 from repro_torch.core import DEVICES, H100, ColocationScheduler, sensitivity_batch
 from repro_torch.core.backend import SOLVER_BACKENDS, solver_backend
 from repro_torch.core.profile import WorkloadProfile, from_dryrun_json
-from repro_torch.launch.dryrun import MESH_TAG, RESULTS
+from repro_torch.launch.dryrun import RESULTS
 
 
-def load_profiles(arch: str = None, mesh_tag: str = MESH_TAG, results: Path = None):
+def load_profiles(arch: str = None, mesh_tag: str = "pod1", results: Path = None):
     profs = []
     for f in sorted((results or RESULTS).glob(f"*__{mesh_tag}.json")):
         rec = json.loads(f.read_text())
@@ -70,10 +72,14 @@ def main(argv=None, search=None, device="cuda"):
     ap.add_argument("--backend", default="torch", choices=SOLVER_BACKENDS,
                     help="the solver: torch on the card (default) or numpy on the host")
     ap.add_argument("--results", default=None, help=f"dry-run records (default {RESULTS})")
+    ap.add_argument("--mesh", default="pod1", choices=("pod1", "pod2", "dev1"),
+                    help="the records' mesh: one chip of 16x16 (default), of 2x16x16, "
+                         "or one device")
     args = ap.parse_args(argv)
     dev = DEVICES[args.device]
 
-    profs = load_profiles(args.arch, results=Path(args.results) if args.results else None)
+    profs = load_profiles(args.arch, args.mesh,
+                          results=Path(args.results) if args.results else None)
     if not profs:
         print("no dry-run artifacts found; run repro_torch.launch.dryrun first")
         return None, None

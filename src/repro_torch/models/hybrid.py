@@ -20,7 +20,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm
-from repro_torch.models.layers import Params, rmsnorm, rmsnorm_init
+from repro_torch.models.attention import unshard_data
+from repro_torch.models.moe import LOCAL_CTX
+from repro_torch.models.layers import Params, _summed, linear, rmsnorm, rmsnorm_init
 from repro_torch.models.transformer import (_remat, layer_decode, layer_fwd, layer_init,
                                            stack_init, unstack)
 
@@ -39,14 +41,16 @@ def ssm_layer_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16)
     return {"ln": rmsnorm_init(cfg.d_model, gen.device), "mixer": init(gen, cfg, dtype)}
 
 
-def ssm_layer_fwd(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def ssm_layer_fwd(lp: Params, cfg: ModelConfig, x: torch.Tensor, ctx=LOCAL_CTX) -> torch.Tensor:
+    lp = unshard_data(lp, ctx)
     fwd = ssm.mamba1_forward if _mamba1(cfg) else ssm.mamba2_forward
-    return x + fwd(lp["mixer"], cfg, rmsnorm(lp["ln"], x, cfg.norm_eps))
+    return x + fwd(lp["mixer"], cfg, rmsnorm(lp["ln"], x, cfg.norm_eps), ctx)
 
 
-def ssm_layer_step(lp: Params, cfg: ModelConfig, x, state):
+def ssm_layer_step(lp: Params, cfg: ModelConfig, x, state, ctx=LOCAL_CTX):
+    lp = unshard_data(lp, ctx)
     step = ssm.mamba1_step if _mamba1(cfg) else ssm.mamba2_step
-    out, state = step(lp["mixer"], cfg, rmsnorm(lp["ln"], x, cfg.norm_eps), state)
+    out, state = step(lp["mixer"], cfg, rmsnorm(lp["ln"], x, cfg.norm_eps), state, ctx)
     return x + out, state
 
 
@@ -55,18 +59,18 @@ def ssm_init_state(cfg: ModelConfig, batch: int, device):
     return init(cfg, batch, device)
 
 
-def ssm_layer_prefill(lp: Params, cfg: ModelConfig, x, state: Cache):
+def ssm_layer_prefill(lp: Params, cfg: ModelConfig, x, state: Cache, ctx=LOCAL_CTX):
     """The layer over the prompt, writing its final SSM state and the last
     ``d_conv - 1`` pre-conv inputs into ``state`` (views of the cache) in
     place. Returns x."""
-    mp = lp["mixer"]
+    mp = unshard_data(lp, ctx)["mixer"]
     u = rmsnorm(lp["ln"], x, cfg.norm_eps)
     if _mamba1(cfg):
         xx, z, dt, A, B, C = ssm._mamba1_inputs(mp, cfg, u)
-        y, _ = ssm.mamba1_scan(xx, dt, A, B, C, out_state=state["h"])
+        y, _ = ssm.mamba1_scan(xx, dt, A, B, C, out_state=state["h"], ctx=ctx)
         out = ssm._mamba1_out(mp, y, xx, z, u.dtype)
     else:
-        out, hT = ssm.mamba2_forward_with_state(mp, cfg, u)
+        out, hT = ssm.mamba2_forward_with_state(mp, cfg, u, ctx)
         state["h"].copy_(hT)
     for name, tail in _conv_tail(cfg, u, mp).items():
         state[name].copy_(tail)
@@ -76,10 +80,11 @@ def ssm_layer_prefill(lp: Params, cfg: ModelConfig, x, state: Cache):
 def _conv_tail(cfg: ModelConfig, u: torch.Tensor, mp: Params) -> Cache:
     """Last (d_conv - 1) pre-conv channel inputs, bf16, for decode warm-start."""
     u = u[:, -(cfg.ssm.d_conv - 1):]
-    x = (u @ mp["in_x"]).to(ssm.CONV_DTYPE)
+    # under a mesh the products' partial sums are summed before the cast
+    x = _summed(linear(u, mp["in_x"])).to(ssm.CONV_DTYPE)
     if _mamba1(cfg):
         return {"conv": x}
-    return {"conv_x": x, "conv_bc": (u @ mp["in_bc"]).to(ssm.CONV_DTYPE)}
+    return {"conv_x": x, "conv_bc": _summed(linear(u, mp["in_bc"])).to(ssm.CONV_DTYPE)}
 
 
 def _at(states: Cache, i: int) -> Cache:
@@ -97,27 +102,27 @@ def ssm_stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
     return stack_init(lambda: ssm_layer_init(gen, cfg, dtype), n)
 
 
-def ssm_stack_fwd(sp: Params, cfg: ModelConfig, x):
+def ssm_stack_fwd(sp: Params, cfg: ModelConfig, x, ctx=LOCAL_CTX):
     """A remat region is one layer, as in the reference."""
-    layer = _remat(lambda x, lp: ssm_layer_fwd(lp, cfg, x), cfg.remat_policy)
+    layer = _remat(lambda x, lp: ssm_layer_fwd(lp, cfg, x, ctx), cfg.remat_policy)
     for lp in unstack(sp):
         x = layer(x, lp)
     return x
 
 
-def ssm_stack_prefill(sp: Params, cfg: ModelConfig, x, states: Cache):
+def ssm_stack_prefill(sp: Params, cfg: ModelConfig, x, states: Cache, ctx=LOCAL_CTX):
     """Forward over the prompt, writing each layer's final state and conv
     tail into ``states`` ((L, ...) tensors, as ``init_cache`` makes them).
     Returns x."""
     for i, lp in enumerate(unstack(sp)):
-        x = ssm_layer_prefill(lp, cfg, x, _at(states, i))
+        x = ssm_layer_prefill(lp, cfg, x, _at(states, i), ctx)
     return x
 
 
-def ssm_stack_decode(sp: Params, cfg: ModelConfig, x, states: Cache):
+def ssm_stack_decode(sp: Params, cfg: ModelConfig, x, states: Cache, ctx=LOCAL_CTX):
     """One token through the stack; ``states`` are updated in place."""
     for i, lp in enumerate(unstack(sp)):
-        x, _ = ssm_layer_step(lp, cfg, x, _at(states, i))
+        x, _ = ssm_layer_step(lp, cfg, x, _at(states, i), ctx)
     return x
 
 
@@ -141,47 +146,47 @@ def hybrid_stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat
             "tail": ssm_stack_init(gen, cfg, dtype, tail) if tail else None}
 
 
-def hybrid_stack_fwd(sp: Params, cfg: ModelConfig, x):
+def hybrid_stack_fwd(sp: Params, cfg: ModelConfig, x, ctx=LOCAL_CTX):
     """A remat region is a group (its SSM layers and the shared block) or a
     layer of the tail, as in the reference."""
     def group(x, gp, shared):
         for lp in unstack(gp):
-            x = ssm_layer_fwd(lp, cfg, x)
-        return layer_fwd(shared, cfg, x, kind="causal")[0]
+            x = ssm_layer_fwd(lp, cfg, x, ctx)
+        return layer_fwd(shared, cfg, x, kind="causal", ctx=ctx)[0]
 
     group = _remat(group, cfg.remat_policy)
     for gp in unstack(sp["ssm"]):
         x = group(x, gp, sp["shared_attn"])
     if sp["tail"] is not None:
-        x = ssm_stack_fwd(sp["tail"], cfg, x)
+        x = ssm_stack_fwd(sp["tail"], cfg, x, ctx)
     return x
 
 
 def hybrid_stack_prefill(sp: Params, cfg: ModelConfig, x, states: Cache,
-                         tail_states: Optional[Cache]):
+                         tail_states: Optional[Cache], ctx=LOCAL_CTX):
     """Forward over the prompt, writing every SSM layer's state into
     ``states`` ((g, k, ...) tensors) and ``tail_states`` ((tail, ...)) in
     place. Returns (x, (k, v)): the shared block's keys and values of each
     group, (g, B, S, KVH, D)."""
     ks, vs = [], []
     for i, gp in enumerate(unstack(sp["ssm"])):
-        x = ssm_stack_prefill(gp, cfg, x, _at(states, i))
-        x, (k, v), _ = layer_fwd(sp["shared_attn"], cfg, x, kind="causal")
+        x = ssm_stack_prefill(gp, cfg, x, _at(states, i), ctx)
+        x, (k, v), _ = layer_fwd(sp["shared_attn"], cfg, x, kind="causal", ctx=ctx)
         ks.append(k)
         vs.append(v)
     if sp["tail"] is not None:
-        x = ssm_stack_prefill(sp["tail"], cfg, x, tail_states)
+        x = ssm_stack_prefill(sp["tail"], cfg, x, tail_states, ctx)
     return x, (torch.stack(ks), torch.stack(vs))
 
 
 def hybrid_stack_decode(sp: Params, cfg: ModelConfig, x, states: Cache, cache_k,
-                        cache_v, tail_states: Optional[Cache], pos):
+                        cache_v, tail_states: Optional[Cache], pos, ctx=LOCAL_CTX):
     """One token through the stack. The SSM states and group i's slice of
     the shared block's cache, ``cache_{k,v}[i]`` (B, Smax, KVH, D), are
     updated in place."""
     for i, gp in enumerate(unstack(sp["ssm"])):
-        x = ssm_stack_decode(gp, cfg, x, _at(states, i))
-        x = layer_decode(sp["shared_attn"], cfg, x, cache_k[i], cache_v[i], pos)
+        x = ssm_stack_decode(gp, cfg, x, _at(states, i), ctx)
+        x = layer_decode(sp["shared_attn"], cfg, x, cache_k[i], cache_v[i], pos, ctx=ctx)
     if sp["tail"] is not None:
-        x = ssm_stack_decode(sp["tail"], cfg, x, tail_states)
+        x = ssm_stack_decode(sp["tail"], cfg, x, tail_states, ctx)
     return x

@@ -15,9 +15,11 @@ Two entry points share that math, as in the reference:
                        data shard, dispatches only to its ``E / n_model``
                        local experts, and the partial outputs are summed
                        with an ``all_reduce`` over the model axis (no
-                       token all-to-all). The model's stacks call the local
-                       path; the sharded forward that would thread a
-                       context through them is ROADMAP A10b.
+                       token all-to-all). Over DTensors (the sharded
+                       forward) the same function runs under ``local_map``
+                       on each rank's tokens and experts, and the partial
+                       outputs are left ``Partial`` over the model axis
+                       for DTensor to sum where they are next read.
 
 Nothing here waits for the host or takes a shape from the data (no
 ``.item()``, no ``nonzero``, no boolean-mask indexing): the engine captures
@@ -41,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import _mesh
 from repro_torch.models.layers import Params, _normal, dense_init, mlp
 
 
@@ -50,6 +53,10 @@ class ParallelContext(NamedTuple):
     mesh: Optional[object] = None
     data_axes: Tuple[str, ...] = ()
     model_axis: Optional[str] = None
+    # tp2d decode: weights are (d@data, ff@model); activations hop between
+    # batch-sharded (attention/cache) and feature-sharded (MLP) layouts —
+    # decode-sized reshards instead of weight-sized all-gathers
+    feature_shard_decode: bool = False
 
     def _size(self, axis: str) -> int:
         return int(self.mesh.shape[self.mesh.mesh_dim_names.index(axis)])
@@ -206,6 +213,31 @@ def moe_ffn_local(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return out.reshape(B, S, d), aux
 
 
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def _expert_block(cfg: ModelConfig, ctx: ParallelContext) -> Tuple[int, int]:
+    """This rank's experts ``[lo, lo + n_local)``: its block of the model axis."""
+    E, n_model = cfg.moe.n_experts, ctx.n_model_shards
+    assert E % n_model == 0, f"experts {E} not divisible by model axis {n_model}"
+    n_local = E // n_model
+    return ctx.mesh.get_local_rank(ctx.model_axis) * n_local, n_local
+
+
+def _rank_experts(xf, router, w, cfg: ModelConfig, lo: int):
+    """One rank's part of expert parallelism: xf (T, d), its tokens, all
+    routed; ``w`` its experts' (w_gate, w_up, w_down), which are experts
+    ``lo ..``. The other ranks' experts go to the drop bucket; each local
+    expert keeps the capacity of the T tokens. Returns (this rank's partial
+    output (T, d), its tokens' aux)."""
+    n_local = w[0].shape[0]
+    gates, ids, aux = _route(router, xf, cfg)
+    local_ids = torch.where((ids >= lo) & (ids < lo + n_local), ids - lo, n_local)
+    out = _dispatch_compute_combine(xf, gates, local_ids, *w, capacity(xf.shape[0], cfg),
+                                    cfg.act if cfg.act != "geglu" else "gelu")
+    return out, aux
+
+
 def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ParallelContext):
     """Expert parallelism over ``ctx.model_axis``. x (B, S, d): this rank's
     data shard; the experts' weights whole (E, ...), of which this rank
@@ -215,28 +247,54 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ParallelContext):
     its B * S tokens; the partial outputs are summed over the model axis
     (``all_reduce``, differentiable), the shared experts added, and aux
     averaged over the model and data axes. With ``ctx.mesh`` None, or one
-    model shard, this is ``moe_ffn_local``."""
+    model shard, this is ``moe_ffn_local``. A DTensor x takes
+    ``_moe_ffn_sharded``."""
+    if _mesh.is_dtensor(x):
+        return _moe_ffn_sharded(p, cfg, x, ctx)
     if ctx.mesh is None or ctx.n_model_shards == 1:
         return moe_ffn_local(p, cfg, x)
     from torch.distributed.nn import functional as dist_fn
     B, S, d = x.shape
-    E = cfg.moe.n_experts
-    n_model = ctx.n_model_shards
-    assert E % n_model == 0, f"experts {E} not divisible by model axis {n_model}"
-    n_local = E // n_model
-    lo = ctx.mesh.get_local_rank(ctx.model_axis) * n_local
-    cap = capacity(B * S, cfg)
-    act = cfg.act if cfg.act != "geglu" else "gelu"
+    lo, n_local = _expert_block(cfg, ctx)
     xf = x.reshape(-1, d)
-    gates, ids, aux = _route(p["router"], xf, cfg)
-    # the other ranks' experts go to this rank's drop bucket, n_local
-    local_ids = torch.where((ids >= lo) & (ids < lo + n_local), ids - lo, n_local)
-    wg, wu, wd = (p[k][lo:lo + n_local] for k in ("w_gate", "w_up", "w_down"))
-    out = _dispatch_compute_combine(xf, gates, local_ids, wg, wu, wd, cap, act)
+    out, aux = _rank_experts(xf, p["router"], [p[k][lo:lo + n_local] for k in EXPERT_KEYS],
+                             cfg, lo)
     out = dist_fn.all_reduce(out, group=ctx.mesh.get_group(ctx.model_axis))
-    aux = dist_fn.all_reduce(aux, group=ctx.mesh.get_group(ctx.model_axis)) / n_model
+    aux = dist_fn.all_reduce(aux, group=ctx.mesh.get_group(ctx.model_axis)) / ctx.n_model_shards
     for a in ctx.data_axes:
         aux = dist_fn.all_reduce(aux, group=ctx.mesh.get_group(a)) / ctx._size(a)
     if cfg.moe.n_shared_experts:       # one MLP, silu whatever cfg.act is, as in the reference
         out = out + mlp(p["shared"], xf, "silu")
     return out.reshape(B, S, d), aux
+
+
+def _moe_ffn_sharded(p: Params, cfg: ModelConfig, x, ctx: ParallelContext):
+    """The reference's shard_map over DTensors: x (B, S, d) with the batch
+    over the data axes and whole over the model axis, the router whole, the
+    experts split over the model axis (their other dims gathered, as the
+    reference's ``P(model)`` in_specs gather them). Each rank routes its
+    tokens, dispatches to its ``E / n_model`` experts with the capacity of
+    its tokens, and its partial output is left ``Partial`` over the model
+    axis; aux is each data shard's, averaged (``Partial("avg")``) over the
+    data axes. The shared experts run outside, over the DTensors."""
+    from repro_torch.models.attention import _shard
+    Shard, Replicate, Partial = (_mesh._types()[i] for i in (1, 2, 3))
+    mesh, da, ma = ctx.mesh, ctx.data_axes, ctx.model_axis
+    B, S, d = x.shape
+    lo, _ = _expert_block(cfg, ctx)
+    x = _shard(x, ctx, da, None, None)
+    w = [_shard(p[k], ctx, ma, None, None) for k in EXPERT_KEYS]
+    router = _shard(p["router"], ctx, None, None)
+
+    def shard_fn(xs, router, *w):
+        out, aux = _rank_experts(xs.reshape(-1, d), router, w, cfg, lo)
+        return out.reshape(xs.shape), aux
+    names = mesh.mesh_dim_names
+    batch = [_mesh.shard_dim(q, 3) == 0 for q in x.placements]
+    out_pl = [Partial() if n == ma else (Shard(0) if b else Replicate())
+              for n, b in zip(names, batch)]
+    aux_pl = [Partial("avg") if b else Replicate() for b in batch]
+    out, aux = _mesh.local(shard_fn, mesh, (x, router, *w), (out_pl, aux_pl))
+    if cfg.moe.n_shared_experts:       # one MLP, silu whatever cfg.act is, as in the reference
+        out = out + mlp(p["shared"], x.reshape(-1, d), "silu").reshape(B, S, d)
+    return out, aux

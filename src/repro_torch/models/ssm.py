@@ -13,6 +13,12 @@ Shapes: u (B, S, d_model). Mamba-1 state ``conv`` (B, d_conv - 1, d_inner)
 bf16 and ``h`` (B, d_inner, d_state) f32; Mamba-2 state ``conv_x`` (B,
 d_conv - 1, d_inner) and ``conv_bc`` (B, d_conv - 1, 2 * d_state) bf16 and
 ``h`` (B, n_heads, head_p, d_state) f32.
+
+Under a ``ParallelContext`` with a mesh (DTensors) the scans carry the
+reference's constraints: Mamba-1's inputs and state with the batch over
+the data axes and the channels over the model axis (the ``ssm_scan``
+kernel runs on each rank's block), the SSD's state with its heads over
+the model axis.
 """
 from __future__ import annotations
 
@@ -24,8 +30,10 @@ import torch.nn.functional as F
 
 from repro_torch._loops import steps
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import _mesh
 from repro_torch.kernels import ssm_scan as _scan
-from repro_torch.models.layers import Params, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.models.attention import _shard, _sharded
+from repro_torch.models.layers import Params, _summed, dense_init, linear, rmsnorm, rmsnorm_init
 
 CONV_DTYPE = torch.bfloat16        # the conv state's type, whatever the parameters are
 
@@ -82,36 +90,47 @@ def mamba1_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16) ->
 
 
 def _mamba1_inputs(p: Params, cfg: ModelConfig, u: torch.Tensor):
+    """x, z, dt, A, B, C of the scan. Under a mesh the product with
+    ``x_proj``, whose contraction runs over the channels split across the
+    model axis, is summed across it before the split into dt, B and C."""
     s = cfg.ssm
     r = _dt_rank(cfg.d_model)
-    x = u @ p["in_x"]
-    z = u @ p["in_z"]
+    x = linear(u, p["in_x"])
+    z = linear(u, p["in_z"])
     x = causal_conv1d(x, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
-    dt_in, B, C = torch.split(x @ p["x_proj"], [r, s.d_state, s.d_state], dim=-1)
-    dt = F.softplus(dt_in.float() @ p["dt_proj"] + p["dt_bias"])   # (B,S,di) f32
+    dt_in, B, C = torch.split(_summed(linear(x, p["x_proj"])), [r, s.d_state, s.d_state], dim=-1)
+    dt = F.softplus(linear(dt_in.float(), p["dt_proj"]) + p["dt_bias"])   # (B,S,di) f32
     A = -torch.exp(p["A_log"].float())                              # (di, N) f32
     return x, z, dt, A, B.float(), C.float()
 
 
 def mamba1_scan(x, dt, A, B, C, h0: Optional[torch.Tensor] = None,
-                out_state: Optional[torch.Tensor] = None):
+                out_state: Optional[torch.Tensor] = None, ctx=None):
     """Selective scan on the kernel. x (B,S,di); dt (B,S,di) f32; A (di,N);
     B, C (B,S,N). Returns (y (B,S,di) f32, h_final (B,di,N) f32), the final
-    state written into ``out_state`` when it is given."""
-    return _scan.ssm_scan(x, dt.float(), A.float(), B.float(), C.float(),
-                          h0, out_state)
+    state written into ``out_state`` when it is given. Under a mesh the
+    reference's constraints: (batch@data, channels@model) for x, dt and the
+    state, the channels of A with them, B and C with the batch only."""
+    dt, A, B, C = dt.float(), A.float(), B.float(), C.float()
+    if _sharded(ctx):
+        da, ma = ctx.data_axes, ctx.model_axis
+        x, dt = (_shard(u, ctx, da, None, ma) for u in (x, dt))
+        A = _shard(A, ctx, ma, None)
+        B, C = (_shard(u, ctx, da, None, None) for u in (B, C))
+        h0 = None if h0 is None else _shard(h0, ctx, da, ma, None)
+    return _scan.ssm_scan(x, dt, A, B, C, h0, out_state)
 
 
 def _mamba1_out(p: Params, y: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
                 out_dtype) -> torch.Tensor:
     y = y + p["D"] * x.float()
     y = (y * F.silu(z.float())).to(out_dtype)
-    return y @ p["out_proj"]
+    return linear(y, p["out_proj"])
 
 
-def mamba1_forward(p: Params, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
+def mamba1_forward(p: Params, cfg: ModelConfig, u: torch.Tensor, ctx=None) -> torch.Tensor:
     x, z, dt, A, B, C = _mamba1_inputs(p, cfg, u)
-    y, _ = mamba1_scan(x, dt, A, B, C)
+    y, _ = mamba1_scan(x, dt, A, B, C, ctx=ctx)
     return _mamba1_out(p, y, x, z, u.dtype)
 
 
@@ -123,22 +142,22 @@ def mamba1_init_state(cfg: ModelConfig, batch: int, device) -> Dict[str, torch.T
 
 
 def mamba1_step(p: Params, cfg: ModelConfig, u: torch.Tensor,
-                state: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+                state: Dict[str, torch.Tensor], ctx=None) -> Tuple[torch.Tensor, Dict]:
     """u: (B, 1, d). Returns (out (B,1,d), state); the state's ``conv`` and
     ``h`` are updated in place. The state update is the scan with one time
     step from h (the same arithmetic as the reference's step)."""
     s = cfg.ssm
     r = _dt_rank(cfg.d_model)
-    x = (u @ p["in_x"])[:, 0]
-    z = (u @ p["in_z"])[:, 0]
+    x = linear(u, p["in_x"])[:, 0]
+    z = linear(u, p["in_z"])[:, 0]
     conv, x = conv1d_step(state["conv"], x, p["conv_w"].to(x.dtype),
                           p["conv_b"].to(x.dtype))
     state["conv"].copy_(conv)
-    dt_in, B, C = torch.split(x @ p["x_proj"], [r, s.d_state, s.d_state], dim=-1)
-    dt = F.softplus(dt_in.float() @ p["dt_proj"] + p["dt_bias"])
+    dt_in, B, C = torch.split(_summed(linear(x, p["x_proj"])), [r, s.d_state, s.d_state], dim=-1)
+    dt = F.softplus(linear(dt_in.float(), p["dt_proj"]) + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     y, _ = mamba1_scan(x[:, None], dt[:, None], A, B.float()[:, None],
-                       C.float()[:, None], h0=state["h"], out_state=state["h"])
+                       C.float()[:, None], h0=state["h"], out_state=state["h"], ctx=ctx)
     out = _mamba1_out(p, y[:, 0], x, z, u.dtype)
     return out[:, None, :], state
 
@@ -175,6 +194,18 @@ def mamba2_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16) ->
     }
 
 
+def _mesh_zeros(h: torch.Tensor, ctx, *spec):
+    """Zeros of h's shape and device as a DTensor placed by ``spec`` (the
+    reference's constraint on the SSD's initial state): each rank makes its
+    block."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.parallel.sharding import local_shape, sanitize, to_placements
+    pl = to_placements(sanitize(spec, h.shape, ctx.mesh), ctx.mesh)
+    block = torch.zeros(local_shape(h.shape, pl, ctx.mesh), dtype=h.dtype, device=h.device)
+    return DTensor.from_local(block, ctx.mesh, pl, run_check=False, shape=h.shape,
+                              stride=h.stride())
+
+
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """x: (..., L). Returns (..., L, L) with out[i, j] = sum_{j<k<=i} x[k],
     -inf above the diagonal (which ``exp`` takes to 0). Keep x in f32."""
@@ -182,10 +213,12 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     cs = torch.cumsum(x, dim=-1)
     seg = cs[..., :, None] - cs[..., None, :]
     below = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    if _mesh.is_dtensor(seg):        # whole on every rank: its backward reads it too
+        below = _mesh.replicated(below, seg.device_mesh)
     return seg.masked_fill(~below, float("-inf"))
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int):
+def ssd_chunked(x, dt, A, B, C, chunk: int, ctx=None):
     """Mamba-2 SSD in f32. x (b,s,h,p); dt (b,s,h); A (h,); B, C (b,s,n).
     Returns y (b,s,h,p) f32 and the final state (b,h,p,n) f32.
 
@@ -222,6 +255,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     # 3) inter-chunk recurrence, sequential over chunks
     chunk_decay = torch.exp(dA_cum[:, :, -1])                        # (b,c,h)
     h = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    if _sharded(ctx):
+        h = _mesh_zeros(h, ctx, ctx.data_axes, ctx.model_axis, None, None)
     h_in = torch.empty_like(states)
     for c in steps(nc, x.device):          # two chunks for all when counted
         h_in[:, c] = h
@@ -236,10 +271,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
 
 def _mamba2_project(p: Params, cfg: ModelConfig, u: torch.Tensor):
     """z, x (after the conv), B, C (after the conv) and dt (f32)."""
-    z = u @ p["in_z"]
-    x = u @ p["in_x"]
-    bc = u @ p["in_bc"]
-    dt_in = u @ p["in_dt"]
+    z = linear(u, p["in_z"])
+    x = linear(u, p["in_x"])
+    bc = linear(u, p["in_bc"])
+    dt_in = linear(u, p["in_dt"])
     x = causal_conv1d(x, p["conv_x_w"].to(x.dtype), p["conv_x_b"].to(x.dtype))
     bc = causal_conv1d(bc, p["conv_bc_w"].to(bc.dtype), p["conv_bc_b"].to(bc.dtype))
     B, C = bc.chunk(2, dim=-1)
@@ -254,7 +289,7 @@ def _mamba2_out(p: Params, cfg: ModelConfig, y: torch.Tensor, x: torch.Tensor,
     Bsz, S, H, P = y.shape
     y = (y + p["D"][:, None] * x.reshape(Bsz, S, H, P).float()).reshape(Bsz, S, H * P)
     y = rmsnorm(p["norm"], (y * F.silu(z.float())).to(out_dtype), cfg.norm_eps)
-    return y @ p["out_proj"]
+    return linear(y, p["out_proj"])
 
 
 def _heads(cfg: ModelConfig) -> Tuple[int, int]:
@@ -262,17 +297,17 @@ def _heads(cfg: ModelConfig) -> Tuple[int, int]:
     return H, cfg.d_inner // H
 
 
-def mamba2_forward(p: Params, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
-    return mamba2_forward_with_state(p, cfg, u)[0]
+def mamba2_forward(p: Params, cfg: ModelConfig, u: torch.Tensor, ctx=None) -> torch.Tensor:
+    return mamba2_forward_with_state(p, cfg, u, ctx)[0]
 
 
-def mamba2_forward_with_state(p: Params, cfg: ModelConfig, u: torch.Tensor):
+def mamba2_forward_with_state(p: Params, cfg: ModelConfig, u: torch.Tensor, ctx=None):
     """Returns (out (B, S, d), the final SSM state (B, H, P, N) f32)."""
     H, P = _heads(cfg)
     z, x, B, C, dt = _mamba2_project(p, cfg, u)
     Bsz, S = u.shape[:2]
     y, hT = ssd_chunked(x.reshape(Bsz, S, H, P), dt, -torch.exp(p["A_log"].float()),
-                        B, C, cfg.ssm.chunk_size)
+                        B, C, cfg.ssm.chunk_size, ctx)
     return _mamba2_out(p, cfg, y, x, z, u.dtype), hT
 
 
@@ -286,15 +321,15 @@ def mamba2_init_state(cfg: ModelConfig, batch: int, device) -> Dict[str, torch.T
 
 
 def mamba2_step(p: Params, cfg: ModelConfig, u: torch.Tensor,
-                state: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+                state: Dict[str, torch.Tensor], ctx=None) -> Tuple[torch.Tensor, Dict]:
     """u: (B, 1, d). Returns (out (B,1,d), state); ``conv_x``, ``conv_bc``
     (bf16) and ``h`` (f32) are updated in place, by the reference's
     arithmetic."""
     H, P = _heads(cfg)
-    z = u @ p["in_z"]
-    x = (u @ p["in_x"])[:, 0]
-    bc = (u @ p["in_bc"])[:, 0]
-    dt_in = (u @ p["in_dt"])[:, 0]
+    z = linear(u, p["in_z"])
+    x = linear(u, p["in_x"])[:, 0]
+    bc = linear(u, p["in_bc"])[:, 0]
+    dt_in = linear(u, p["in_dt"])[:, 0]
     conv_x, x = conv1d_step(state["conv_x"], x, p["conv_x_w"].to(x.dtype),
                             p["conv_x_b"].to(x.dtype))
     conv_bc, bc = conv1d_step(state["conv_bc"], bc, p["conv_bc_w"].to(bc.dtype),

@@ -5,9 +5,17 @@ and the vlm's grouped stack (groups of ``cross_attn_every - 1`` self
 layers and one tanh-gated cross-attention layer over vision tokens). The
 reference's scan over stacked ``(L, ...)`` layer parameters is a Python
 loop over the same stacked tensors, so the parameter tree keeps the
-reference's shape. A moe layer has ``moe`` (``models/moe.py``, the local
-path) where a dense layer has ``mlp``. Caches are updated in place. No
-sharding constraints: one device.
+reference's shape. A moe layer has ``moe`` (``models/moe.py``) where a dense layer has
+``mlp``. Caches are updated in place.
+
+Every stack takes the reference's ``ctx`` (a ``ParallelContext``). With
+``ctx.mesh`` None (``LOCAL_CTX``) it runs on one device; under a mesh the
+parameters and activations are DTensors, each layer's weights are
+gathered over the data axes where the recipe split them
+(``attention.unshard_data``), attention is constrained as the reference's,
+the moe layer runs expert-parallel, and ``ctx.feature_shard_decode``
+(``tp2d_serve``) keeps a decode step's residual stream split over its
+features, as the reference's ``layer_decode`` does.
 
 Rematerialisation follows ``cfg.remat_policy`` over the reference's
 regions (``_remat``): a layer of the uniform stack, or ``cfg.layer_group``
@@ -24,8 +32,8 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import Params, mlp, mlp_init, rmsnorm, rmsnorm_init
-from repro_torch.models.moe import moe_ffn_local, moe_init
+from repro_torch.models.layers import Params, linear, mlp, mlp_init, rmsnorm, rmsnorm_init
+from repro_torch.models.moe import LOCAL_CTX, moe_ffn, moe_ffn_local, moe_init
 
 
 # the products whose outputs the "minimal" policy keeps: the reference's
@@ -90,31 +98,51 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16) -> 
 
 
 def _ffn(lp: Params, cfg: ModelConfig, y: torch.Tensor,
-         n_real: Optional[torch.Tensor] = None):
+         n_real: Optional[torch.Tensor] = None, ctx=LOCAL_CTX):
     """The layer's FFN: (out, the MoE's aux loss) for the moe family, (out,
     None) for the MLP. ``n_real``: see ``moe.moe_ffn_local``."""
     if cfg.family == "moe":
+        if attn._sharded(ctx):
+            return moe_ffn(lp["moe"], cfg, y, ctx)
         return moe_ffn_local(lp["moe"], cfg, y, n_real)
     return mlp(lp["mlp"], y, cfg.act), None
 
 
 def layer_fwd(lp: Params, cfg: ModelConfig, x: torch.Tensor, *, kind: str,
-              positions: Optional[torch.Tensor] = None):
+              positions: Optional[torch.Tensor] = None, ctx=LOCAL_CTX):
     """Returns (x, (k, v), aux): the layer's keys and values feed the
     cache; aux is the MoE's load-balance loss, None for the MLP."""
+    lp = attn.unshard_data(lp, ctx)
     h, kv = attn.self_attention_block(
         lp["attn"], cfg.attn, rmsnorm(lp["ln1"], x, cfg.norm_eps),
-        kind=kind, positions=positions)
+        kind=kind, positions=positions, ctx=ctx)
     x = x + h
-    f, aux = _ffn(lp, cfg, rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    f, aux = _ffn(lp, cfg, rmsnorm(lp["ln2"], x, cfg.norm_eps), ctx=ctx)
     return x + f, kv, aux
 
 
-def layer_decode(lp: Params, cfg: ModelConfig, x, ck, cv, pos, *, kind: str = "causal"):
+def layer_decode(lp: Params, cfg: ModelConfig, x, ck, cv, pos, *, kind: str = "causal",
+                 ctx=LOCAL_CTX):
+    """One token through a layer. Under ``ctx.feature_shard_decode`` the
+    residual stream stays split over its features on the data axes
+    (``fshard``, the reference's), so that every weight (d@data,
+    out@model) contracts against its resident shard; a norm, which reduces
+    over the features, reads the stream split over the batch instead."""
+    lp = attn.unshard_data(lp, ctx)
+    fsd = attn._sharded(ctx) and ctx.feature_shard_decode
+
+    def fshard(u):
+        return attn._shard(u, ctx, None, None, ctx.data_axes) if fsd else u
+
+    def norm(p, u):
+        if fsd:
+            u = attn._shard(u, ctx, ctx.data_axes, None, None)
+        return rmsnorm(p, u, cfg.norm_eps)
+
     h = attn.decode_self_attention(
-        lp["attn"], cfg.attn, rmsnorm(lp["ln1"], x, cfg.norm_eps), ck, cv, pos, kind=kind)
-    x = x + h
-    return x + _ffn(lp, cfg, rmsnorm(lp["ln2"], x, cfg.norm_eps))[0]
+        lp["attn"], cfg.attn, fshard(norm(lp["ln1"], x)), ck, cv, pos, kind=kind)
+    x = x + fshard(h)
+    return x + fshard(_ffn(lp, cfg, fshard(norm(lp["ln2"], x)), ctx=ctx)[0])
 
 
 # ===================================================================== #
@@ -159,7 +187,8 @@ def _kind_for(cfg: ModelConfig) -> str:
     return "bidirectional" if cfg.is_encoder else "causal"
 
 
-def uniform_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = False):
+def uniform_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = False,
+                      ctx=LOCAL_CTX):
     """Returns (x, aux, kvs): aux the MoE's load-balance loss summed over
     the layers (f32, 0 for the dense family), as the reference's scan
     carries it; kvs = (k (L,B,S,KVH,D), v (...)) if collect_kv. A remat
@@ -173,7 +202,7 @@ def uniform_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = Fal
     def group(x, aux, lps):
         kvs = []
         for lp in lps:
-            x, kv, a = layer_fwd(lp, cfg, x, kind=kind)
+            x, kv, a = layer_fwd(lp, cfg, x, kind=kind, ctx=ctx)
             if a is not None:
                 aux = aux + a
             if collect_kv:
@@ -211,9 +240,10 @@ def uniform_stack_extend(sp: Params, cfg: ModelConfig, x, cache_k, cache_v,
     return x
 
 
-def uniform_stack_decode(sp: Params, cfg: ModelConfig, x, cache_k, cache_v, pos):
+def uniform_stack_decode(sp: Params, cfg: ModelConfig, x, cache_k, cache_v, pos,
+                         ctx=LOCAL_CTX):
     for i, lp in enumerate(unstack(sp)):
-        x = layer_decode(lp, cfg, x, cache_k[i], cache_v[i], pos)
+        x = layer_decode(lp, cfg, x, cache_k[i], cache_v[i], pos, ctx=ctx)
     return x
 
 
@@ -255,7 +285,8 @@ def to_ring(u: torch.Tensor, W: int) -> torch.Tensor:
     return F.pad(u, (0, 0, 0, 0, 0, W - S))
 
 
-def lg_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = False):
+def lg_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = False,
+                 ctx=LOCAL_CTX):
     """Returns (x, aux, kvs): aux as ``uniform_stack_fwd``'s; kvs, if
     collect_kv, ((k, v) of the local layers (g, r, B, W, KVH, D) at their
     ring slots, (k, v) of the global layers (g, B, S, KVH, D), (k, v) of the
@@ -273,7 +304,7 @@ def lg_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = False):
         tail_kv = buf(tail, B, W) if tail else None
 
     def run(x, aux, lp, kind, dst):
-        x, kv, f = layer_fwd(lp, cfg, x, kind=kind)
+        x, kv, f = layer_fwd(lp, cfg, x, kind=kind, ctx=ctx)
         if f is not None:
             aux = aux + f
         if collect_kv:
@@ -298,20 +329,20 @@ def lg_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = False):
     return x, aux, ((local_kv, global_kv, tail_kv) if collect_kv else None)
 
 
-def lg_stack_decode(sp: Params, cfg: ModelConfig, x, cache: Cache, pos):
+def lg_stack_decode(sp: Params, cfg: ModelConfig, x, cache: Cache, pos, ctx=LOCAL_CTX):
     """One token through the stack; the local rings (``local_{k,v}`` (g, r,
     B, W, ...), ``tail_{k,v}``) and the global caches (``global_{k,v}`` (g,
     B, Smax, ...)) are updated in place."""
     for i, (lps, gp) in enumerate(zip(unstack(sp["locals"]), unstack(sp["globals"]))):
         for j, lp in enumerate(unstack(lps)):
             x = layer_decode(lp, cfg, x, cache["local_k"][i, j], cache["local_v"][i, j], pos,
-                             kind="local")
+                             kind="local", ctx=ctx)
         x = layer_decode(gp, cfg, x, cache["global_k"][i], cache["global_v"][i], pos,
-                         kind="causal")
+                         kind="causal", ctx=ctx)
     if sp["tail"] is not None:
         for j, lp in enumerate(unstack(sp["tail"])):
             x = layer_decode(lp, cfg, x, cache["tail_k"][j], cache["tail_v"][j], pos,
-                             kind="local")
+                             kind="local", ctx=ctx)
     return x
 
 
@@ -341,13 +372,15 @@ def vlm_stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16)
             "crosses": stack_init(cross, g)}
 
 
-def _cross_layer_fwd(cp: Params, cfg: ModelConfig, x, vision, kv=None):
+def _cross_layer_fwd(cp: Params, cfg: ModelConfig, x, vision, kv=None, ctx=LOCAL_CTX):
+    cp = attn.unshard_data(cp, ctx)
     x = x + attn.cross_attention_block(cp["xattn"], cfg.attn,
-                                       rmsnorm(cp["ln"], x, cfg.norm_eps), vision, kv)
+                                       rmsnorm(cp["ln"], x, cfg.norm_eps), vision, kv, ctx)
     return x + mlp(cp["mlp"], rmsnorm(cp["ln2"], x, cfg.norm_eps), cfg.act)
 
 
-def vlm_stack_fwd(sp: Params, cfg: ModelConfig, x, vision, *, collect_kv: bool = False):
+def vlm_stack_fwd(sp: Params, cfg: ModelConfig, x, vision, *, collect_kv: bool = False,
+                  ctx=LOCAL_CTX):
     """x (B, S, d) text, vision (B, T, d_vision). Returns (x, aux, kvs):
     aux 0 (no MoE), kvs, if collect_kv, ((k, v), (cross_k, cross_v)): the
     self layers' keys and values, each (g, n_self, B, S, KVH, D), filled
@@ -359,16 +392,16 @@ def vlm_stack_fwd(sp: Params, cfg: ModelConfig, x, vision, *, collect_kv: bool =
     B, S = x.shape[:2]
     if collect_kv:
         kvs = tuple(x.new_empty((g, n_self, B, S, a.n_kv_heads, a.head_dim)) for _ in "kv")
-        cross = vlm_precompute_cross_kv(sp, cfg, vision)
+        cross = vlm_precompute_cross_kv(sp, cfg, vision, ctx)
 
     def group(x, sps, cp, vision, i):
         for j, lp in enumerate(unstack(sps)):
-            x, kv, _ = layer_fwd(lp, cfg, x, kind="causal")
+            x, kv, _ = layer_fwd(lp, cfg, x, kind="causal", ctx=ctx)
             if collect_kv:
                 for d, u in zip(kvs, kv):
                     d[i, j].copy_(u)
         return _cross_layer_fwd(cp, cfg, x, vision,
-                                (cross[0][i], cross[1][i]) if collect_kv else None)
+                                (cross[0][i], cross[1][i]) if collect_kv else None, ctx)
 
     group = _remat(group, cfg.remat_policy)
     for i, (sps, cp) in enumerate(zip(unstack(sp["selfs"]), unstack(sp["crosses"]))):
@@ -377,7 +410,7 @@ def vlm_stack_fwd(sp: Params, cfg: ModelConfig, x, vision, *, collect_kv: bool =
     return x, aux, ((kvs, cross) if collect_kv else None)
 
 
-def vlm_precompute_cross_kv(sp: Params, cfg: ModelConfig, vision):
+def vlm_precompute_cross_kv(sp: Params, cfg: ModelConfig, vision, ctx=LOCAL_CTX):
     """The vision tokens (B, T, d_vision) through every cross layer's k and
     v projections once: (k, v), each (g, B, T, KVH, D)."""
     a = cfg.attn
@@ -385,30 +418,32 @@ def vlm_precompute_cross_kv(sp: Params, cfg: ModelConfig, vision):
     g = vlm_split(cfg)[0]
     kvs = tuple(vision.new_empty((g, B, T, a.n_kv_heads, a.head_dim)) for _ in "kv")
     for i, cp in enumerate(unstack(sp["crosses"])):
-        for d, w in zip(kvs, (cp["xattn"]["wk"], cp["xattn"]["wv"])):
-            d[i] = (vision @ w).reshape(B, T, a.n_kv_heads, a.head_dim)
+        xp = attn.unshard_data(cp["xattn"], ctx)
+        for d, w in zip(kvs, (xp["wk"], xp["wv"])):
+            d[i] = linear(vision, w).reshape(B, T, a.n_kv_heads, a.head_dim)
     return kvs
 
 
-def _cross_layer_decode(cp: Params, cfg: ModelConfig, x, ck, cv):
+def _cross_layer_decode(cp: Params, cfg: ModelConfig, x, ck, cv, ctx=LOCAL_CTX):
     """One token's cross layer over the cached vision keys and values (B,
     T, KVH, D): the query without RoPE (and without qk-norm, as in the
     reference's decode), every key valid, on the flash-decode kernel."""
+    cp = attn.unshard_data(cp, ctx)
     a, xp = cfg.attn, cp["xattn"]
     B = x.shape[0]
-    q = (rmsnorm(cp["ln"], x, cfg.norm_eps) @ xp["wq"]).reshape(B, 1, a.n_heads, a.head_dim)
+    q = linear(rmsnorm(cp["ln"], x, cfg.norm_eps), xp["wq"]).reshape(B, 1, a.n_heads, a.head_dim)
     kv_len = torch.full((B,), ck.shape[1], dtype=torch.int64, device=x.device)
-    o = attn.decode_attention(q, ck, cv, kv_len).reshape(B, 1, -1) @ xp["wo"]
+    o = linear(attn.decode_attention(q, ck, cv, kv_len).reshape(B, 1, -1), xp["wo"])
     x = x + torch.tanh(xp["gate"]).to(o.dtype) * o
     return x + mlp(cp["mlp"], rmsnorm(cp["ln2"], x, cfg.norm_eps), cfg.act)
 
 
-def vlm_stack_decode(sp: Params, cfg: ModelConfig, x, cache: Cache, pos):
+def vlm_stack_decode(sp: Params, cfg: ModelConfig, x, cache: Cache, pos, ctx=LOCAL_CTX):
     """One token through the stack: the self layers' caches ``k``, ``v``
     (g, n_self, B, Smax, KVH, D) updated in place, the cross layers over
     ``cross_k``, ``cross_v`` (g, B, T_vision, KVH, D)."""
     for i, (sps, cp) in enumerate(zip(unstack(sp["selfs"]), unstack(sp["crosses"]))):
         for j, lp in enumerate(unstack(sps)):
-            x = layer_decode(lp, cfg, x, cache["k"][i, j], cache["v"][i, j], pos)
-        x = _cross_layer_decode(cp, cfg, x, cache["cross_k"][i], cache["cross_v"][i])
+            x = layer_decode(lp, cfg, x, cache["k"][i, j], cache["v"][i, j], pos, ctx=ctx)
+        x = _cross_layer_decode(cp, cfg, x, cache["cross_k"][i], cache["cross_v"][i], ctx)
     return x

@@ -27,15 +27,20 @@ aligned to the trailing dims of each leaf, so stacked layouts ((L, ...),
 (g, r, ...), …) inherit the same rule with leading scan dims replicated.
 
 ``to_placements`` turns a spec into DTensor placements over a
-``DeviceMesh`` and ``distribute`` realises a tree of specs where a process
-group exists. A forward over the distributed tree is not ported (ROADMAP
-A10b).
+``DeviceMesh`` (``named`` does it for a tree, the twin of the reference's
+``NamedSharding`` tree), and ``distribute`` realises a tree of specs where
+a process group exists: each leaf a DTensor, a ``meta`` leaf as each
+rank's ``meta`` block (no data moves: the dry run's placed tree). The
+model's steps take the distributed tree with a ``ParallelContext``
+(``models/model.py``).
 """
 from __future__ import annotations
 
 import math
 import re
 from typing import Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
@@ -186,6 +191,24 @@ def sanitize(spec: Spec, shape, mesh) -> Spec:
                   for i, ax in enumerate(spec))
 
 
+def sanitize_tree(spec_tree, tree, mesh):
+    """``sanitize`` at every leaf: the specs of ``spec_tree`` against the
+    shapes of the leaves of ``tree`` (the same nesting)."""
+    def walk(s, t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: walk(s[k], v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)) and not _is_spec(s):
+            return type(t)(walk(si, v) for si, v in zip(s, t))
+        return sanitize(s, t.shape, mesh)
+    return walk(spec_tree, tree)
+
+
+def _is_spec(s) -> bool:
+    return isinstance(s, tuple) and all(a is None or isinstance(a, (str, tuple)) for a in s)
+
+
 def param_specs(cfg: ModelConfig, recipe: str, mesh, params):
     """params: the parameter tree (its leaves' shapes are read: ``meta``
     tensors do)."""
@@ -267,10 +290,46 @@ def to_placements(spec: Spec, mesh) -> list:
     return [Shard(where[n]) if n in where else Replicate() for n in mesh.mesh_dim_names]
 
 
+def named(mesh, spec_tree):
+    """The placements of every spec of a tree (the twin of the reference's
+    ``named``: a ``NamedSharding`` a leaf)."""
+    if spec_tree is None:
+        return None
+    if isinstance(spec_tree, dict):
+        return {k: named(mesh, v) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, list) or (isinstance(spec_tree, tuple) and not _is_spec(spec_tree)):
+        return type(spec_tree)(named(mesh, v) for v in spec_tree)
+    return tuple(to_placements(spec_tree, mesh))
+
+
+def local_shape(shape, placements, mesh) -> tuple:
+    """One rank's block of a tensor of ``shape`` placed by ``placements``
+    (dims that the placements split evenly, as ``sanitize`` leaves them)."""
+    from torch.distributed.tensor import Shard
+    out = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            out[p.dim] //= mesh.size(i)
+    return tuple(out)
+
+
 def distribute(tree, mesh, specs):
     """Each leaf of ``tree`` as a DTensor over ``mesh`` placed by its spec
-    (the same nesting as ``tree``). Needs the process group of the mesh."""
-    from torch.distributed.tensor import distribute_tensor
+    (the same nesting as ``tree``). Needs the process group of the mesh. A
+    DTensor leaf is moved to its spec's placements (the reference's
+    out_shardings); a ``meta`` leaf becomes each rank's ``meta`` block:
+    nothing is sent."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(t, s):
+        pl = to_placements(s, mesh)
+        if isinstance(t, DTensor):
+            return t if tuple(t.placements) == tuple(pl) else t.redistribute(mesh, pl)
+        if t.device.type != "meta":
+            return distribute_tensor(t, mesh, pl)
+        block = torch.empty(local_shape(t.shape, pl, mesh), dtype=t.dtype, device="meta")
+        return DTensor.from_local(block, mesh, pl, run_check=False, shape=t.shape,
+                                  stride=t.stride())
 
     def walk(t, s):
         if t is None:
@@ -279,5 +338,6 @@ def distribute(tree, mesh, specs):
             return {k: walk(v, s[k]) for k, v in t.items()}
         if isinstance(t, (tuple, list)):
             return type(t)(walk(v, si) for v, si in zip(t, s))
-        return distribute_tensor(t, mesh, to_placements(s, mesh))
+        return one(t, s)
     return walk(tree, specs)
+

@@ -7,6 +7,13 @@ opt_state, metrics) function with:
   * the optional int8 gradient quantiser (``parallel/collectives.py``);
   * the remat policy of the model config (``models/transformer.py:_remat``).
 
+With a ``ParallelContext`` over a mesh (the reference's ``ctx``) the
+parameters, the optimiser state and the batch are DTensors and each
+microbatch is every rank's own slice of its rows (the rows of a
+microbatch differ from the reference's split of the global batch; the
+mean over the microbatches does not); where a rank's rows do not split k
+ways, the global batch is split as the reference splits it.
+
 PyTorch runs it eagerly where the reference jits it. The parameters stay
 plain tensors (no ``requires_grad``): each microbatch differentiates the
 loss with respect to fresh views of them, and the optimizer writes the
@@ -18,6 +25,8 @@ the card unless the model was built for the CPU.
 """
 from __future__ import annotations
 
+import itertools
+import math
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, Optional
@@ -28,7 +37,9 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import RunConfig
 from repro_torch.ft import StragglerMonitor
-from repro_torch.models.model import Model, resolve_device
+from repro_torch.kernels import _mesh
+from repro_torch.models.model import Model, mesh_scope, resolve_device
+from repro_torch.models.moe import LOCAL_CTX, ParallelContext
 from repro_torch.parallel.collectives import compress_grads_int8
 from repro_torch.train.optimizer import Optimizer, get_optimizer
 from repro_torch.tree import leaves, unflatten
@@ -36,6 +47,8 @@ from repro_torch.tree import leaves, unflatten
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], k: int):
     def split(x):
+        if _mesh.is_dtensor(x):
+            return _split_dtensor(x, k, split)
         b = x.shape[0]
         if b % k:
             raise ValueError(f"batch {b} not divisible by microbatches {k}")
@@ -45,7 +58,31 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], k: int):
     return [{name: x[i] for name, x in parts.items()} for i in range(k)]
 
 
-def make_train_step(model: Model, opt: Optimizer, run: RunConfig) -> Callable:
+def _split_dtensor(x, k: int, split):
+    """A DTensor batch split k ways: each rank's rows where they split k
+    ways; else the global batch, gathered (token ids: small) and split as
+    the reference splits it, each microbatch placed back over the mesh dims
+    of the rows that it still divides (the most ranks; whole over the
+    others)."""
+    from torch.distributed.tensor import DTensor
+    mesh, pl = x.device_mesh, x.placements
+    if x.to_local().shape[0] % k == 0:
+        return [DTensor.from_local(u, mesh, pl, run_check=False) for u in split(x.to_local())]
+    Replicate = _mesh._types()[2]
+    rows = [i for i, p in enumerate(pl) if _mesh.shard_dim(p, x.ndim) == 0]
+    whole = x.redistribute(mesh, [Replicate() if i in rows else p for i, p in enumerate(pl)])
+    parts = split(whole)
+    # the mesh dims of the rows whose split still divides a microbatch's rows,
+    # the most ranks among them
+    best = max((dims for r in range(len(rows) + 1) for dims in itertools.combinations(rows, r)
+                if parts[0].shape[0] % math.prod(mesh.size(i) for i in dims) == 0),
+               key=lambda dims: math.prod(mesh.size(i) for i in dims))
+    back = [pl[i] if i in best else p for i, p in enumerate(whole.placements)]
+    return [_mesh.placed(u, mesh, back) for u in parts]
+
+
+def make_train_step(model: Model, opt: Optimizer, run: RunConfig,
+                    ctx: ParallelContext = LOCAL_CTX) -> Callable:
     k = run.num_microbatches
 
     def value_and_grad(params, mb):
@@ -53,23 +90,26 @@ def make_train_step(model: Model, opt: Optimizer, run: RunConfig) -> Callable:
         in the parameters' types, ``None`` for a leaf the loss does not
         reach."""
         live = [p.detach().requires_grad_() for p in leaves(params)]
-        loss, metrics = model.loss_fn(unflatten(params, live), mb)
+        loss, metrics = model.loss_fn(unflatten(params, live), mb, ctx)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         return loss.detach(), {n: v.detach() for n, v in metrics.items()}, grads
 
     def train_step(params, opt_state, batch):
+        with mesh_scope(ctx):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         if k == 1:
             loss, metrics, grads = value_and_grad(params, batch)
             grads = unflatten(params, grads)
         else:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves(params)]
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=acc[0].device)
             for mb in _split_microbatches(batch, k):
                 l, _, g = value_and_grad(params, mb)
                 for a, gi in zip(acc, g):
-                    if gi is not None:
-                        a.add_(gi)
+                    if gi is not None:       # the reference's a + g.astype(f32): under a
+                        a.add_(gi.float())   # mesh a pending sum is reduced in f32
                 loss = loss + l
                 del g
             grads = unflatten(params, [a.div_(k) for a in acc])
