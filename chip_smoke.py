@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, times them at the shapes their paths
-give them, and drives seventeen paths, counting the kernels' launches on each:
+give them, and drives nineteen paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
     continuous-batching engine (rmsnorm, flash_attention, flash_decode),
@@ -35,6 +35,17 @@ give them, and drives seventeen paths, counting the kernels' launches on each:
     unsharded facade (logits and launches), and the card's half of a
     decode over a cache split between two ranks (``flash_decode``'s
     per-split partials);
+  * the sharded engine: ``Engine(ctx=)`` serving qwen3-1.7b at full width
+    and depth over the same kind of mesh (``tp_serve``), its decode and
+    extend steps CUDA graphs captured over DTensor bodies, every chunk
+    priced on the torch solver, against the unsharded engine (tokens,
+    chunks, each capture's launches; replay profiles; the decode body run
+    eagerly over the DTensors);
+  * the sharded trainer: ``Trainer(ctx=, mesh=, shardings=)`` under
+    ``fsdp_tp``, two ``fit`` steps of qwen3-1.7b at full width and depth
+    against the unsharded trainer's losses, and a checkpoint of a 2-layer
+    cut saved from the mesh and restored onto it by
+    ``restore_latest(shardings=)``, bit for bit;
   * interference: the paper's §4 measure → fit → validate loop, the four
     stressor kernels on their own CUDA streams beside two full-width
     attention victims replayed from CUDA graphs
@@ -118,6 +129,7 @@ import gc
 import importlib
 import io
 import json
+import math
 import os
 import shutil
 import socket
@@ -138,6 +150,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import graphs  # noqa: E402
 from repro_torch.calib import FIT_LAMBDAS, StressorSpec, median_iqr_time  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.calib.measure import _stressor_call  # noqa: E402
 from repro_torch.calib import fit as fit_mod  # noqa: E402
 from repro_torch.configs.base import TRAIN_4K, RunConfig  # noqa: E402
@@ -153,6 +166,7 @@ from repro_torch.core.estimator import solve_scenarios  # noqa: E402
 from repro_torch.core.resources import H100, RESOURCE_AXES, TPU_V5E, TPU_V5P  # noqa: E402
 from repro_torch.ft.inject import FakeClock, FaultInjector, arrive, kill, storm  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _mesh  # noqa: E402
 from repro_torch.kernels import cache_share as cs_mod  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
@@ -162,11 +176,11 @@ from repro_torch.kernels import stressors as st_mod  # noqa: E402
 from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
 from repro_torch.launch import gpu_native  # noqa: E402
 from repro_torch.launch import profile as profile_mod  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import forget_meshes, make_mesh  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models.moe import ParallelContext  # noqa: E402
+from repro_torch.models.moe import LOCAL_CTX, ParallelContext  # noqa: E402
 from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.models.hybrid import hybrid_split  # noqa: E402
 from repro_torch.models.transformer import lg_split, vlm_split  # noqa: E402
@@ -1124,14 +1138,15 @@ def serve_prompts(cfg, rng) -> list:
             for n in rng.integers(64, 769, size=8)]
 
 
-def serve_graphed(cfg, ecfg, prompts, max_new, params) -> tuple:
+def serve_graphed(cfg, ecfg, prompts, max_new, params, ctx=LOCAL_CTX) -> tuple:
     """``serve`` on the captured steps (counts of this serve only), with
     the gates of the replay: every step of the engine is a CUDA graph and
     the wrappers launched nothing besides the warm-ups and captures, so no
     step ran eagerly. Returns (engine, metrics, seconds, the launches on
-    the card: each step's captured launches times its replays)."""
+    the card: each step's captured launches times its replays). ``ctx``:
+    the engine's ``ParallelContext``."""
     reset_counts()
-    eng, metrics, seconds = serve(cfg, ecfg, prompts, max_new, device=DEV, params=params)
+    eng, metrics, seconds = serve(cfg, ecfg, prompts, max_new, device=DEV, params=params, ctx=ctx)
     steps = list(eng.steps.values())
     if not all(step.graph is not None for step in steps):
         raise AssertionError("serve: a step of the engine was not captured")
@@ -1819,37 +1834,34 @@ def phase_dryrun_mesh(records: dict, dev1: dict, proc: subprocess.Popen) -> None
 SHARDED_RECIPE = "tp_serve"
 
 
-def _whole(t):
-    return t.full_tensor() if type(t).__name__ == "DTensor" else t
-
-
-def facade_steps(m, params, prompt, n_dec: int, feed=None, ctx=None, place=None) -> dict:
+def facade_steps(m, params, prompt, n_dec: int, feed=None, ctx=LOCAL_CTX,
+                 place=None) -> dict:
     """A prefill of ``prompt`` and ``n_dec`` decode steps through the facade,
     under ``ctx`` (its tensors placed by ``place``) or on one device: the
     prefill's and each step's logits (f32, on the host), the ids each step
     was fed (``feed``: those ids; else its own greedy ones), the launches
     of the run (after one short unmeasured run) and each step's host
     seconds until its ids are on the host."""
-    kw = {} if ctx is None else {"ctx": ctx}
     place = place or (lambda x, what: x)
     B, S = prompt.shape
     with torch.no_grad():
-        lg, cache = m.prefill(params, {"tokens": place(prompt[:, :64], "tokens")}, S, **kw)
-        m.decode_step(params, place(_whole(lg).argmax(-1), "tokens"), place(cache, "cache"), 64,
-                      **kw)
+        lg, cache = m.prefill(params, {"tokens": place(prompt[:, :64], "tokens")}, S, ctx=ctx)
+        m.decode_step(params, place(_mesh.whole(lg).argmax(-1), "tokens"),
+                      place(cache, "cache"), 64, ctx=ctx)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        lg, cache = m.prefill(params, {"tokens": place(prompt, "tokens")}, S + n_dec, **kw)
+        lg, cache = m.prefill(params, {"tokens": place(prompt, "tokens")}, S + n_dec, ctx=ctx)
         cache = place(cache, "cache")
-        logits = [_whole(lg).float().cpu()]
+        logits = [_mesh.whole(lg).float().cpu()]
         ids = [feed[:, :1] if feed is not None else logits[0].argmax(-1)]
         prefill_s = time.perf_counter() - t0
         steps = []
         for i in range(n_dec):
             t1 = time.perf_counter()
-            lg, cache = m.decode_step(params, place(ids[-1].to(DEV), "tokens"), cache, S + i, **kw)
-            logits.append(_whole(lg).float().cpu())
+            lg, cache = m.decode_step(params, place(ids[-1].to(DEV), "tokens"), cache, S + i,
+                                      ctx=ctx)
+            logits.append(_mesh.whole(lg).float().cpu())
             ids.append(feed[:, i + 1:i + 2] if feed is not None else logits[-1].argmax(-1))
             steps.append(time.perf_counter() - t1)
         used = counts(("rmsnorm", "flash_attention", "flash_decode"))
@@ -1931,6 +1943,22 @@ def check_sequence_parallel_decode(rng) -> dict:
             "lengths": lens.tolist()}
 
 
+@contextlib.contextmanager
+def nccl_world():
+    """This process as the one rank of an NCCL world at
+    ``tcp://localhost:<free port>``, and a (1, 1) ``("data", "model")`` CUDA
+    mesh over it with its ``ParallelContext``; the world is destroyed on the
+    way out."""
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        yield mesh, ParallelContext(mesh, shd.data_axes_of(mesh), "model")
+    finally:
+        dist.destroy_process_group()
+        forget_meshes()
+
+
 def phase_sharded_forward(records: dict) -> None:
     """The sharded forward on the card: qwen3-1.7b at full width and depth
     (random bf16 weights from seed 0) over a (1, 1) ``("data", "model")``
@@ -1952,12 +1980,8 @@ def phase_sharded_forward(records: dict) -> None:
     prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, S))).to(DEV)
     plain = facade_steps(m, params, prompt, n_dec)
     err_plain = facade_steps_plain(m, params, prompt, plain)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
-                            rank=0, world_size=1)
-    try:
-        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
-        da = shd.data_axes_of(mesh)
-        ctx = ParallelContext(mesh, da, "model")
+    with nccl_world() as (mesh, ctx):
+        da = ctx.data_axes
         placed = shd.distribute(params, mesh, shd.param_specs(cfg, SHARDED_RECIPE, mesh, params))
 
         def place(x, what):
@@ -1972,10 +1996,8 @@ def phase_sharded_forward(records: dict) -> None:
         err = logits_close("qwen3 sharded forward", sharded["logits"], plain["logits"])
         # the last step again, over the cache's last row
         tok = place(plain["ids"][:, -2:-1].to(DEV), "tokens")
-        prof_s = profile_step(lambda: _whole(m.decode_step(
+        prof_s = profile_step(lambda: _mesh.whole(m.decode_step(
             placed, tok, sharded["cache"], S + n_dec - 1, ctx=ctx)[0]).argmax(-1).tolist())
-    finally:
-        dist.destroy_process_group()
     tok = plain["ids"][:, -2:-1].to(DEV)
     prof_p = profile_step(lambda: m.decode_step(params, tok, plain["cache"], S + n_dec - 1)[0]
                           .argmax(-1).tolist())
@@ -1995,6 +2017,265 @@ def phase_sharded_forward(records: dict) -> None:
          decode_step_profile={"sharded": prof_s, "unsharded": prof_p})
 
 
+
+def check_slot_rows_attention(rng, cfg) -> float:
+    """``flash_attention``'s offsets form as the sharded extend step runs it:
+    a chunk over the rows of one slot gathered from the cache, a one-slot
+    cache of 1,025 positions read as slot 0, at the path's chunks."""
+    a = cfg.attn
+    H, KVH, D = a.n_heads, a.n_kv_heads, a.head_dim
+    ck, cv = path_cache(rng, 1, 1, 1025, KVH, D, BF)
+    err = 0.0
+    for S, c, pos0 in ((128, 128, 0), (128, 100, 900), (16, 1, 40)):
+        q = randn(rng, (1, S, H, D), BF)
+        off = torch.tensor([0, pos0, c], device=DEV)
+        err = max(err, check_attention(
+            f"flash_attention one slot's rows pos0 {pos0} c {c}",
+            fa_mod.flash_attention(q, ck[0], cv[0], "causal", offsets=off),
+            fa_mod.flash_attention_plain(q, ck[0], cv[0], "causal", offsets=off), BF))
+    return err
+
+
+def eager_ms(fn, n: int = 3) -> float:
+    """The median wall time of ``n`` calls of ``fn``, each ending when the
+    device has finished (after one call to warm up)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_sharded_engine(records: dict) -> None:
+    """``Engine(ctx=)`` on the card: qwen3-1.7b at full width and depth
+    (random bf16 weights from seed 0), its parameters placed by
+    ``tp_serve`` and its cache by ``cache_specs`` over the (1, 1) CUDA mesh
+    of an NCCL world of one rank, serving ``phase_serve_full``'s 8 prompts
+    (32 new tokens each) with every chunk priced on the torch solver on the
+    card, beside the same serve on the unsharded engine. Gates: the kernels
+    against their plain versions at the engine's shapes (the one-slot rows
+    of the sharded extend too) before any capture; every step of both
+    engines a CUDA graph, with no launch outside the captures
+    (``serve_graphed``) and every solve a replay with one ``cache_share``
+    launch (``fleet_run``); each step's captured launches of ``rmsnorm``,
+    ``flash_attention`` and ``flash_decode``, and the solves' of
+    ``cache_share``, equal to the unsharded engine's; the same tokens and
+    chunks. Reported: the decode and a 128-row extend replay profiled
+    (``profile_step``), sharded and not, and the decode step's body run
+    eagerly over the DTensors (the sharded facade's cost) beside its
+    replay."""
+    cfg = get_config("qwen3-1.7b")
+    rng = np.random.default_rng(16)
+    t_phase = time.perf_counter()
+    kerr = check_served_kernels(rng, cfg)
+    kerr["flash_attention_one_slot"] = check_slot_rows_attention(rng, cfg)
+    m, params, weights = facade_weights(cfg)
+    prompts = serve_prompts(cfg, np.random.default_rng(0))
+    ecfg = EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128)
+    (plain, plain_metrics, plain_s, plain_used), plain_solver = fleet_run(
+        "sharded_engine_unsharded", "torch",
+        lambda: serve_graphed(cfg, ecfg, prompts, 32, params))
+    dtok = rng.integers(1, cfg.vocab_size, size=8)
+    tok = rng.integers(1, cfg.vocab_size, size=128)
+    pos = np.full(8, 1024)
+    pos[3] = 356
+    with nccl_world() as (mesh, ctx):
+        (eng, metrics, seconds, used), solver = fleet_run(
+            "sharded_engine", "torch",
+            lambda: serve_graphed(cfg, ecfg, prompts, 32, params, ctx=ctx))
+        stats = serve_stats(eng, metrics, seconds, 32)
+        plain_stats = serve_stats(plain, plain_metrics, plain_s, 32)
+        if not all(type(t).__name__ == "DTensor" for t in leaves((eng.params, eng.cache))):
+            raise AssertionError("sharded engine: a parameter or cache leaf is not a DTensor")
+        tokens_equal = ({i: r["output"] for i, r in metrics.items()}
+                        == {i: r["output"] for i, r in plain_metrics.items()})
+        if not tokens_equal or stats["chunk_sizes"] != plain_stats["chunk_sizes"]:
+            raise AssertionError("sharded engine: other tokens or chunks than the unsharded one")
+        step_launches = {str(k): step.launches for k, step in eng.steps.items()}
+        plain_launches = {str(k): step.launches for k, step in plain.steps.items()}
+        if step_launches != plain_launches or used != plain_used:
+            raise AssertionError(f"sharded engine: captures launch {step_launches}, the "
+                                 f"unsharded ones {plain_launches}")
+        if (solver["cache_share_launches"], solver["solves"]) != (
+                plain_solver["cache_share_launches"], plain_solver["solves"]):
+            raise AssertionError(f"sharded engine: {solver['cache_share_launches']} cache_share "
+                                 f"launches, the unsharded serve's "
+                                 f"{plain_solver['cache_share_launches']}")
+        profiles = {
+            "decode": profile_step(lambda: eng._decode(dtok, pos).argmax(-1).tolist(),
+                                   eng.steps["decode"]),
+            "extend_128": profile_step(lambda: eng._extend(tok, 3, 128).argmax(-1).tolist(),
+                                       eng.steps[128])}
+        eager = eager_ms(lambda: eng.steps["decode"].body())
+    capture_s = {name: sum(step.capture_s for step in e.steps.values())
+                 for name, e in (("sharded", eng), ("unsharded", plain))}
+    plain_profiles = {
+        "decode": profile_step(lambda: plain._decode(dtok, pos).argmax(-1).tolist(),
+                               plain.steps["decode"]),
+        "extend_128": profile_step(lambda: plain._extend(tok, 3, 128).argmax(-1).tolist(),
+                                   plain.steps[128])}
+    plain_eager = eager_ms(lambda: plain.steps["decode"].body())
+    del eng, plain, m, params
+    for name in SERVING:
+        records[name]["launches_sharded_engine"] = used[name]
+    records["cache_share"]["launches_sharded_engine"] = solver["cache_share_launches"]
+    emit(phase="sharded_engine", seconds=time.perf_counter() - t_phase, config=cfg.name,
+         mesh={"data": 1, "model": 1}, recipe="tp_serve", n_params=weights["n_params"],
+         max_abs_err=kerr, tolerance={"bfloat16": TOL[BF]}, tokens_and_chunks_equal=True,
+         launches=used, launches_unsharded=plain_used,
+         cache_share_launches=solver["cache_share_launches"], solver=solver,
+         step_launches=step_launches, serve=stats, serve_unsharded=plain_stats,
+         capture_s=capture_s,
+         step_profile={"sharded": profiles, "unsharded": plain_profiles},
+         decode_body_eager_ms={"sharded": eager, "unsharded": plain_eager})
+
+
+SHARDED_TRAIN_STEPS = 2
+# the sharded trainer against the unsharded one on the card: each step's
+# loss (relative; 8.1e-5 measured on an H100), the norm of the parameters'
+# change over the steps (relative; 4.8e-6 measured), and the norm of the
+# two changes' difference over the unsharded change's norm (0.064
+# measured: bf16 parameters, so a slightly other gradient flips whole
+# roundings; a gradient of other data moves AdamW's first steps by about
+# the learning rate with other signs, a difference near 1)
+SHARDED_TRAIN_LOSS_RTOL = 1e-3
+SHARDED_TRAIN_UPDATE_RTOL = 1e-4
+SHARDED_TRAIN_UPDATE_GAP = 0.25
+
+
+def phase_sharded_train(records: dict) -> None:
+    """``Trainer(ctx=, mesh=, shardings=)`` on the card: qwen3-1.7b at full
+    width and depth, full remat, AdamW, two ``fit`` steps of 2 x 1,024
+    SyntheticLM tokens, unsharded and then with its parameters, optimiser
+    state and batches placed by ``fsdp_tp`` over the (1, 1) CUDA mesh (the
+    shardings the trainer places them by). Gates: every step's loss finite
+    and within ``SHARDED_TRAIN_LOSS_RTOL`` of the unsharded trainer's (bit
+    equality reported); the parameters' change over the two steps of the
+    same norm as the unsharded change (``SHARDED_TRAIN_UPDATE_RTOL``), and
+    the two changes apart by at most ``SHARDED_TRAIN_UPDATE_GAP`` of that
+    norm; the same kernel launches a step. Then a checkpoint round trip at
+    full width and 2 layers: one sharded step, its parameters saved
+    through the checkpoint manager (gathered, rank 0 writing) and restored
+    onto the mesh by ``restore_latest(shardings=)``, bit for bit; the
+    directory removed."""
+    cfg = get_config("qwen3-1.7b").with_overrides(remat_policy="full")
+    run = RunConfig(num_microbatches=1)
+    dcfg = DataConfig(seq_len=1024, global_batch=2, vocab_size=cfg.vocab_size, seed=0)
+    tcfg = TrainerConfig(total_steps=SHARDED_TRAIN_STEPS, log_every=1, optimizer="adamw")
+    t_phase = time.perf_counter()
+    out = {}
+
+    def fit(ctx=LOCAL_CTX, mesh=None):
+        """Two steps from seed 0's weights; (history, launches a step, each
+        parameter's change over the steps, f32)."""
+        m, params, _ = facade_weights(cfg)
+        start = [t.float() for t in leaves(params)]
+        kw = {}
+        if mesh is not None:
+            batch = SyntheticLM(cfg, dcfg).batch_at(0)
+            kw = dict(mesh=mesh, shardings=sharded_train_shardings(cfg, mesh, params, batch))
+        tr = Trainer(m, run, tcfg, ctx=ctx, **kw)
+        reset_counts()
+        new, _, history = tr.fit(SyntheticLM(cfg, dcfg), params=params,
+                                 opt_state=tr.opt.init(params))
+        used = {k: v // SHARDED_TRAIN_STEPS for k, v in counts().items() if v}
+        moved = [_mesh.whole(t).float() - t0 for t, t0 in zip(leaves(new), start)]
+        del m, params, tr, new, start
+        gc.collect()
+        torch.cuda.empty_cache()
+        return history, used, moved
+
+    def norm(ts) -> float:
+        return math.sqrt(sum(float(torch.sum(t * t)) for t in ts))
+
+    out["unsharded"] = fit()
+    with nccl_world() as (mesh, ctx):
+        out["sharded"] = fit(ctx, mesh)
+        roundtrip = sharded_checkpoint_roundtrip(cfg.with_overrides(n_layers=2), run, dcfg,
+                                                 mesh, ctx)
+    (h_p, used_p, moved_p), (h_s, used_s, moved_s) = out["unsharded"], out["sharded"]
+    update = {"unsharded": norm(moved_p), "sharded": norm(moved_s)}
+    update_gap = norm([a - b for a, b in zip(moved_s, moved_p)]) / update["unsharded"]
+    update_rel = abs(update["sharded"] / update["unsharded"] - 1)
+    del moved_p, moved_s, out
+    losses = [lo for _, lo, _ in h_s]
+    losses_p = [lo for _, lo, _ in h_p]
+    rel = [abs(a / b - 1) for a, b in zip(losses, losses_p)]
+    if not (len(losses) == SHARDED_TRAIN_STEPS and all(np.isfinite(losses))
+            and max(rel) <= SHARDED_TRAIN_LOSS_RTOL):
+        raise AssertionError(f"sharded train: losses {losses}, unsharded {losses_p}")
+    if not (update_rel <= SHARDED_TRAIN_UPDATE_RTOL and update_gap <= SHARDED_TRAIN_UPDATE_GAP):
+        raise AssertionError(f"sharded train: the parameters moved {update}, apart by "
+                             f"{update_gap} of the unsharded change")
+    if used_s != used_p:
+        raise AssertionError(f"sharded train: launches a step {used_s}, unsharded {used_p}")
+    for name in ("rmsnorm", "flash_attention"):
+        records[name]["launches_sharded_train"] = used_s[name]
+    emit(phase="sharded_train", seconds=time.perf_counter() - t_phase, config=cfg.name,
+         mesh={"data": 1, "model": 1}, recipe="fsdp_tp", seq=dcfg.seq_len,
+         global_batch=dcfg.global_batch, microbatches=run.num_microbatches,
+         optimizer="adamw", remat_policy=cfg.remat_policy, losses=losses,
+         losses_unsharded=losses_p, rel_diff=rel, tolerance=SHARDED_TRAIN_LOSS_RTOL,
+         losses_bit_equal=losses == losses_p, update_norm=update,
+         update_norm_rel_diff=update_rel, update_norm_tolerance=SHARDED_TRAIN_UPDATE_RTOL,
+         update_gap=update_gap, update_gap_tolerance=SHARDED_TRAIN_UPDATE_GAP,
+         step_wall_ms={"sharded": [dt * 1e3 for _, _, dt in h_s],
+                       "unsharded": [dt * 1e3 for _, _, dt in h_p]},
+         launches_per_step=used_s, launches_per_step_unsharded=used_p,
+         checkpoint=roundtrip)
+
+
+def sharded_train_shardings(cfg, mesh, params, batch) -> dict:
+    """The ``fsdp_tp`` placements of the parameters, their AdamW state and
+    a batch over ``mesh``: what ``Trainer(shardings=)`` takes."""
+    state_like = {"m": params, "v": params, "count": torch.zeros((), device=DEV)}
+    da = shd.data_axes_of(mesh)
+    specs = shd.batch_specs(cfg, "fsdp_tp", mesh, "train")
+    return {"params": shd.named(mesh, shd.param_specs(cfg, "fsdp_tp", mesh, params)),
+            "opt": shd.named(mesh, shd.param_specs(cfg, "fsdp_tp", mesh, state_like)),
+            "batch": shd.named(mesh, shd.sanitize_tree(
+                {k: specs.get(k, (da, None)) for k in batch}, batch, mesh))}
+
+
+CKPT_DIR = Path(__file__).resolve().parent / "results" / "sharded_ckpt_smoke"
+
+
+def sharded_checkpoint_roundtrip(cfg, run, dcfg, mesh, ctx) -> dict:
+    """One ``fsdp_tp`` step of ``cfg`` (full width, a few layers) through
+    ``Trainer(ctx=, mesh=, shardings=)``, its parameters saved by a
+    ``CheckpointManager`` under ``CKPT_DIR`` and restored onto the mesh by
+    ``restore_latest(shardings=)``: every leaf bit for bit and on its
+    placements. The directory is removed afterwards."""
+    m, params, weights = facade_weights(cfg)
+    batch = SyntheticLM(cfg, dcfg).batch_at(0)
+    sh = sharded_train_shardings(cfg, mesh, params, batch)
+    tr = Trainer(m, run, TrainerConfig(total_steps=1, optimizer="adamw"), ctx=ctx, mesh=mesh,
+                 shardings=sh)
+    params, _, _ = tr.fit(SyntheticLM(cfg, dcfg), params=params, opt_state=tr.opt.init(params))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        CheckpointManager(str(CKPT_DIR)).save(0, params, block=True)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in CKPT_DIR.rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        step, got = CheckpointManager(str(CKPT_DIR)).restore_latest(like=params,
+                                                                    shardings=sh["params"])
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    pairs = list(zip(leaves(got), leaves(params)))
+    bad = [i for i, (a, b) in enumerate(pairs)
+           if tuple(a.placements) != tuple(b.placements) or not torch.equal(a.to_local(), b.to_local())]
+    if step != 0 or bad:
+        raise AssertionError(f"sharded checkpoint: step {step}, leaves {bad} differ")
+    return {"config_layers": cfg.n_layers, "n_params": weights["n_params"], "leaves": len(pairs),
+            "bytes_written": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "bit_equal": True, "directory_removed": not CKPT_DIR.exists()}
 
 # what the resident blocks of one H100 SM share (CUDA C programming guide,
 # compute capability 9.0); each block also reserves 1 KB of shared memory
@@ -3946,6 +4227,18 @@ def run_phases(t_all: float, pods: list) -> int:
     t0 = time.perf_counter()
     phase_sharded_forward(records)
     emit(phase="sharded_forward_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_sharded_engine(records)
+    emit(phase="sharded_engine_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_sharded_train(records)
+    emit(phase="sharded_train_done", seconds=time.perf_counter() - t0)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -19,6 +19,13 @@ Leaves go in ``jax.tree.flatten``'s order (``repro_torch.tree``: dict keys
 sorted, tuples in order, a ``None`` is no leaf). A bf16 leaf is restored
 through torch views of its bytes, not through ``ml_dtypes``, which this
 package does not need.
+
+A tree of DTensors (a sharded trainer's) is saved as its full arrays: each
+leaf is gathered with ``full_tensor()``, a collective, so every rank calls
+``save``, and rank 0 alone writes the files (ROADMAP C28); a blocking save
+returns on every rank once they are published. ``restore(...,
+shardings=)`` lays each leaf onto the given placements over ``like``'s
+mesh: the reference's elastic re-shard, onto any mesh.
 """
 from __future__ import annotations
 
@@ -33,8 +40,10 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import leaves, unflatten
+from repro_torch.kernels import _mesh
+from repro_torch.tree import leaves, map_leaves, unflatten
 
 # torch dtypes by the NumPy names the manifest gives them
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
@@ -45,8 +54,9 @@ _NAMES = {v: k for k, v in _DTYPES.items()}
 
 
 def _to_host(t) -> Tuple[np.ndarray, str]:
-    """A leaf as the array npz stores and its dtype's name: bf16 as its bytes."""
-    t = torch.as_tensor(t).detach()
+    """A leaf as the array npz stores and its dtype's name: bf16 as its
+    bytes. A DTensor is gathered to its full array first (a collective)."""
+    t = torch.as_tensor(_mesh.whole(t)).detach()
     name = _NAMES[t.dtype]
     if t.dtype == torch.bfloat16:
         t = t.contiguous().view(torch.uint8)     # last dim doubled, little-endian
@@ -70,16 +80,21 @@ class CheckpointManager:
 
     # ----------------------------- save ------------------------------ #
     def save(self, step: int, tree: Any, block: bool = False):
+        """Every rank of a tree of DTensors calls this; rank 0 writes."""
         self.wait()
         ls = leaves(tree)
         host = [_to_host(t) for t in ls]                   # device -> host now
         shapes = [list(torch.as_tensor(t).shape) for t in ls]
-        t = threading.Thread(target=self._write, args=(step, host, shapes),
-                             daemon=True)
-        t.start()
-        self._pending = t
+        sharded = any(_mesh.is_dtensor(t) for t in ls)
+        if not sharded or dist.get_rank() == 0:
+            t = threading.Thread(target=self._write, args=(step, host, shapes),
+                                 daemon=True)
+            t.start()
+            self._pending = t
         if block:
             self.wait()
+            if sharded:
+                dist.barrier()
 
     def _write(self, step: int, host, shapes):
         tmp = self.dir / f"step_{step:08d}.tmp"
@@ -112,10 +127,19 @@ class CheckpointManager:
             out.append(int(p.name.split("_")[1]))
         return out
 
-    def restore(self, step: int, like: Any = None):
+    def restore(self, step: int, like: Any = None, shardings: Any = None):
         """The leaves of checkpoint ``step``: with ``like``, in its structure,
-        each leaf in the type and on the device of ``like``'s; else a list
-        of CPU tensors in their stored types."""
+        each leaf in the type and on the device of ``like``'s, and with
+        ``shardings`` (placements for each leaf, ``like``'s nesting: what
+        ``parallel.sharding.named`` gives) a DTensor over the mesh of
+        ``like``'s DTensor leaves; else a list of CPU tensors in their
+        stored types."""
+        mesh = _target_mesh(like, shardings)
+        return _lay(self._read(step, like), mesh, shardings)
+
+    def _read(self, step: int, like: Any = None):
+        """Checkpoint ``step``'s leaves, in ``like``'s structure, types and
+        devices where given."""
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         with np.load(d / "leaves.npz") as data:
@@ -131,15 +155,43 @@ class CheckpointManager:
         return unflatten(like, [t.to(device=r.device, dtype=r.dtype)
                                 for t, r in zip(got, refs)])
 
-    def restore_latest(self, like: Any = None) -> Optional[Tuple[int, Any]]:
+    def restore_latest(self, like: Any = None, shardings: Any = None
+                       ) -> Optional[Tuple[int, Any]]:
+        """The newest checkpoint that reads, as ``restore`` gives it. Only
+        reading falls back to an older step: ``shardings`` that do not fit
+        ``like`` raise."""
+        mesh = _target_mesh(like, shardings)
         steps = self.all_steps()
         if not steps:
             return None
         # skip corrupt newest checkpoints (crash-mid-rename safety)
         for s in reversed(steps):
             try:
-                return s, self.restore(s, like)
+                tree = self._read(s, like)
             except (OSError, EOFError, ValueError, KeyError, zipfile.BadZipFile) as e:
                 print(f"checkpoint step {s} unreadable ({type(e).__name__}: {e}); "
                       "trying an older one")
+                continue
+            return s, _lay(tree, mesh, shardings)
         return None
+
+
+def _target_mesh(like, shardings):
+    """The mesh that ``shardings`` place onto: that of ``like``'s DTensor
+    leaves (None without ``shardings``). Shardings nested otherwise than
+    ``like`` raise here, before any checkpoint is read."""
+    if shardings is None:
+        return None
+    map_leaves(lambda t, pl: None, like, shardings)
+    meshes = [r.device_mesh for r in leaves(like) if _mesh.is_dtensor(r)]
+    if not meshes:
+        raise ValueError("restore: shardings need a tree like that lies on a mesh")
+    return meshes[0]
+
+
+def _lay(tree, mesh, shardings):
+    """The restored tree on its placements: the elastic re-shard."""
+    if shardings is None:
+        return tree
+    from repro_torch.parallel.sharding import place
+    return place(tree, mesh, shardings)

@@ -34,6 +34,12 @@ def any_dtensor(*xs) -> bool:
     return any(is_dtensor(x) for x in xs)
 
 
+def whole(t):
+    """A DTensor as the plain tensor of its whole value on every rank (a
+    collective); any other value as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def mesh_of(*xs):
     return next(x.device_mesh for x in xs if is_dtensor(x))
 

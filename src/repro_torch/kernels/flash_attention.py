@@ -173,13 +173,15 @@ def kv_head_slice(H: int, KVH: int, c: int, n: int) -> slice:
 
 
 def _sharded(q, k, v, kind, window, q_offset, kv_splits, offsets):
+    """Each rank's query heads over the KV heads they read. The offsets form
+    (the engine's extend step under a mesh) takes a plain ``offsets`` and a
+    cache whose slots are whole on every rank: the slot it names is global."""
     name = "flash_attention"
-    if offsets is not None:
-        raise ValueError(f"{name}: the offsets form (the engine's extend step) "
-                         "takes no DTensor")
+    if _mesh.is_dtensor(offsets):
+        _mesh.refuse(name, "offsets", offsets.placements, "offsets come whole")
     mesh = _mesh.mesh_of(q, k, v)
     qp = _mesh.check(name, "q", q, mesh, (0, 2))
-    kp = _mesh.check(name, "k", k, mesh, (0, 2))
+    kp = _mesh.check(name, "k", k, mesh, (2,) if offsets is not None else (0, 2))
     if _mesh.placements(v, mesh) != kp:
         _mesh.refuse(name, "v", _mesh.placements(v, mesh), f"k is placed {kp}")
     head_dims = []        # mesh dims that split q's heads and leave k's whole
@@ -197,7 +199,7 @@ def _sharded(q, k, v, kind, window, q_offset, kv_splits, offsets):
 
     def run(q, k, v):
         return flash_attention(q, k[:, :, heads], v[:, :, heads], kind, window,
-                               q_offset, kv_splits)
+                               q_offset, kv_splits, offsets)
     return _mesh.local(run, mesh, (q, k, v), list(qp))
 
 

@@ -11,12 +11,13 @@ card's device type unless told.
 collectives move nothing: the dry run counts one rank's work of the
 production meshes in it, over ``meta`` tensors. A process has one default
 process group, so the helper refuses to run inside another and tears its
-own down on the way out.
+own down on the way out, with ``forget_meshes``.
 """
 from __future__ import annotations
 
 import contextlib
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
@@ -65,3 +66,24 @@ def fake_world(n_ranks: int, rank: int = 0):
         yield
     finally:
         dist.destroy_process_group()
+        forget_meshes()
+
+
+def forget_meshes() -> None:
+    """Empty DTensor's caches of sharding propagation and of redistribution
+    plans; call it where a world is destroyed. A ``DeviceMesh`` compares
+    equal to one of the same shape and names made on the same thread (a
+    forked process's main thread is its parent's), and those caches key on
+    it: a mesh of a later world, or of a forked child, would meet the dead
+    world's entries and come back on its process groups. A cache that this
+    PyTorch does not have needs no emptying."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+    DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache_clear()
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)
+    if native is not None:                  # the dispatch's C++ fast path
+        native()
+    _redistribute._gen_transform_infos.cache_clear()
+    planners = getattr(_redistribute, "clear_redistribute_planner_cache", None)
+    if planners is not None:
+        planners()

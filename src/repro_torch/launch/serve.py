@@ -22,17 +22,18 @@ import torch
 
 from repro_torch.configs.registry import get_config, tiny_config
 from repro_torch.core.backend import SOLVER_BACKENDS, solver_backend
+from repro_torch.models.moe import LOCAL_CTX, ParallelContext
 from repro_torch.serve import Engine, EngineConfig
 
 
 def serve(cfg, ecfg: EngineConfig, prompts, max_new: int, device="cuda",
-          params=None):
-    """Run ``prompts`` through a fresh engine to completion.
+          params=None, ctx: ParallelContext = LOCAL_CTX):
+    """Run ``prompts`` through a fresh engine (under ``ctx``) to completion.
     Returns (engine, metrics, seconds); the clock starts after the engine
     is built (on the card its steps are captured then, as the reference
     compiles them before its clock) and stops after the device has
     finished."""
-    eng = Engine(cfg, params=params, ecfg=ecfg, device=device)
+    eng = Engine(cfg, params=params, ecfg=ecfg, device=device, ctx=ctx)
     for prompt in prompts:
         eng.submit(prompt, max_new=max_new)
     if eng.device.type == "cuda":

@@ -21,6 +21,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.configs.registry import get_config, tiny_config
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLM
 from repro_torch.models import build_model
+from repro_torch.models.moe import LOCAL_CTX
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import leaves
 
@@ -61,7 +62,7 @@ def main(argv=None):
     tcfg = TrainerConfig(total_steps=args.steps, optimizer=args.optimizer,
                          lr=args.lr, checkpoint_dir=args.ckpt,
                          checkpoint_every=args.ckpt_every)
-    trainer = Trainer(model, run, tcfg)
+    trainer = Trainer(model, run, tcfg, ctx=LOCAL_CTX)
 
     data = Prefetcher(SyntheticLM(cfg, DataConfig(
         seq_len=args.seq, global_batch=args.batch,

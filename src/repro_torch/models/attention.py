@@ -80,6 +80,78 @@ def _heads(y: torch.Tensor, H: int, D: int) -> torch.Tensor:
     return y.reshape(*y.shape[:-1], H, D)
 
 
+def _split_dims(w: torch.Tensor, wq: torch.Tensor, a: AttentionConfig) -> list:
+    """The mesh dims over which a KV projection ``w`` may split its columns
+    (ROADMAP C21): the dims that split the query heads (``wq``'s columns)
+    and leave ``w`` whole (KV heads that do not divide the model axis),
+    where each rank's query heads read a strict subset of the KV heads
+    (``kv_head_slice``, qwen3-1.7b's 16 query heads over 16 ranks read one
+    of 8). None where every rank reads every KV head (one KV head) or runs
+    every query head (query heads that do not divide the axis)."""
+    if not (_mesh.is_dtensor(w) and _mesh.is_dtensor(wq)):
+        return []
+    from repro_torch.kernels.flash_attention import kv_head_slice
+    dims = [i for i, (pq, pk) in enumerate(zip(wq.placements, w.placements))
+            if _mesh.shard_dim(pq, 2) == 1 and _mesh.shard_dim(pk, 2) is None]
+    n = _mesh.coordinate(w.device_mesh, dims)[1]
+    if n == 1 or a.n_heads % n or w.shape[1] % n:
+        return []
+    heads = kv_head_slice(a.n_heads, a.n_kv_heads, 0, n)
+    return dims if heads.stop - heads.start < a.n_kv_heads else []
+
+
+def _columns(t, dims, split: bool):
+    """t's last dim split over the mesh dims ``dims`` (``split``) or whole
+    there, its other placements kept: Replicate -> Shard is a local slice."""
+    Shard, Replicate = _mesh._types()[1:3]
+    pl = [(Shard(t.ndim - 1) if split else Replicate()) if i in dims else p
+          for i, p in enumerate(t.placements)]
+    return _mesh.placed(t, t.device_mesh, pl)
+
+
+class _WeightGradSplit(torch.autograd.Function):
+    """``linear(x, w)`` whole on every rank, whose backward computes x's
+    gradient whole and w's over the columns of each rank's block of
+    ``dims`` (gathered afterwards): the reference's partitioned training
+    step runs the KV projection and its input's gradient whole on each
+    chip and splits only the weight's gradient over the ranks that share
+    a batch."""
+
+    @staticmethod
+    def forward(ctx, x, w, dims):
+        ctx.save_for_backward(x, w)
+        ctx.dims = dims
+        return linear(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        g = _summed(gy)
+        gx = linear(g, w.t())
+        g = _columns(g, ctx.dims, split=True)
+        gw = linear(x.reshape(-1, x.shape[-1]).t(), g.reshape(-1, g.shape[-1]))
+        return gx, _columns(gw, ctx.dims, split=False), None
+
+
+def _kv_linear(x: torch.Tensor, w: torch.Tensor, wq: torch.Tensor,
+               a: AttentionConfig) -> torch.Tensor:
+    """``linear(x, w)`` of a KV projection. Where ``_split_dims`` allows,
+    it is partitioned as the reference's compiler partitions it (ROADMAP
+    C21): under a gradient the product runs whole and only w's gradient
+    is split (``_WeightGradSplit``); without one, where x is larger than
+    w (a prefill), each rank projects its block of w's columns and the
+    KV-sized output is gathered back to the placement the whole product
+    gives; a smaller x (a decode step, an engine's chunk) meets w whole."""
+    dims = _split_dims(w, wq, a)
+    if not dims:
+        return linear(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _WeightGradSplit.apply(x, w, dims)
+    if x.numel() <= w.numel():
+        return linear(x, w)
+    return _columns(_summed(linear(x, _columns(w, dims, split=True))), dims, split=False)
+
+
 def project_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
                 kv_x: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None, rope: bool = True,
@@ -94,8 +166,8 @@ def project_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
     # feature-split stream of tp2d_serve) is summed before its heads are read
     q = _heads(_summed(linear(x, p["wq"])), a.n_heads, a.head_dim)
     if kv is None:
-        k = _heads(_summed(linear(kv_x, p["wk"])), a.n_kv_heads, a.head_dim)
-        v = _heads(_summed(linear(kv_x, p["wv"])), a.n_kv_heads, a.head_dim)
+        k = _heads(_summed(_kv_linear(kv_x, p["wk"], p["wq"], a)), a.n_kv_heads, a.head_dim)
+        v = _heads(_summed(_kv_linear(kv_x, p["wv"], p["wq"], a)), a.n_kv_heads, a.head_dim)
     else:
         k, v = kv
     if a.qk_norm:
@@ -249,9 +321,83 @@ def chunk_attention(q, cache_k, cache_v, offsets: torch.Tensor,
     c rows of the cache row ``slot``, on the flash-attention kernel, which
     reads ``offsets = [slot, pos0, c]`` from device memory. A padded query
     sees every valid key and its output is never read.
-    q: (1, C, H, D); cache_{k,v}: (B_slots, Smax, KVH, D), a layer's cache."""
+    q: (1, C, H, D); cache_{k,v}: (B_slots, Smax, KVH, D), a layer's cache.
+
+    A DTensor cache (the serving recipes': slots over the data axes, the
+    sequence over the model axis) is read through the slot's rows,
+    gathered whole on every rank (``_slot_rows``, a layer's (Smax, KVH, D):
+    about 2 MB for qwen3-1.7b at 1,025 positions), with the same kernel on
+    each rank's query heads (ROADMAP C26)."""
+    if _mesh.is_dtensor(cache_k):
+        cache_k, cache_v = _slot_rows(cache_k, offsets), _slot_rows(cache_v, offsets)
+        # the gathered rows are slot 0 of a one-slot cache; zeros_like keeps
+        # the offsets on the device (a host copy would break a capture)
+        offsets = torch.cat([torch.zeros_like(offsets[:1]), offsets[1:]])
     return ops.flash_attention(q, cache_k, cache_v, kind="causal",
                                softcap=softcap, offsets=offsets)
+
+
+def _cache_blocks(cache):
+    """A DTensor cache (B_slots, Smax, KVH, D): (the mesh dims that split
+    its slots, those that split its sequence, this rank's index along each
+    set and their sizes). Nothing else may be split."""
+    mesh = cache.device_mesh
+    _mesh.check("kv cache", "cache", cache, mesh, (0, 1))
+    slots = [i for i, p in enumerate(cache.placements) if _mesh.shard_dim(p, 4) == 0]
+    seq = [i for i, p in enumerate(cache.placements) if _mesh.shard_dim(p, 4) == 1]
+    return slots, seq, _mesh.coordinate(mesh, slots), _mesh.coordinate(mesh, seq)
+
+
+def _local_slot(offsets, cb: int, Bl: int):
+    """This rank's row (1,) of the slot ``offsets[0]`` in its block of
+    ``Bl`` slots (clamped into it), and whether the block holds it (1,)."""
+    s = offsets[:1] - cb * Bl
+    return torch.clamp(s, 0, Bl - 1), (s >= 0) & (s < Bl)
+
+
+def _slot_rows(cache, offsets):
+    """The rows of slot ``offsets[0]`` of a DTensor cache, (1, Smax, KVH,
+    D), whole on every rank: the rank that holds the slot contributes its
+    block of the sequence and the others zeros (a sum over the slots' mesh
+    dims, exact), gathered over the sequence's."""
+    Shard, Replicate, Partial = _mesh._types()[1:4]
+    mesh = cache.device_mesh
+    slots, seq, (cb, nb), _ = _cache_blocks(cache)
+    Bl = cache.shape[0] // nb
+
+    def run(c, off):
+        s, here = _local_slot(off, cb, Bl)
+        return torch.where(here[:, None, None, None], c.index_select(0, s), 0)
+    pl = [Partial() if i in slots else Shard(1) if i in seq else Replicate()
+          for i in range(mesh.ndim)]
+    rows = _mesh.local(run, mesh, (cache, offsets), pl)
+    return _mesh.placed(rows, mesh, [Replicate()] * mesh.ndim)
+
+
+def _write_chunk_sharded(cache, new, offsets) -> None:
+    """A chunk's keys or values ``new`` (1, C, KVH, D) into a DTensor cache
+    (B_slots, Smax, KVH, D) at slot ``offsets[0]``, positions ``offsets[1]
+    ..`` for the ``offsets[2]`` real rows, in place: ``new`` whole on every
+    rank (chunk-sized), and the rank that holds the slot rewrites the
+    positions of its block of the sequence that the chunk covers, leaving
+    its other rows as they are. Everything is read on the device. The
+    padding's rows are not written (the one-device extend sends them to the
+    trash position, which no valid read covers)."""
+    Replicate = _mesh._types()[2]
+    mesh = cache.device_mesh
+    _, _, (cb, nb), (cs, ns) = _cache_blocks(cache)
+    Bl, Tl = cache.shape[0] // nb, cache.shape[1] // ns
+    if not _mesh.is_dtensor(new):
+        raise ValueError("extend: plain keys or values for a DTensor cache")
+    new = _mesh.placed(new, mesh, [Replicate()] * mesh.ndim)
+
+    def run(c, n, off):
+        s, here = _local_slot(off, cb, Bl)
+        src = cs * Tl + torch.arange(Tl, device=c.device) - off[1]
+        ok = here & (src >= 0) & (src < off[2])
+        rows = n[0].index_select(0, torch.clamp(src, 0, n.shape[1] - 1)).to(c.dtype)
+        c.index_copy_(0, s, torch.where(ok[:, None, None], rows, c.index_select(0, s)[0])[None])
+    _mesh.local(run, mesh, (cache, new, offsets), None)
 
 
 def self_attention_block(p: Params, a: AttentionConfig, x: torch.Tensor, *,
@@ -308,14 +454,20 @@ def extend_self_attention(p: Params, a: AttentionConfig, x: torch.Tensor,
     rows (x (1, C, d)), write their k/v into the cache rows ``rows`` in
     place, attend over the valid prefix of the slot. cache_{k,v}: (B_slots,
     Smax, KVH, D), a layer's cache; offsets, positions and rows as
-    ``chunk_rows`` gives them."""
+    ``chunk_rows`` gives them. A DTensor cache is written rank by rank
+    (``_write_chunk_sharded``) and read through the slot's rows
+    (``chunk_attention``)."""
     B, C = x.shape[:2]
     q, k, v = project_qkv(p, a, x, positions=positions)
-    KVH, D = cache_k.shape[-2:]
-    cache_k.view(-1, KVH, D).index_copy_(0, rows, k[0].to(cache_k.dtype))
-    cache_v.view(-1, KVH, D).index_copy_(0, rows, v[0].to(cache_v.dtype))
+    if _mesh.is_dtensor(cache_k):
+        _write_chunk_sharded(cache_k, k, offsets)
+        _write_chunk_sharded(cache_v, v, offsets)
+    else:
+        KVH, D = cache_k.shape[-2:]
+        cache_k.view(-1, KVH, D).index_copy_(0, rows, k[0].to(cache_k.dtype))
+        cache_v.view(-1, KVH, D).index_copy_(0, rows, v[0].to(cache_v.dtype))
     o = chunk_attention(q, cache_k, cache_v, offsets, softcap=a.softcap)
-    return o.reshape(B, C, -1) @ p["wo"]
+    return linear(o.reshape(B, C, -1), p["wo"])
 
 
 def write_kv(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None:

@@ -224,21 +224,28 @@ def _expert_block(cfg: ModelConfig, ctx: ParallelContext) -> Tuple[int, int]:
     return ctx.mesh.get_local_rank(ctx.model_axis) * n_local, n_local
 
 
-def _rank_experts(xf, router, w, cfg: ModelConfig, lo: int):
+def _rank_experts(xf, router, w, cfg: ModelConfig, lo: int,
+                  n_real: Optional[torch.Tensor] = None):
     """One rank's part of expert parallelism: xf (T, d), its tokens, all
     routed; ``w`` its experts' (w_gate, w_up, w_down), which are experts
     ``lo ..``. The other ranks' experts go to the drop bucket; each local
-    expert keeps the capacity of the T tokens. Returns (this rank's partial
-    output (T, d), its tokens' aux)."""
+    expert keeps the capacity of the T tokens, or with ``n_real`` (see
+    ``moe_ffn_local``) routes only the first ``n_real`` rows and keeps the
+    capacity of ``n_real`` tokens. Returns (this rank's partial output (T,
+    d), its tokens' aux)."""
     n_local = w[0].shape[0]
     gates, ids, aux = _route(router, xf, cfg)
     local_ids = torch.where((ids >= lo) & (ids < lo + n_local), ids - lo, n_local)
+    cap_real = (None if n_real is None
+                else capacity_table(xf.shape[0], cfg, xf.device).index_select(0, n_real))
     out = _dispatch_compute_combine(xf, gates, local_ids, *w, capacity(xf.shape[0], cfg),
-                                    cfg.act if cfg.act != "geglu" else "gelu")
+                                    cfg.act if cfg.act != "geglu" else "gelu",
+                                    n_real, cap_real)
     return out, aux
 
 
-def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ParallelContext):
+def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ParallelContext,
+            n_real: Optional[torch.Tensor] = None):
     """Expert parallelism over ``ctx.model_axis``. x (B, S, d): this rank's
     data shard; the experts' weights whole (E, ...), of which this rank
     reads its slice. Every rank of the model axis holds the same
@@ -248,17 +255,18 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ParallelContext):
     (``all_reduce``, differentiable), the shared experts added, and aux
     averaged over the model and data axes. With ``ctx.mesh`` None, or one
     model shard, this is ``moe_ffn_local``. A DTensor x takes
-    ``_moe_ffn_sharded``."""
+    ``_moe_ffn_sharded``. ``n_real``: as in ``moe_ffn_local`` (the engine's
+    padded chunk: only its real rows are routed)."""
     if _mesh.is_dtensor(x):
-        return _moe_ffn_sharded(p, cfg, x, ctx)
+        return _moe_ffn_sharded(p, cfg, x, ctx, n_real)
     if ctx.mesh is None or ctx.n_model_shards == 1:
-        return moe_ffn_local(p, cfg, x)
+        return moe_ffn_local(p, cfg, x, n_real)
     from torch.distributed.nn import functional as dist_fn
     B, S, d = x.shape
     lo, n_local = _expert_block(cfg, ctx)
     xf = x.reshape(-1, d)
     out, aux = _rank_experts(xf, p["router"], [p[k][lo:lo + n_local] for k in EXPERT_KEYS],
-                             cfg, lo)
+                             cfg, lo, n_real)
     out = dist_fn.all_reduce(out, group=ctx.mesh.get_group(ctx.model_axis))
     aux = dist_fn.all_reduce(aux, group=ctx.mesh.get_group(ctx.model_axis)) / ctx.n_model_shards
     for a in ctx.data_axes:
@@ -268,7 +276,8 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ParallelContext):
     return out.reshape(B, S, d), aux
 
 
-def _moe_ffn_sharded(p: Params, cfg: ModelConfig, x, ctx: ParallelContext):
+def _moe_ffn_sharded(p: Params, cfg: ModelConfig, x, ctx: ParallelContext,
+                     n_real: Optional[torch.Tensor] = None):
     """The reference's shard_map over DTensors: x (B, S, d) with the batch
     over the data axes and whole over the model axis, the router whole, the
     experts split over the model axis (their other dims gathered, as the
@@ -276,7 +285,9 @@ def _moe_ffn_sharded(p: Params, cfg: ModelConfig, x, ctx: ParallelContext):
     tokens, dispatches to its ``E / n_model`` experts with the capacity of
     its tokens, and its partial output is left ``Partial`` over the model
     axis; aux is each data shard's, averaged (``Partial("avg")``) over the
-    data axes. The shared experts run outside, over the DTensors."""
+    data axes. The shared experts run outside, over the DTensors. A plain
+    ``n_real`` (the engine's padded chunk, whole on every rank) routes only
+    the first ``n_real`` rows of each rank's tokens (ROADMAP C30)."""
     from repro_torch.models.attention import _shard
     Shard, Replicate, Partial = (_mesh._types()[i] for i in (1, 2, 3))
     mesh, da, ma = ctx.mesh, ctx.data_axes, ctx.model_axis
@@ -287,7 +298,7 @@ def _moe_ffn_sharded(p: Params, cfg: ModelConfig, x, ctx: ParallelContext):
     router = _shard(p["router"], ctx, None, None)
 
     def shard_fn(xs, router, *w):
-        out, aux = _rank_experts(xs.reshape(-1, d), router, w, cfg, lo)
+        out, aux = _rank_experts(xs.reshape(-1, d), router, w, cfg, lo, n_real)
         return out.reshape(xs.shape), aux
     names = mesh.mesh_dim_names
     batch = [_mesh.shard_dim(q, 3) == 0 for q in x.placements]

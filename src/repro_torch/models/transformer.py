@@ -103,7 +103,7 @@ def _ffn(lp: Params, cfg: ModelConfig, y: torch.Tensor,
     None) for the MLP. ``n_real``: see ``moe.moe_ffn_local``."""
     if cfg.family == "moe":
         if attn._sharded(ctx):
-            return moe_ffn(lp["moe"], cfg, y, ctx)
+            return moe_ffn(lp["moe"], cfg, y, ctx, n_real)
         return moe_ffn_local(lp["moe"], cfg, y, n_real)
     return mlp(lp["mlp"], y, cfg.act), None
 
@@ -221,7 +221,7 @@ def uniform_stack_fwd(sp: Params, cfg: ModelConfig, x, *, collect_kv: bool = Fal
 
 
 def uniform_stack_extend(sp: Params, cfg: ModelConfig, x, cache_k, cache_v,
-                         offsets: torch.Tensor):
+                         offsets: torch.Tensor, ctx=LOCAL_CTX):
     """Chunked prefill: run a chunk through the stack, extending the caches
     in place (the engine's path for continuous batching). x (1, C, d): c
     tokens padded to C rows; cache_{k,v}: (L, B_slots, Smax, KVH, D), the
@@ -230,13 +230,19 @@ def uniform_stack_extend(sp: Params, cfg: ModelConfig, x, cache_k, cache_v,
     chunk of C rows (the reference traces slot and pos0 the same way). The
     padding's keys and values go to the trash position Smax - 1, and the
     MoE routes only the c real rows, with the capacity of c tokens (the
-    reference's extend sees exactly c)."""
+    reference's extend sees exactly c). Under a mesh (the parameters and
+    the cache DTensors) each layer's weights are gathered over the data
+    axes where they are split there, the cache is written and read as
+    ``attention.extend_self_attention`` says, and the moe layer runs
+    expert-parallel on the c real rows: the reference's extend hands
+    ``ctx`` to ``moe_ffn`` and nowhere else."""
     positions, rows = attn.chunk_rows(offsets, x.shape[1], cache_k.shape[2])
     for i, lp in enumerate(unstack(sp)):
+        lp = attn.unshard_data(lp, ctx)
         x = x + attn.extend_self_attention(
             lp["attn"], cfg.attn, rmsnorm(lp["ln1"], x, cfg.norm_eps),
             cache_k[i], cache_v[i], offsets, positions, rows)
-        x = x + _ffn(lp, cfg, rmsnorm(lp["ln2"], x, cfg.norm_eps), offsets[2:])[0]
+        x = x + _ffn(lp, cfg, rmsnorm(lp["ln2"], x, cfg.norm_eps), offsets[2:], ctx)[0]
     return x
 
 

@@ -30,9 +30,10 @@ aligned to the trailing dims of each leaf, so stacked layouts ((L, ...),
 ``DeviceMesh`` (``named`` does it for a tree, the twin of the reference's
 ``NamedSharding`` tree), and ``distribute`` realises a tree of specs where
 a process group exists: each leaf a DTensor, a ``meta`` leaf as each
-rank's ``meta`` block (no data moves: the dry run's placed tree). The
-model's steps take the distributed tree with a ``ParallelContext``
-(``models/model.py``).
+rank's ``meta`` block (no data moves: the dry run's placed tree). ``place``
+lays a tree onto a tree of placements, the twin of ``jax.device_put(tree,
+shardings)``. The model's steps take the distributed tree with a
+``ParallelContext`` (``models/model.py``).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.tree import map_leaves
 
 Spec = Tuple
 
@@ -315,29 +317,28 @@ def local_shape(shape, placements, mesh) -> tuple:
 
 def distribute(tree, mesh, specs):
     """Each leaf of ``tree`` as a DTensor over ``mesh`` placed by its spec
-    (the same nesting as ``tree``). Needs the process group of the mesh. A
-    DTensor leaf is moved to its spec's placements (the reference's
-    out_shardings); a ``meta`` leaf becomes each rank's ``meta`` block:
-    nothing is sent."""
+    (the same nesting as ``tree``): ``place`` at the specs' placements."""
+    return place(tree, mesh, map_leaves(lambda t, s: to_placements(s, mesh), tree, specs))
+
+
+def place(tree, mesh, placements):
+    """Each leaf of ``tree`` as a DTensor over ``mesh`` at its placements
+    in ``placements`` (the tree ``named`` gives, with ``tree``'s nesting):
+    the twin of ``jax.device_put(tree, shardings)``. Needs the process
+    group of the mesh. A plain leaf is laid out from rank 0's value
+    (``distribute_tensor``), a DTensor leaf moved to the placements where
+    it is placed otherwise (the reference's out_shardings); a ``meta`` leaf
+    becomes each rank's ``meta`` block: nothing is sent."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
-    def one(t, s):
-        pl = to_placements(s, mesh)
+    def one(t, pl):
+        pl = tuple(pl)
         if isinstance(t, DTensor):
-            return t if tuple(t.placements) == tuple(pl) else t.redistribute(mesh, pl)
+            return t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
         if t.device.type != "meta":
             return distribute_tensor(t, mesh, pl)
         block = torch.empty(local_shape(t.shape, pl, mesh), dtype=t.dtype, device="meta")
         return DTensor.from_local(block, mesh, pl, run_check=False, shape=t.shape,
                                   stride=t.stride())
 
-    def walk(t, s):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: walk(v, s[k]) for k, v in t.items()}
-        if isinstance(t, (tuple, list)):
-            return type(t)(walk(v, si) for v, si in zip(t, s))
-        return one(t, s)
-    return walk(tree, specs)
-
+    return map_leaves(one, tree, placements)

@@ -20,6 +20,15 @@ jits them, the port captures them (``repro_torch.graphs``): on a CUDA
 device the decode step and one extend step for each chunk bucket are CUDA
 graphs over static buffers, captured when the engine is built and replayed
 on every step; on the CPU the same bodies run directly.
+
+Under a ``ParallelContext`` with a mesh (the reference's ``ctx``) the
+parameters are DTensors placed by the ``tp_serve`` recipe (those that are
+not placed already) and the cache by ``cache_specs``; every rank runs the
+same host schedule on the same host inputs. The static buffers stay plain
+tensors: inside a body the ids become DTensors through
+``DTensor.from_local`` (no device work), and the logits are made whole
+there, so a step's output is a plain tensor that greedy sampling reads
+whole. The steps are captured as the unsharded ones are.
 """
 from __future__ import annotations
 
@@ -36,13 +45,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (H100, DeviceModel, KernelProfile, Scenario,
                               solve_scenarios, warmup_solver)
 from repro_torch.core.resources import RESOURCE_AXES
+from repro_torch.kernels import _mesh
 from repro_torch.models import build_model
 from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import _shard, _sharded, unshard_data
 from repro_torch.models.layers import embed, rmsnorm, unembed
+from repro_torch.models.model import mesh_scope
+from repro_torch.models.moe import LOCAL_CTX, ParallelContext
+from repro_torch.parallel import sharding as shd
 from repro_torch.serve.kvcache import Sequence, SlotAllocator
+from repro_torch.tree import map_leaves
 
 
 _MIN_CHUNK = 16      # smallest prefill chunk the scheduler will schedule
+SERVE_RECIPE = "tp_serve"   # the recipe that places an engine's parameters and cache
 
 
 def chunk_bucket(c: int) -> int:
@@ -54,30 +70,45 @@ def chunk_bucket(c: int) -> int:
     return b
 
 
+def _ids(tokens: torch.Tensor, ctx: ParallelContext) -> torch.Tensor:
+    """A step's ids (B, 1) from its static buffer: as they are on one
+    device; under a mesh a DTensor over the data axes (``from_local`` whole,
+    then each rank's block: a slice, no device work)."""
+    if not _sharded(ctx):
+        return tokens
+    return _shard(_mesh.replicated(tokens, ctx.mesh), ctx, ctx.data_axes, None)
+
+
 # The two step bodies take what they use, not the engine: a step that held
 # the engine would make a cycle, and a dropped engine would keep its cache
 # and graphs on the card until the garbage collector ran.
 @torch.no_grad()
-def decode_body(model, params, cache, inp: torch.Tensor) -> torch.Tensor:
+def decode_body(model, params, cache, inp: torch.Tensor,
+                ctx: ParallelContext = LOCAL_CTX) -> torch.Tensor:
     """inp (2B,): the slots' tokens, then their positions -> logits
-    (B,1,V) f32. One token for every slot; the cache is updated in place."""
+    (B,1,V) f32, a plain tensor. One token for every slot; the cache is
+    updated in place."""
     B = inp.shape[0] // 2
-    logits, _ = model.decode_step(params, inp[:B, None], cache, inp[B:])
-    return logits
+    logits, _ = model.decode_step(params, _ids(inp[:B, None], ctx), cache, inp[B:], ctx)
+    return _mesh.whole(logits)
 
 
 @torch.no_grad()
 def extend_body(cfg: ModelConfig, params, cache, bucket: int,
-                inp: torch.Tensor) -> torch.Tensor:
+                inp: torch.Tensor, ctx: ParallelContext = LOCAL_CTX) -> torch.Tensor:
     """inp: ``[slot, pos0, c]`` and the chunk's tokens, padded to
-    ``bucket`` -> logits of the chunk's last real position (1,1,V) f32.
-    The chunk's keys and values go into the slot's rows of the cache in
-    place, the padding's to the trash position."""
+    ``bucket`` -> logits of the chunk's last real position (1,1,V) f32, a
+    plain tensor. The chunk's keys and values go into the slot's rows of
+    the cache in place, the padding's to the trash position."""
     offsets = inp[:3]
-    x = embed(params["embed"], inp[3:3 + bucket][None], scale_by_dim=cfg.embed_scale)
-    x = tfm.uniform_stack_extend(params["stack"], cfg, x, cache["k"], cache["v"], offsets)
-    x = rmsnorm(params["final_ln"], x.index_select(1, offsets[2:] - 1), cfg.norm_eps)
-    return unembed(params["embed"], x)
+    with mesh_scope(ctx):
+        x = embed(unshard_data(params["embed"], ctx), inp[3:3 + bucket][None],
+                  scale_by_dim=cfg.embed_scale)
+        x = tfm.uniform_stack_extend(params["stack"], cfg, x, cache["k"], cache["v"], offsets,
+                                     ctx)
+        x = _mesh.whole(x)                  # the chunk's rows, whole on every rank
+        x = rmsnorm(params["final_ln"], x.index_select(1, offsets[2:] - 1), cfg.norm_eps)
+        return _mesh.whole(unembed(unshard_data(params["embed"], ctx), x))
 
 
 @dataclass
@@ -102,16 +133,21 @@ class StepEvent:
 class Engine:
     def __init__(self, cfg: ModelConfig, params=None, ecfg: EngineConfig = None,
                  dev: DeviceModel = H100, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 ctx: ParallelContext = LOCAL_CTX):
         """``dev`` is the analytic device model the chunk scheduler prices
         against; ``device`` is where the tensors live. Without ``params``
         the weights are drawn from ``generator`` (default: a generator on
-        ``device`` seeded with ``ecfg.seed``)."""
+        ``device`` seeded with ``ecfg.seed``). Under ``ctx`` with a mesh
+        the plain leaves of the parameters are placed by ``tp_serve``
+        (``distribute``: every rank must hold the same values) and the
+        cache by ``cache_specs``."""
         if cfg.family not in ("dense", "moe") or cfg.attn.pattern != "global":
             raise NotImplementedError(
                 "engine supports dense and moe decoders with global attention")
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
+        self.ctx = ctx
         self.dev = dev
         self.model = build_model(cfg, device=device)
         self.device = self.model.device
@@ -120,12 +156,17 @@ class Engine:
                 generator = torch.Generator(device=self.device)
                 generator.manual_seed(self.ecfg.seed)
             params = self.model.init(generator)
-        self.params = params
         self.alloc = SlotAllocator(self.ecfg.max_slots, self.ecfg.max_len)
         # +1 trash position: idle slots in the static decode batch write
         # their (ignored) k/v there instead of corrupting position 0
-        self.cache = self.model.init_cache(self.ecfg.max_slots,
-                                           self.ecfg.max_len + 1)
+        cache = self.model.init_cache(self.ecfg.max_slots, self.ecfg.max_len + 1)
+        if _sharded(ctx):
+            mesh = ctx.mesh
+            specs = shd.param_specs(cfg, SERVE_RECIPE, mesh, params)
+            params = map_leaves(lambda t, spec: t if _mesh.is_dtensor(t)
+                                else shd.distribute(t, mesh, spec), params, specs)
+            cache = shd.distribute(cache, mesh, shd.cache_specs(cfg, SERVE_RECIPE, mesh, cache))
+        self.params, self.cache = params, cache
         self.waiting: List[Sequence] = []
         self.events: List[StepEvent] = []
         self.metrics: Dict[int, dict] = {}
@@ -160,7 +201,7 @@ class Engine:
         self._decode_in.write(np.r_[np.zeros(B, np.int64), np.full(B, n, np.int64)])
         self.steps = {"decode": graphs.capture(
             functools.partial(decode_body, self.model, self.params, self.cache,
-                              self._decode_in.tensor), self.device, "decode")}
+                              self._decode_in.tensor, self.ctx), self.device, "decode")}
         buckets = [chunk_bucket(n)]
         while buckets[0] > _MIN_CHUNK:
             buckets.insert(0, buckets[0] // 2)
@@ -169,7 +210,8 @@ class Engine:
         for b in buckets:
             self.steps[b] = graphs.capture(
                 functools.partial(extend_body, self.cfg, self.params, self.cache, b,
-                                  self._extend_in.tensor), self.device, f"extend_{b}")
+                                  self._extend_in.tensor, self.ctx), self.device,
+                f"extend_{b}")
 
     def _decode(self, tokens, pos) -> torch.Tensor:
         """tokens (B,) or (B,1) and positions (B,), host integers -> logits

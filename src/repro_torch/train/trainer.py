@@ -21,7 +21,12 @@ new values into them in place.
 
 ``Trainer`` (used by ``launch/train.py``) adds checkpointing, auto-resume,
 straggler monitoring and the log. It runs on the model's device, which is
-the card unless the model was built for the CPU.
+the card unless the model was built for the CPU. With ``shardings`` (the
+placements ``parallel.sharding.named`` gives for each leaf, under the keys
+``"params"``, ``"opt"`` and ``"batch"``, over ``mesh``) it places the
+initial state and every batch, and puts the state back on its placements
+after each step: the reference's jit with in / out shardings. The
+checkpoint restores onto the same placements.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import itertools
 import math
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -41,6 +46,7 @@ from repro_torch.kernels import _mesh
 from repro_torch.models.model import Model, mesh_scope, resolve_device
 from repro_torch.models.moe import LOCAL_CTX, ParallelContext
 from repro_torch.parallel.collectives import compress_grads_int8
+from repro_torch.parallel.sharding import place
 from repro_torch.train.optimizer import Optimizer, get_optimizer
 from repro_torch.tree import leaves, unflatten
 
@@ -139,59 +145,82 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, model: Model, run: RunConfig, tcfg: TrainerConfig):
+    def __init__(self, model: Model, run: RunConfig, tcfg: TrainerConfig,
+                 ctx: ParallelContext = LOCAL_CTX, mesh=None,
+                 shardings: Optional[Dict[str, Any]] = None):
+        if shardings is not None and mesh is None:
+            raise ValueError("Trainer: shardings need the mesh they place onto")
         self.device = resolve_device(model.device)
         self.model = model
         self.run = run
         self.tcfg = tcfg
+        self.ctx, self.mesh, self.shardings = ctx, mesh, shardings
         self.opt = get_optimizer(tcfg.optimizer, tcfg.lr, tcfg.total_steps)
-        self.train_step = make_train_step(model, self.opt, run)
+        self.train_step = make_train_step(model, self.opt, run, ctx)
         self.ckpt_mgr = None
         if tcfg.checkpoint_dir:
             self.ckpt_mgr = CheckpointManager(tcfg.checkpoint_dir,
                                               keep=tcfg.keep_checkpoints)
         self.straggler = StragglerMonitor(factor=tcfg.straggler_factor)
 
+    def _placed(self, params, opt_state):
+        """The state on its placements (as it is without ``shardings``)."""
+        if self.shardings is None:
+            return params, opt_state
+        return (place(params, self.mesh, self.shardings["params"]),
+                place(opt_state, self.mesh, self.shardings["opt"]))
+
     def init_state(self, generator: torch.Generator):
         params = self.model.init(generator)
-        return params, self.opt.init(params)
+        return self._placed(params, self.opt.init(params))
 
     def restore_or_init(self, generator: torch.Generator):
         params, opt_state = self.init_state(generator)
         if self.ckpt_mgr is not None:
-            restored = self.ckpt_mgr.restore_latest(like=(params, opt_state))
+            shardings = (None if self.shardings is None
+                         else (self.shardings["params"], self.shardings["opt"]))
+            restored = self.ckpt_mgr.restore_latest(like=(params, opt_state),
+                                                    shardings=shardings)
             if restored is not None:
                 step, (params, opt_state) = restored
                 return step + 1, params, opt_state
         return 0, params, opt_state
 
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """A host batch on the model's device, from pinned memory on the card."""
+        """A host batch on the model's device, from pinned memory on the
+        card; placed by ``shardings["batch"]`` where given."""
         out = {}
         for name, a in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(a))
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[name] = t
+        if self.shardings is not None:
+            out = place(out, self.mesh, {k: self.shardings["batch"][k] for k in out})
         return out
 
     def fit(self, data: Iterator, generator: Optional[torch.Generator] = None,
             start_step: int = 0, params=None, opt_state=None):
         """Train from ``start_step`` (or from the latest checkpoint, when no
         params are given) to ``total_steps``. Each step's time ends when its
-        loss is on the host: that is what the straggler monitor sees."""
+        loss is on the host: that is what the straggler monitor sees. Given
+        params and state are placed by ``shardings`` first."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         if params is None:
             start_step, params, opt_state = self.restore_or_init(generator)
             if start_step:
                 data.seek(start_step)
+        else:
+            params, opt_state = self._placed(params, opt_state)
         history = []
         for step in range(start_step, self.tcfg.total_steps):
             batch = self.to_device(next(data))
             t0 = time.perf_counter()
             params, opt_state, metrics = self.train_step(params, opt_state, batch)
-            loss = float(metrics["loss"])
+            params, opt_state = self._placed(params, opt_state)
+            loss = metrics["loss"]
+            loss = float(_mesh.whole(loss))
             dt = time.perf_counter() - t0
             self.straggler.observe(step, dt)
             if step % self.tcfg.log_every == 0 or step == self.tcfg.total_steps - 1:

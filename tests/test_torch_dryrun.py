@@ -505,11 +505,12 @@ REFERENCE_POD = textwrap.dedent("""
 
 def test_one_pod1_chip_of_qwen3_against_the_references_count():
     """qwen3-1.7b at full width on one chip of the 16x16 mesh, the port's
-    count against the reference's: the decode step's products within 1%
-    and its bytes and collective bytes within 2×; prefill_32k's and
-    train_4k's products above the reference's and within 1.5× of them,
-    because each chip projects all 8 KV heads where the reference's
-    compiler splits the projection over the model axis (ROADMAP C21)."""
+    count against the reference's: the products within 1% at decode_32k,
+    prefill_32k and train_4k, where each chip reads one of the 8 KV heads
+    and the KV projections are partitioned as the reference's compiler
+    partitions them (ROADMAP C21: whole in the decode step, the columns
+    split in the prefill, the weights' gradients split in training); the
+    decode step's bytes and collective bytes within 2×."""
     shapes = ["decode_32k", "prefill_32k", "train_4k"]
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(filter(None, ["src", env.get("PYTHONPATH")]))
@@ -530,4 +531,4 @@ def test_one_pod1_chip_of_qwen3_against_the_references_count():
     assert 0.5 <= d["hbm_bytes"] / w["hbm_bytes"] <= 2.0
     assert 0.5 <= d["coll"] / w["coll"] <= 2.0
     for shape in ("prefill_32k", "train_4k"):
-        assert 1.0 < got[shape]["mxu_flops"] / want[shape]["mxu_flops"] < 1.5
+        assert got[shape]["mxu_flops"] == pytest.approx(want[shape]["mxu_flops"], rel=0.01)
