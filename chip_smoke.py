@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against
 its plain PyTorch version on the card, times them at the shapes their paths
-give them, and drives nineteen paths, counting the kernels' launches on each:
+give them, and drives twenty paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
     continuous-batching engine (rmsnorm, flash_attention, flash_decode),
@@ -104,6 +104,15 @@ give them, and drives nineteen paths, counting the kernels' launches on each:
     over 4 x 1,024 frames, bidirectional attention at head_dim 80 on
     flash_attention, checked and timed at its shapes (with the split of
     the keys forced, so that the merge runs at head_dim 80);
+  * the inputs the Pallas kernels take that the twins once refused:
+    flash_decode at head_dim 80 and with 16, 32 and 64
+    query heads a KV head, f32 flash_attention at head_dim 256, ssm_scan
+    with 20 to 256 states, each against its plain version and timed; then
+    gemma3-1b at full width and 2 layers with f32 parameters (a forward
+    at the f32 gate) and falcon-mamba-7b at full width and 2 layers with
+    64 states (prefill and 8 decode steps at the bf16 gate), each against
+    the same model on the plain versions (bf16 stress_vpu / stress_vmem
+    are checked and timed in the stressor phase);
   * training: qwen3-1.7b at full width and depth through ``Trainer.fit``,
     4 AdamW steps of 8 x 4,096 tokens in 4 microbatches with full remat,
     rmsnorm and flash_attention on their kernels inside the Functions
@@ -467,6 +476,16 @@ def path_cache(rng, L, B, T, KVH, D, dtype):
     return randn(rng, (L, B, T, KVH, D), dtype), randn(rng, (L, B, T, KVH, D), dtype)
 
 
+def timing_draws(rng):
+    """``draw(shape, dtype)``: N(0, 1) drawn on the card from a generator
+    seeded by ``rng``, for the timings' inputs (hundreds of MB, which NumPy
+    would draw on the host for seconds; a kernel's time does not depend on
+    them)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    return lambda shape, dtype: torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+
 def check_flash_decode(rng) -> float:
     worst = 0.0
     for T, G, D in [(512, 4, 64), (384, 1, 128), (1024, 8, 64)]:
@@ -588,12 +607,14 @@ def time_rmsnorm(rng, shape, copies: int = 1) -> dict:
             "bound_ms": b_ms, "bound_by": by}
 
 
-def time_flash_decode(rng, kv_len, label, B=8, H=16, KVH=8, D=128, T=1025) -> dict:
+def time_flash_decode(rng, kv_len, label, B=8, H=16, KVH=8, D=128, T=1025, q_dtype=BF) -> dict:
     """One decode step's attention over ``L`` layers' caches (qwen3-1.7b's
-    serve by default: 200 MB, so the L2 cache is cold)."""
-    L = 6
-    ck, cv = path_cache(rng, L, B, T, KVH, D, BF)
-    q = randn(rng, (B, 1, H, D), BF)
+    serve by default: 200 MB, so the L2 cache is cold), the queries in
+    ``q_dtype`` over a bf16 cache (SDPA, which takes one type, only where
+    they agree)."""
+    L, draw = 6, timing_draws(rng)
+    ck, cv = draw((L, B, T, KVH, D), BF), draw((L, B, T, KVH, D), BF)
+    q = draw((B, 1, H, D), q_dtype)
     lens = torch.tensor(kv_len, device=DEV)
     valid = (torch.arange(T, device=DEV)[None] < lens[:, None])[:, None, None, :]
     qt = q.transpose(1, 2)                             # (B, H, 1, D)
@@ -604,24 +625,24 @@ def time_flash_decode(rng, kv_len, label, B=8, H=16, KVH=8, D=128, T=1025) -> di
             enable_gqa=True)
 
     n_keys = int(sum(kv_len))
-    b_ms, by = bound(2 * n_keys * KVH * D * 2 + 2 * q.numel() * 2 + B * 4,
+    b_ms, by = bound(2 * n_keys * KVH * D * 2 + 2 * q.numel() * q.element_size() + B * 4,
                      4 * n_keys * H * D, BF)
     chunk, n_splits = dec_mod.split_plan(T, B * KVH)
-    return {"shape": label, "dtype": "bfloat16", "kv_len": list(kv_len),
+    return {"shape": label, "dtype": str(q_dtype).replace("torch.", ""), "kv_len": list(kv_len),
             "kv_len_dtype": str(lens.dtype), "body": "cp_async_lanes", "chunk": chunk,
             "kv_splits": n_splits,
             **time_ms(lambda i: dec_mod.flash_decode(q, ck[i], cv[i], lens), L),
             "plain_ms": time_ms(lambda i: dec_mod.flash_decode_plain(q, ck[i], cv[i], lens), L)["ms"],
-            "library_ms": time_ms(library, L)["ms"],
+            "library_ms": time_ms(library, L)["ms"] if q_dtype == BF else None,
             "bound_ms": b_ms, "bound_by": by}
 
 
 def time_flash_attention(rng, S, pos0, KVH=8, H=16, D=128) -> dict:
     """S queries at pos0 over slot 3 of L caches (8 x 1,025 positions; H
     query heads of D over ``KVH``), qwen3-1.7b's by default."""
-    B, L = 1, 4
-    ck, cv = path_cache(rng, L, 8, 1025, KVH, D, BF)
-    q = randn(rng, (B, S, H, D), BF)
+    B, L, draw = 1, 4, timing_draws(rng)
+    ck, cv = draw((L, 8, 1025, KVH, D), BF), draw((L, 8, 1025, KVH, D), BF)
+    q = draw((B, S, H, D), BF)
     T = pos0 + S
     views = [(ck[i, 3:4, :T], cv[i, 3:4, :T]) for i in range(L)]
     mask = (torch.arange(T, device=DEV)[None, :]
@@ -648,21 +669,23 @@ def time_flash_attention(rng, S, pos0, KVH=8, H=16, D=128) -> dict:
             "bound_ms": b_ms, "bound_by": by}
 
 
-def time_flash_attention_offsets(rng, pos0, KVH=8, H=16, D=128) -> dict:
+def time_flash_attention_offsets(rng, pos0, KVH=8, H=16, D=128, q_dtype=BF) -> dict:
     """Row 2 on the captured extend step's path: 128 queries at pos0 with
     slot, pos0 and c read from device memory over the whole cache (8 slots
     x 1,025 positions, the splits planned for 1,025 keys), beside the
-    integer-offset call over the slot's view, in the same run."""
-    S, L, slot = 128, 4, 3
-    ck, cv = path_cache(rng, L, 8, 1025, KVH, D, BF)
-    q = randn(rng, (1, S, H, D), BF)
+    integer-offset call over the slot's view, in the same run; the queries
+    in ``q_dtype`` over the bf16 cache."""
+    S, L, slot, draw = 128, 4, 3, timing_draws(rng)
+    ck, cv = draw((L, 8, 1025, KVH, D), BF), draw((L, 8, 1025, KVH, D), BF)
+    q = draw((1, S, H, D), q_dtype)
     off = torch.tensor([slot, pos0, S], device=DEV)
     T = pos0 + S
     pairs = sum(min(T, s + pos0 + 1) for s in range(S))
-    b_ms, by = bound((2 * q.numel() + 2 * T * KVH * D) * 2, 4 * pairs * H * D, BF)
+    b_ms, by = bound(2 * q.numel() * q.element_size() + 2 * T * KVH * D * 2,
+                     4 * pairs * H * D, q_dtype)
     return {"shape": f"S={S} c={S} pos0={pos0} H={H} over a (8, 1025, {KVH}, {D}) cache, "
                      "device offsets",
-            "dtype": "bfloat16",
+            "dtype": str(q_dtype).replace("torch.", ""),
             **time_ms(lambda i: fa_mod.flash_attention(q, ck[i], cv[i], "causal", offsets=off), L),
             "integer_offset_ms": time_ms(lambda i: fa_mod.flash_attention(
                 q, ck[i, slot:slot + 1, :T], cv[i, slot:slot + 1, :T], "causal", 0, pos0), L)["ms"],
@@ -791,24 +814,28 @@ def time_cache_share(rng, S, K) -> dict:
             "library_ms": None, "bound_ms": b_ms, "bound_by": by}
 
 
-def time_ssm_scan(rng, Bb, S, with_state) -> dict:
-    """The scan at falcon-mamba's widths (d_inner 8192, N 16), x in bf16.
-    Bound: the larger of its bytes (x, dt, y once, A, B, C, the states),
-    its f32 operations (7 per state and step, one per channel and step)
-    and its exps over the multi-function units' rate."""
-    di, N = 8192, 16
-    x, dt, A, B, C = scan_inputs(rng, Bb, S, di, N, BF)
+def time_ssm_scan(rng, Bb, S, with_state, N=16, draw=None, in_place=False) -> dict:
+    """The scan at falcon-mamba's widths (d_inner 8192, N 16 by default), x
+    in bf16, from ``draw`` (``scan_inputs`` by default); ``in_place``: the
+    state written over h0, as a decode step writes it. Bound: the larger of
+    its bytes (x, dt, y once, A, B, C, the states), its f32 operations (7
+    per state and step, one per channel and step) and its exps over the
+    multi-function units' rate."""
+    di = 8192
+    x, dt, A, B, C = (draw or scan_inputs)(rng, Bb, S, di, N, BF)
     h0 = randn(rng, (Bb, di, N), F32) * 0.1 if with_state else None
+    out = h0 if in_place else None
     n = Bb * S * di
     bytes_moved = (n * (2 + 4 + 4) + A.numel() * 4 + 2 * B.numel() * 4
                    + (2 if with_state else 1) * Bb * di * N * 4)
     b_ms, by = bound(bytes_moved, n * (7.0 * N + 1), F32)
     t_exp = n * N / EXP_PER_S * 1e3
     reps = 3 if S > 1 else 7
-    plain = time_ms(lambda i: ssm_mod.ssm_scan_plain(x, dt, A, B, C, h0),
+    plain = time_ms(lambda i: ssm_mod.ssm_scan_plain(x, dt, A, B, C, h0, out),
                     iters=1, reps=reps)["ms"]
-    return {"shape": f"x ({Bb}, {S}, {di}) bf16, N {N}" + (", from h0" if with_state else ""),
-            "dtype": "bfloat16", **time_ms(lambda i: ssm_mod.ssm_scan(x, dt, A, B, C, h0)),
+    return {"shape": f"x ({Bb}, {S}, {di}) bf16, N {N}" + (", from h0" if with_state else "")
+            + (", in place" if in_place else ""),
+            "dtype": "bfloat16", **time_ms(lambda i: ssm_mod.ssm_scan(x, dt, A, B, C, h0, out)),
             "plain_ms": plain, "library_ms": None, "bound_ms": max(b_ms, t_exp),
             "bound_by": "operations" if t_exp > b_ms else by,
             "bound_term": "exp on the multi-function units" if t_exp > b_ms else (
@@ -867,9 +894,10 @@ def phase_kernels() -> dict:
 # --------------------------------------------------------------------- #
 #  phase 3b: the four stressors                                          #
 # --------------------------------------------------------------------- #
-# the reference's tolerances (tests/test_kernels.py), bf16 mxu at 2e-2
-STRESS_TOL = {"stress_mxu": {F32: 1e-4, BF: 2e-2}, "stress_vpu": 1e-5,
-              "stress_vmem": 1e-5}                 # stress_hbm: bit-exact
+# the reference's tolerances (tests/test_kernels.py), bf16 at 2e-2 (the
+# loops run in f32 and the result is rounded to bf16 at the end)
+STRESS_TOL = {"stress_mxu": {F32: 1e-4, BF: 2e-2}, "stress_vpu": {F32: 1e-5, BF: 2e-2},
+              "stress_vmem": {F32: 1e-5, BF: 2e-2}}   # stress_hbm: bit-exact
 STRESS_SOURCES = {"stress_mxu": "src/repro/kernels/stressors.py:46",
                   "stress_vpu": "src/repro/kernels/stressors.py:80",
                   "stress_hbm": "src/repro/kernels/stressors.py:102",
@@ -894,10 +922,8 @@ def check_stressor_call(call, name) -> float:
         want = call()
     if call.kernel == "stress_hbm":
         return check_exact(name, got, want)
-    tol = STRESS_TOL[call.kernel]
     dtype = call.args[0].dtype
-    return check_close(name, got, want, dtype,
-                       tol[dtype] if isinstance(tol, dict) else tol)
+    return check_close(name, got, want, dtype, STRESS_TOL[call.kernel][dtype])
 
 
 def check_stressors(rng) -> dict:
@@ -922,19 +948,22 @@ def check_stressors(rng) -> dict:
         note("stress_mxu", check_close(
             f"stress_mxu bf16 iters {iters}", st_mod.stress_mxu(ad, bd, iters),
             st_mod.stress_mxu_plain(ad, bd, iters), BF, STRESS_TOL["stress_mxu"][BF]))
-    x = randn(rng, (256, 128), F32)
-    for ilp in (1, 2, 4):
-        note("stress_vpu", check_close(
-            f"stress_vpu ilp{ilp}", st_mod.stress_vpu(x, 16, ilp),
-            st_mod.stress_vpu_plain(x, 16, ilp), F32, STRESS_TOL["stress_vpu"]))
+    for dtype in (F32, BF):                       # bf16 x: the loops in f32
+        x = randn(rng, (256, 128), dtype)
+        for ilp in (1, 2, 4):
+            note("stress_vpu", check_close(
+                f"stress_vpu ilp{ilp} {dtype}", st_mod.stress_vpu(x, 16, ilp),
+                st_mod.stress_vpu_plain(x, 16, ilp), dtype, STRESS_TOL["stress_vpu"][dtype]))
     xb = randn(rng, (2048, 128), BF)
     note("stress_hbm", check_exact("stress_hbm bf16", st_mod.stress_hbm(xb), xb))
-    x = randn(rng, (512, 128), F32)
-    for stride in (1, 8, 32):
-        note("stress_vmem", check_close(
-            f"stress_vmem stride{stride}", st_mod.stress_vmem(x, 8, stride),
-            st_mod.stress_vmem_plain(x, 8, stride), F32, STRESS_TOL["stress_vmem"]))
-    # the card sizes: stress_mxu at 119 tiles and the sized iteration count
+    for dtype in (F32, BF):
+        x = randn(rng, (512, 128), dtype)
+        for stride in (1, 8, 32):
+            note("stress_vmem", check_close(
+                f"stress_vmem stride{stride} {dtype}", st_mod.stress_vmem(x, 8, stride),
+                st_mod.stress_vmem_plain(x, 8, stride), dtype, STRESS_TOL["stress_vmem"][dtype]))
+    # the card sizes: stress_mxu at 119 tiles and the sized iteration count;
+    # stress_vpu and stress_vmem again with x in bf16
     specs = [StressorSpec(axis, 0.9) for axis in gpu_native.AXES]
     specs.append(StressorSpec("hbm", 0.5, working_set=0.25 * H100.cache_capacity))
     for spec in specs:
@@ -943,7 +972,15 @@ def check_stressors(rng) -> dict:
             raise AssertionError(f"stress_mxu at λ 0.9: {call.blocks} tiles, not 119")
         note(call.kernel, check_stressor_call(
             call, f"{call.kernel} card size {spec} {call.kwargs}"))
+        if call.kernel in ("stress_vpu", "stress_vmem"):
+            note(call.kernel, check_stressor_call(
+                bf16_call(call), f"{call.kernel} card size {spec} {call.kwargs} bf16"))
     return worst
+
+
+def bf16_call(call):
+    """The same dispatch with x in bf16."""
+    return dataclasses.replace(call, args=(call.args[0].to(BF),))
 
 
 def time_stressor(call, name, bytes_moved, operations, dtype, smem_wavefronts=0.0,
@@ -1002,6 +1039,23 @@ def time_stressors() -> dict:
     return out
 
 
+def time_bf16_stressors() -> dict:
+    """``stress_vpu`` and ``stress_vmem`` at the card size of λ = 0.9 with x
+    in bf16: the loops in f32, half the bytes of x and out."""
+    out = {}
+    call = bf16_call(_stressor_call(StressorSpec("vpu", 0.9), DEV))
+    x, it, ilp = call.args[0], call.kwargs["iters"], call.kwargs["ilp"]
+    out["stress_vpu"] = time_stressor(call, f"x {tuple(x.shape)} bf16, iters {it}, ilp {ilp}",
+                                      2 * x.numel() * 2, x.numel() * it * ilp * 2.0, F32)
+    call = bf16_call(_stressor_call(StressorSpec("smem", 0.9), DEV))
+    x, it, stride = call.args[0], call.kwargs["iters"], call.kwargs["stride"]
+    degree = st_mod.vmem_conflict_degree(stride, min(512, x.shape[0]))
+    out["stress_vmem"] = time_stressor(call, f"x {tuple(x.shape)} bf16, iters {it}, stride {stride}",
+                                       2 * x.numel() * 2, 0.0, F32,
+                                       smem_wavefronts=it * 3 * x.numel() / 32 * degree)
+    return out
+
+
 def ilp_and_stride_times() -> dict:
     """``stress_vpu`` at ilp 1, 2, 4, 8 and ``stress_vmem`` at stride 1, 8,
     32, each at one block per SM and the same iterations: the chains are
@@ -1043,10 +1097,12 @@ def phase_stressors(records: dict) -> None:
     errs = check_stressors(rng)
     emit(phase="stressors_checked", max_abs_err=errs,
          tolerance={"stress_mxu": {"float32": 1e-4, "bfloat16": 2e-2},
-                    "stress_vpu": 1e-5, "stress_hbm": "bit-exact",
-                    "stress_vmem": 1e-5})
+                    "stress_vpu": {"float32": 1e-5, "bfloat16": 2e-2}, "stress_hbm": "bit-exact",
+                    "stress_vmem": {"float32": 1e-5, "bfloat16": 2e-2}})
     times = time_stressors()
     emit(phase="stressor_times", times=times)
+    bf16_times = time_bf16_stressors()
+    emit(phase="stressor_times_bf16", times=bf16_times)
     emit(phase="stressor_ilp_stride", **ilp_and_stride_times())
     emit(phase="stressor_shares", sm_clock_hz=SM_CLOCK_HZ,
          model=H100.name, rows=stressor_shares())
@@ -1057,6 +1113,8 @@ def phase_stressors(records: dict) -> None:
                          "max_abs_err": errs[name], "shape": t["shape"],
                          **{k: t[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")}}
+    for name, t in bf16_times.items():
+        records[name]["bf16"] = t
 
 
 # --------------------------------------------------------------------- #
@@ -3185,17 +3243,19 @@ def phase_falcon_mamba(records: dict) -> None:
 
 
 def time_flash_attention_prefill(rng, B, S, H, KVH, D, kind="causal", window=0,
-                                 splits=(), T=None) -> dict:
+                                 splits=(), T=None, q_dtype=BF, kv_dtype=BF) -> dict:
     """Causal (or local, over a window) attention over a whole prompt, S =
     T, or bidirectional attention of S queries over T keys (the vlm's
     cross attention, the audio encoder), with fresh k and v as the
-    projections give them (``L`` copies, so the L2 cache is cold). The
-    bound counts the (query, key) pairs the mask lets through; SDPA takes
-    the local band as a boolean mask. ``splits``: the key splits to time
-    beside the plan's (``ms_by_kv_splits``)."""
-    L, T = 4, T or S
-    qkv = [(randn(rng, (B, S, H, D), BF), randn(rng, (B, T, KVH, D), BF),
-            randn(rng, (B, T, KVH, D), BF)) for _ in range(L)]
+    projections give them (``L`` copies, so the L2 cache is cold), q in
+    ``q_dtype`` over k and v in ``kv_dtype``. The bound counts the (query,
+    key) pairs the mask lets through, at the queries' type's peak; SDPA
+    takes the local band as a boolean mask, and one type only (None where
+    the two differ). ``splits``: the key splits to time beside the plan's
+    (``ms_by_kv_splits``)."""
+    L, T, draw = 4, T or S, timing_draws(rng)
+    qkv = [(draw((B, S, H, D), q_dtype), draw((B, T, KVH, D), kv_dtype),
+            draw((B, T, KVH, D), kv_dtype)) for _ in range(L)]
     pos = torch.arange(S, device=DEV)
     band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
 
@@ -3208,16 +3268,22 @@ def time_flash_attention_prefill(rng, B, S, H, KVH, D, kind="causal", window=0,
 
     pairs = {"local": sum(min(s + 1, window) for s in range(S)), "causal": S * (S + 1) // 2,
              "bidirectional": S * T}[kind]
-    b_ms, by = bound((2 * B * S * H * D + 2 * B * T * KVH * D) * 2, 4 * pairs * B * H * D, BF)
-    plan = fa_mod.split_plan(B, S, H, T, BF, torch.cuda.get_device_properties(0).multi_processor_count)
+    qb, kb = torch.finfo(q_dtype).bits // 8, torch.finfo(kv_dtype).bits // 8
+    b_ms, by = bound(2 * B * S * H * D * qb + 2 * B * T * KVH * D * kb, 4 * pairs * B * H * D,
+                     q_dtype)
+    plan = fa_mod.split_plan(B, S, H, T, q_dtype, torch.cuda.get_device_properties(0).multi_processor_count,
+                             D=D)
     label = (f"B={B} S=T={S}" if T == S else f"B={B} S={S} T={T}") + \
         f" H={H} KVH={KVH} D={D} {kind}" + (f" window {window}" if window else "")
     fills = {f"kv_splits={n}": time_ms(
         lambda i, n=n: fa_mod.flash_attention(*qkv[i], kind, window, 0, n), L)["ms"] for n in splits}
-    return {"shape": label, "dtype": "bfloat16", **plan, **({"ms_by_kv_splits": fills} if splits else {}),
+    return {"shape": label, "dtype": str(q_dtype).replace("torch.", ""),
+            "kv_dtype": str(kv_dtype).replace("torch.", ""),
+            **plan, **({"ms_by_kv_splits": fills} if splits else {}),
             **time_ms(lambda i: fa_mod.flash_attention(*qkv[i], kind, window), L),
             "plain_ms": time_ms(lambda i: fa_mod.flash_attention_plain(*qkv[i], kind, window), L)["ms"],
-            "library_ms": time_ms(library, L)["ms"], "bound_ms": b_ms, "bound_by": by}
+            "library_ms": time_ms(library, L)["ms"] if q_dtype == kv_dtype else None,
+            "bound_ms": b_ms, "bound_by": by}
 
 
 ZAMBA2_NORMS = [(4096, 4096), (4, 4096), (4096, 2048), (4, 2048)]   # gated, per-layer
@@ -3316,7 +3382,7 @@ def expect_refusal(what: str, call) -> str:
     raise AssertionError(f"{what}: not refused")
 
 
-def check_gemma3_kernels(rng, B, S, n_dec, a, d_model) -> tuple:
+def check_gemma3_kernels(rng, B, S, n_dec, a, d_model) -> dict:
     """The kernels of the gemma3 path against their plain versions at head
     dim 256: rmsnorm at d_model of a prefill and of a step; flash_attention
     over the whole prompt, causal and local, then at the body's other cases
@@ -3325,10 +3391,9 @@ def check_gemma3_kernels(rng, B, S, n_dec, a, d_model) -> tuple:
     global cache at the first, a middle and the last step's lengths and at
     four lengths in one batch, over a local ring (every row valid), with 8
     (gemma-2b) and 2 (gemma3-4b) query heads a KV head, over an f32 cache
-    (a ring of two stages) and under f32 queries over a bf16 cache. Then
-    the two cases the kernels are not built for must be refused: f32
-    queries in flash_attention, 16 query heads a KV head in flash_decode.
-    Returns (the largest errors by kernel, the refusals' messages)."""
+    (a ring of two stages) and under f32 queries over a bf16 cache; f32
+    queries in flash_attention and 16 query heads a KV head in
+    flash_decode. Returns the largest errors by kernel."""
     H, KVH, D, W = a.n_heads, a.n_kv_heads, a.head_dim, a.local_window
     errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "flash_decode": 0.0}
 
@@ -3382,12 +3447,16 @@ def check_gemma3_kernels(rng, B, S, n_dec, a, d_model) -> tuple:
         hold("flash_decode", f"flash_decode D{D} {qd} queries over a {kd} cache",
              dec_mod.flash_decode(q2, k2[0], v2[0], lens), dec_mod.flash_decode_plain(q2, k2[0], v2[0], lens),
              kd)
-    refused = [expect_refusal("flash_attention, f32 queries at head_dim 256", lambda: fa_mod.flash_attention(
-                   q[:1, :64].float(), k[:1, :64], v[:1, :64], "causal")),
-               expect_refusal("flash_decode, 16 query heads a KV head at head_dim 256",
-                              lambda: dec_mod.flash_decode(randn(rng, (B, 1, 16 * KVH, D), BF), ck[0],
-                                                           cv[0], torch.full((B,), T, device=DEV)))]
-    return errs, refused
+    # f32 queries at head_dim 256 (the f32 body's 16-query tile) and 16
+    # query heads a KV head (two head groups of 8)
+    q32 = q[:1, :64].float()
+    hold("flash_attention", f"flash_attention D{D} f32 queries over a bf16 cache",
+         fa_mod.flash_attention(q32, k[:1, :64], v[:1, :64], "causal"),
+         fa_mod.flash_attention_plain(q32, k[:1, :64], v[:1, :64], "causal"))
+    q16, full = randn(rng, (B, 1, 16 * KVH, D), BF), torch.full((B,), T, device=DEV)
+    hold("flash_decode", f"flash_decode D{D} G16, two head groups",
+         dec_mod.flash_decode(q16, ck[0], cv[0], full), dec_mod.flash_decode_plain(q16, ck[0], cv[0], full))
+    return errs
 
 
 def phase_gemma3(records: dict) -> None:
@@ -3430,7 +3499,7 @@ def phase_gemma3(records: dict) -> None:
     del m, params
     torch.cuda.empty_cache()
     rng = np.random.default_rng(4)
-    errs, refused = check_gemma3_kernels(rng, B, S, n_dec, a, cfg.d_model)
+    errs = check_gemma3_kernels(rng, B, S, n_dec, a, cfg.d_model)
     T, mid = S + n_dec, S + n_dec // 2
     times = {
         "rmsnorm": [time_rmsnorm(rng, (B * S, cfg.d_model), 8), time_rmsnorm(rng, (B, cfg.d_model))],
@@ -3447,7 +3516,7 @@ def phase_gemma3(records: dict) -> None:
             B=B, H=a.n_heads, KVH=a.n_kv_heads, D=a.head_dim, T=a.local_window)],
     }
     emit(phase="gemma3_kernels", max_abs_err=errs, tolerance={"bfloat16": TOL[BF], "float32": TOL[F32]},
-         refused=refused, times=times)
+         times=times)
     for name in SERVING:
         records[name]["max_abs_err_gemma3"] = errs[name]
         records[name]["gemma3"] = times[name]
@@ -3492,7 +3561,7 @@ def phase_gemma3_4b(records: dict) -> None:
     g, tail = lg_split(cfg)
     a, L, B, S, n_dec = cfg.attn, cfg.n_layers, 4, GEMMA3_4B_PROMPT, 32
     rng = np.random.default_rng(5)
-    errs, refused = check_gemma3_kernels(rng, B, S, n_dec, a, cfg.d_model)
+    errs = check_gemma3_kernels(rng, B, S, n_dec, a, cfg.d_model)
     m, params, weights = facade_weights(cfg)
     emit(phase="gemma3_4b_weights", groups=g, tail=tail, local_layers=g * a.local_ratio + tail,
          n_params_by_config=cfg.n_params(), **weights)
@@ -3537,7 +3606,7 @@ def phase_gemma3_4b(records: dict) -> None:
                      local * n_dec)):
         t["launches"] = n
     emit(phase="gemma3_4b_kernels", max_abs_err=errs,
-         tolerance={"bfloat16": TOL[BF], "float32": TOL[F32]}, refused=refused, times=times)
+         tolerance={"bfloat16": TOL[BF], "float32": TOL[F32]}, times=times)
     for name in SERVING:
         records[name]["max_abs_err_gemma3_4b"] = errs[name]
         records[name]["gemma3_4b"] = times[name]
@@ -3910,6 +3979,184 @@ def phase_hubert(records: dict) -> None:
     for name in ("rmsnorm", "flash_attention"):
         records[name]["max_abs_err_hubert"] = errs[name]
         records[name]["hubert"] = times[name]
+
+
+# --------------------------------------------------------------------- #
+#  phase 13b: inputs the Pallas kernels take that the twins once refused #
+# --------------------------------------------------------------------- #
+# flash_decode: (H, KVH, D, q dtype) over the engine's bf16 cache: head_dim
+# 80 (hubert's heads), 16, 32 and 64 query heads a KV head (head groups)
+ADMITTED_DECODE = [(16, 16, 80, BF), (16, 8, 80, BF), (16, 8, 80, F32),
+                   (16, 1, 256, BF), (32, 1, 128, BF), (128, 2, 128, BF)]
+ADMITTED_STATES = (20, 32, 64, 128, 256)     # ssm_scan above 16 states: a prefill
+ADMITTED_STEP_STATES = (64, 256)             # ... and a decode step in place
+GEMMA3_F32 = dict(B=4, S=1024, H=4, KVH=1, D=256, W=512)   # gemma3-1b's prefill
+
+
+def check_admitted_kernels(rng) -> dict:
+    """The inputs the twins once refused, each on its kernel against its
+    plain version: flash_decode at ``ADMITTED_DECODE`` over an (8, 1,025) cache
+    with the engine's mixed lengths; flash_attention with f32 queries at
+    head_dim 256 over gemma3-1b's prefill, causal and local, over an f32
+    and a bf16 cache, and in the offsets form at the engine's chunk;
+    ssm_scan at falcon-mamba's d_inner and decays with ``ADMITTED_STATES``
+    states (1 x 1,024 from a state) and a decode step in place. Returns the
+    largest errors by kernel."""
+    errs = {"flash_decode": 0.0, "flash_attention": 0.0, "ssm_scan": 0.0}
+
+    def note(key, err):
+        errs[key] = max(errs[key], err)
+
+    lens = torch.tensor(MIXED_LENS, device=DEV)
+    for H, KVH, D, qd in ADMITTED_DECODE:
+        q = randn(rng, (8, 1, H, D), qd)
+        ck, cv = path_cache(rng, 1, 8, 1025, KVH, D, BF)
+        note("flash_decode", check_attention(
+            f"flash_decode {H} / {KVH} heads of {D}, {qd} queries",
+            dec_mod.flash_decode(q, ck[0], cv[0], lens),
+            dec_mod.flash_decode_plain(q, ck[0], cv[0], lens), BF))
+    g = GEMMA3_F32
+    q = randn(rng, (g["B"], g["S"], g["H"], g["D"]), F32)
+    q_chunk = randn(rng, (1, 128, g["H"], g["D"]), F32)
+    off = torch.tensor([3, 512, 128], device=DEV)
+    for kd in (F32, BF):
+        k, v = (randn(rng, (g["B"], g["S"], g["KVH"], g["D"]), kd) for _ in "kv")
+        for kind in ("causal", "local"):
+            note("flash_attention", check_attention(
+                f"flash_attention f32 queries D256 {kind} over a {kd} cache",
+                fa_mod.flash_attention(q, k, v, kind, g["W"]),
+                fa_mod.flash_attention_plain(q, k, v, kind, g["W"]), kd))
+        ck, cv = path_cache(rng, 1, 8, 1025, g["KVH"], g["D"], kd)
+        note("flash_attention", check_attention(
+            f"flash_attention f32 queries D256 offsets slot 3 pos0 512 c 128 over a {kd} cache",
+            fa_mod.flash_attention(q_chunk, ck[0], cv[0], "causal", offsets=off),
+            fa_mod.flash_attention_plain(q_chunk, ck[0], cv[0], "causal", offsets=off), kd))
+    di = 8192
+    for N in ADMITTED_STATES:
+        args = falcon_scan_inputs(rng, 1, 1024, di, N, BF)
+        h0 = randn(rng, (1, di, N), F32) * 0.5
+        (y, h), (wy, wh) = ssm_mod.ssm_scan(*args, h0), ssm_mod.ssm_scan_plain(*args, h0)
+        name = f"ssm_scan falcon prefill 1 x 1024 N{N}"
+        note("ssm_scan", max(check_close(name, y, wy, F32, SCAN_TOL),
+                             check_close(name + " hT", h, wh, F32, SCAN_TOL)))
+    for N in ADMITTED_STEP_STATES:
+        args = falcon_scan_inputs(rng, 1, 1, di, N, BF)
+        h0 = randn(rng, (1, di, N), F32) * 0.5
+        state = h0.clone()
+        y, h = ssm_mod.ssm_scan(*args, state, out_state=state)
+        wy, wh = ssm_mod.ssm_scan_plain(*args, h0)
+        if h.data_ptr() != state.data_ptr():
+            raise AssertionError(f"ssm_scan decode N{N}: the state was not written in place")
+        name = f"ssm_scan falcon decode step N{N}, in place"
+        note("ssm_scan", max(check_close(name, y, wy, F32, SCAN_TOL),
+                             check_close(name + " hT", state, wh, F32, SCAN_TOL)))
+    return errs
+
+
+def time_admitted_kernels(rng) -> dict:
+    """Each admitted shape timed as phase 3 times its kernel's path shapes:
+    beside its bound, its plain version and SDPA where SDPA computes it."""
+    g = GEMMA3_F32
+    prefill = dict(B=g["B"], S=g["S"], H=g["H"], KVH=g["KVH"], D=g["D"], q_dtype=F32)
+    return {
+        "flash_decode": [time_flash_decode(
+            rng, MIXED_LENS, f"B=8 H={H} KVH={KVH} D={D} T=1025 mixed, {str(qd)[6:]} queries",
+            H=H, KVH=KVH, D=D, q_dtype=qd) for H, KVH, D, qd in ADMITTED_DECODE],
+        "flash_attention": [
+            time_flash_attention_prefill(rng, **prefill, kv_dtype=F32),
+            time_flash_attention_prefill(rng, **prefill, kind="local", window=g["W"], kv_dtype=F32),
+            time_flash_attention_prefill(rng, **prefill, kv_dtype=BF),
+            time_flash_attention_offsets(rng, 512, KVH=g["KVH"], H=g["H"], D=g["D"], q_dtype=F32)],
+        "ssm_scan": [time_ssm_scan(rng, 1, 1024, True, N, falcon_scan_inputs)
+                     for N in ADMITTED_STATES]
+        + [time_ssm_scan(rng, 1, 1, True, N, falcon_scan_inputs, in_place=True)
+           for N in ADMITTED_STEP_STATES],
+    }
+
+
+def gemma3_f32_forward() -> dict:
+    """gemma3-1b at full width and 2 of its layers (both local, window 512)
+    with f32 parameters: a forward over 1 x 1,024 seeded tokens on the
+    kernels (f32 queries at head_dim 256 in flash_attention) against the
+    same on the plain versions, at the f32 gate."""
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=2, param_dtype="float32")
+    m, params, weights = facade_weights(cfg)
+    L, S = cfg.n_layers, GEMMA3_F32["S"]
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(1, cfg.vocab_size, size=(1, S))).to(DEV)
+    with torch.no_grad():
+        reset_counts()
+        got = m.forward(params, {"tokens": tokens})
+        used = counts()
+        with plain_versions():
+            want = m.forward(params, {"tokens": tokens})
+    expect = {name: 0 for name in used}
+    expect.update(rmsnorm=2 * L + 1, flash_attention=L)
+    if used != expect:
+        raise AssertionError(f"gemma3-1b f32: launches {used}, the stack implies {expect}")
+    err = check_close("gemma3-1b f32 forward logits", got, want, F32)
+    return {"config": cfg.name, "n_layers": L, "param_dtype": cfg.param_dtype, "tokens": S,
+            "n_params": weights["n_params"], "launches": used, "max_abs_err_logits": err,
+            "tolerance": TOL[F32]}
+
+
+FALCON_WIDE_STATE = 64
+
+
+def falcon_wide_state_run() -> dict:
+    """falcon-mamba-7b at full width and 2 of its layers with d_state
+    ``FALCON_WIDE_STATE`` (the scan's wide body): a prefill of 1 x 512
+    seeded tokens and 8 greedy decode steps on the kernels, each logit
+    against the same steps on the plain versions, at the bf16 gate."""
+    base = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(base, n_layers=2,
+                              ssm=dataclasses.replace(base.ssm, d_state=FALCON_WIDE_STATE))
+    m, params, weights = facade_weights(cfg)
+    L, S, n_dec = cfg.n_layers, 512, 8
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(1, cfg.vocab_size, size=(1, S))).to(DEV)
+    errs = []
+    with torch.no_grad():
+        reset_counts()
+        logits, cache = m.prefill(params, {"tokens": tokens}, S + n_dec)
+        steps = [logits]
+        for i in range(n_dec):
+            logits, cache = m.decode_step(params, logits.argmax(-1), cache, S + i)
+            steps.append(logits)
+        used = counts()
+        with plain_versions():
+            logits, cache = m.prefill(params, {"tokens": tokens}, S + n_dec)
+            errs.append(logits_close("falcon d_state 64 prefill", steps[0], logits))
+            for i in range(n_dec):
+                logits, cache = m.decode_step(params, steps[i].argmax(-1), cache, S + i)
+                errs.append(logits_close(f"falcon d_state 64 step {i}", steps[i + 1], logits))
+    expect = {name: 0 for name in used}
+    expect.update(ssm_scan=L * (1 + n_dec), rmsnorm=(L + 1) * (1 + n_dec))
+    if used != expect:
+        raise AssertionError(f"falcon-mamba d_state 64: launches {used}, the steps imply {expect}")
+    return {"config": cfg.name, "n_layers": L, "d_state": cfg.ssm.d_state, "prompt_tokens": S,
+            "decode_steps": n_dec, "n_params": weights["n_params"], "launches": used,
+            "max_abs_err_logits": max(errs), "tolerance": {"rtol": 0.15, "atol": 0.3}}
+
+
+def phase_admitted(records: dict) -> None:
+    """The inputs the Pallas kernels take and the twins once refused: each
+    on its kernel against its plain version and timed, then
+    two model-level runs on them (gemma3-1b's f32 forward, falcon-mamba at
+    d_state 64)."""
+    rng = np.random.default_rng(9)
+    errs = check_admitted_kernels(rng)
+    times = time_admitted_kernels(rng)
+    emit(phase="admitted_kernels", max_abs_err=errs, times=times,
+         tolerance={"bfloat16": TOL[BF], "float32": TOL[F32], "ssm_scan": SCAN_TOL})
+    runs = {"gemma3_f32": gemma3_f32_forward()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["falcon_wide_state"] = falcon_wide_state_run()
+    emit(phase="admitted_models", **runs)
+    for name in errs:
+        records[name]["max_abs_err_admitted"] = errs[name]
+        records[name]["admitted"] = times[name]
+    records["flash_attention"]["launches_gemma3_f32"] = runs["gemma3_f32"]["launches"]["flash_attention"]
+    records["ssm_scan"]["launches_falcon_wide_state"] = runs["falcon_wide_state"]["launches"]["ssm_scan"]
 
 
 # --------------------------------------------------------------------- #
@@ -4310,6 +4557,12 @@ def run_phases(t_all: float, pods: list) -> int:
     t0 = time.perf_counter()
     phase_hubert(records)
     emit(phase="hubert_done", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_admitted(records)
+    emit(phase="admitted_done", seconds=time.perf_counter() - t0)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -62,13 +62,15 @@
 // * f32 queries (the tiny model, the f32 tests, f32 queries over a bf16
 //   cache): the scalar FMA body on the FP32 pipes. The reference holds f32
 //   to 2e-5, which neither bf16 nor TF32 tensor cores can meet, so these
-//   products run exactly in f32: 16 x 8 threads, each a BM/16 x 8 patch of
-//   the score tile and a BM/16 x D/8 patch of the output tile, operands
+//   products run exactly in f32: 16 x 8 threads, each a BM/16 x BN/8 patch
+//   of the score tile and a BM/16 x D/8 patch of the output tile, operands
 //   widened to f32 in shared memory. Its query tile (bm = 32 or 64) comes
-//   from the same plan. It is not built at head_dim 256: at bm = 32 ptxas
-//   spills it (255 registers and 468 bytes of spill stores over an f32
-//   cache, 68 over a bf16 one, on sm_90a), so the wrapper refuses f32
-//   queries there.
+//   from the same plan. At head_dim 256 a 32-query tile spilled (255
+//   registers and 468 bytes of spill stores over an f32 cache, 68 over a
+//   bf16 one, on sm_90a: a thread's 2 x 32 output patch and the 32 values
+//   of V it reads a key), so there the query tile is 16 (one row and 32
+//   output columns a thread) and the key tile 32 (four score columns):
+//   84 KB of shared memory, two blocks an SM.
 //
 // Both skip KV tiles wholly outside the causal or local band: a fully
 // masked tile leaves nothing behind once a later tile raises the running
@@ -144,16 +146,20 @@ __device__ __forceinline__ void attn_key_range(const AttnParams& p, int q0, int 
 // ---------------------------------------------------------------------- //
 //  f32 queries: the FMA body                                             //
 // ---------------------------------------------------------------------- //
+// keys a tile of the FMA body: 32 at head_dim 256 (its query tile is 16)
+template <int D> __host__ __device__ constexpr int attn_fma_bn() { return D > 128 ? 32 : FA_BN; }
+
 template <int D, int BM>
 constexpr int attn_smem_floats() {
-    return (BM + FA_BN) * (D + 1) + FA_BN * D + BM * (FA_BN + 1);
+    constexpr int BN = attn_fma_bn<D>();
+    return (BM + BN) * (D + 1) + BN * D + BM * (BN + 1);
 }
 
 template <typename TQ, typename TK, int D, int BM>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const AttnParams p_in) {
     const AttnParams p = attn_resolve(p_in);
-    constexpr int NT = FA_THREADS, BN = FA_BN;
+    constexpr int NT = FA_THREADS, BN = attn_fma_bn<D>();
     constexpr int RM = BM / 16;                    // query rows per thread
     constexpr int CN = BN / 8;                     // score columns per thread
     constexpr int DC = D / 8;                      // output columns per thread
@@ -652,6 +658,8 @@ static int launch_attn_mma(const AttnParams& p, int B, cudaStream_t stream) {
 template <typename TQ, typename TK>
 static int dispatch_fma(const AttnParams& p, int B, int D, int bm, cudaStream_t stream) {
     const bool wide = bm == 64;
+    if (D == 256) return bm == 16 ? launch_attn<TQ, TK, 256, 16>(p, B, stream) : -1;
+    if (bm != 32 && bm != 64) return -1;
     switch (D) {
         case 16: return wide ? launch_attn<TQ, TK, 16, 64>(p, B, stream) : launch_attn<TQ, TK, 16, 32>(p, B, stream);
         case 32: return wide ? launch_attn<TQ, TK, 32, 64>(p, B, stream) : launch_attn<TQ, TK, 32, 32>(p, B, stream);
@@ -683,7 +691,7 @@ static int dispatch_mma(const AttnParams& p, int B, int D, cudaStream_t stream) 
 // with 1 < n_splits <= 4, part_m / part_l (B, H, n_splits, S_pad) and part_acc
 // (B, H, n_splits, S_pad, D), S_pad = S rounded up to 64, are f32 scratch
 // the caller allocates); f32 queries run the FMA body with bm = 32 or 64
-// and no split (D up to 128). offsets: null, or a device int64 array
+// (16 at head_dim 256) and no split. offsets: null, or a device int64 array
 // [slot, pos0, c] (q_offset 0): batch b reads k / v row slot + b, the mask takes q_offset =
 // pos0 and the keys end at min(T, pos0 + c), T being the view's length (the
 // cache's positions), and the plan's n_splits stays while each split's keys
@@ -726,7 +734,7 @@ extern "C" int rt_flash_attention(
             return -1;
         return dispatch_mma(p, B, D, s);
     }
-    if (n_splits != 1 || (bm != 32 && bm != 64)) return -1;
+    if (n_splits != 1) return -1;
     if (q_dtype == RT_F32 && kv_dtype == RT_F32) return dispatch_fma<float, float>(p, B, D, bm, s);
     if (q_dtype == RT_F32 && kv_dtype == RT_BF16) return dispatch_fma<float, bf16>(p, B, D, bm, s);
     return -1;

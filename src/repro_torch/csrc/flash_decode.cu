@@ -25,17 +25,26 @@
 //   cache (64 KB) is requested at once. One barrier a tile. At head_dim 256
 //   an f32 cache's ring of four 32-key stages would be 256 KB, over the
 //   227 KB a block may have: it has two stages (128 KB).
-// * Scores. A key row is held by LPR = D / VPL neighbouring lanes, each
+// * Scores. A key row is held by LPR neighbouring lanes (a "slot"), each
 //   with VPL values of d and the matching slice of the G queries in
 //   registers; a row's dot product is reduced over those lanes by shuffles.
-//   Each group of LPR lanes (a "slot") keeps its own running (m, l, acc)
-//   over the rows it sees, so the key loop needs no shared state at all;
-//   the slots are merged once at the end, by shuffles within a warp and
-//   through shared memory across the four warps.
-//
-// Head_dim 256 takes up to 8 query heads a KV head (gemma3-4b has 2,
-// gemma3-1b 4, gemma-2b 8); 16 would need a lane to hold 16 heads' slices
-// of 8 values twice over (256 registers) and is refused (no config has it).
+//   LPR is D / VPL rounded up to a power of two: at head_dim 80 a row is
+//   ten 16-byte slices, and groups of ten lanes do not tile a warp, so a
+//   slot is 16 lanes of which 6 hold no values (their queries are zeros,
+//   they add nothing to a score and write nothing). The kernel is bound by
+//   bytes, and the cache is neither padded nor copied. Each slot keeps its
+//   own running (m, l, acc) over the rows it sees, so the key loop needs no
+//   shared state at all; the slots are merged once at the end, by shuffles
+//   within a warp and through shared memory across the four warps.
+// * Head groups. A block takes at most GT query heads of its KV head (2, 8,
+//   or 16 up to head_dim 128, llama3-405b's G; 16 heads' slices at D 256
+//   would take a lane 256 registers). More heads a KV head (16 at D 80 and
+//   256, 32 and 64 where the Pallas kernel takes them) are cut into
+//   ceil(G / 8) head groups of 8, a grid axis beside the KV head: each
+//   group's block reads the split's keys and values itself, so the cache
+//   is read ceil(G / 8) times, the groups of one split side by side on the
+//   card so that the later reads mostly find the rows in the L2 cache. The
+//   merge and the partials carry all G heads.
 //
 // Keys at or beyond kv_len[b] are never read (cp.async writes zeros) and
 // never weigh. kv_len is int32 or int64, as the caller has it. The cache is
@@ -48,7 +57,6 @@
 constexpr int DEC_THREADS = 128;
 constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int DEC_STAGES = 4;    // K / V tiles in the cp.async ring
-constexpr int DEC_MAXG = 16;     // most query heads per KV head
 constexpr float DEC_LOG2E = 1.4426950408889634f;
 
 struct DecodeParams {
@@ -62,6 +70,7 @@ struct DecodeParams {
     float* part_l;               // (B, KVH, n_splits, G)
     float* part_acc;             // (B, KVH, n_splits, G, D)
     int T, KVH, G, chunk, n_splits;
+    int n_hg;                    // head groups of a KV head: ceil(G / GT)
     int64_t q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh;
     float scale_log2;
 };
@@ -96,7 +105,9 @@ __device__ __forceinline__ void load_vals(const float* p, float* out) {
 template <typename TK, int D, int GT>
 struct DecShape {
     static constexpr int VPL = GT <= 8 ? 8 : 4;            // values of d a lane
-    static constexpr int LPR = D / VPL;                     // lanes a key row
+    static constexpr int LPRV = D / VPL;                    // lanes of a row with values
+    static constexpr int LPR = LPRV <= 2 ? LPRV : (LPRV <= 4 ? 4 : (LPRV <= 8 ? 8 :
+                               (LPRV <= 16 ? 16 : 32)));    // lanes a key row (a slot)
     static constexpr int NSLOT = DEC_THREADS / LPR;         // rows read at once
     static constexpr int BN = NSLOT > 32 ? NSLOT : 32;      // keys a stage
     static constexpr int KPS = BN / NSLOT;                  // rows of a slot a stage
@@ -108,15 +119,20 @@ struct DecShape {
     static constexpr int RING = STAGES * STAGE;
     static constexpr int COMBINE = (2 * DEC_WARPS * GT + DEC_WARPS * GT * D) * (int)sizeof(float);
     static constexpr int SMEM = RING > COMBINE ? RING : COMBINE;
-    static_assert(LPR >= 1 && LPR <= 32 && KPS * NSLOT == BN && KPS % KB == 0, "shape");
+    static_assert(D % VPL == 0 && LPRV <= LPR && LPR <= 32 && (LPR & (LPR - 1)) == 0
+                  && KPS * NSLOT == BN && KPS % KB == 0, "shape");
     static_assert(SMEM <= 232448, "shared memory of a block");
 };
 
+// GT 8: the grid's y axis is KV head x head group (ceil(G / 8) groups of
+// 8); GT 2 and 16: it is the KV head, and the block takes all G <= GT heads
+// (the groups' index math spilled the GT 16 body 8 bytes at head_dim 128)
 template <typename TQ, typename TK, int D, int GT>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_partial_kernel(const DecodeParams p) {
+    constexpr bool HG = GT == 8;
     using Sh = DecShape<TK, D, GT>;
-    constexpr int VPL = Sh::VPL, LPR = Sh::LPR, NSLOT = Sh::NSLOT, BN = Sh::BN;
+    constexpr int VPL = Sh::VPL, LPRV = Sh::LPRV, LPR = Sh::LPR, NSLOT = Sh::NSLOT, BN = Sh::BN;
     constexpr int KPS = Sh::KPS, KB = Sh::KB, EPC = Sh::EPC, CPR = Sh::CPR;
     constexpr int STAGES = Sh::STAGES;
 
@@ -126,8 +142,13 @@ decode_partial_kernel(const DecodeParams p) {
     allow_dependents();                             // the merge may be scheduled
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int slot = tid / LPR, part = tid % LPR;   // row of a stage, slice of d
-    const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-    const int G = p.G;
+    // a lane past the row's slices reads slice 0 and holds zero queries
+    const bool has = LPR == LPRV || part < LPRV;
+    const int pc = has ? part : 0;
+    const int split = blockIdx.x, b = blockIdx.z;
+    const int kvh = HG ? blockIdx.y / p.n_hg : blockIdx.y;
+    const int g0 = HG ? (blockIdx.y % p.n_hg) * GT : 0;     // this block's first head
+    const int G = HG ? min(GT, p.G - g0) : p.G;              // and its number of heads
     const int len = seq_len(p, b);
     const int t0 = split * p.chunk;
     if (t0 >= len) return;                          // the merge does not read it
@@ -156,11 +177,11 @@ decode_partial_kernel(const DecodeParams p) {
 
     // the G queries' slice of d, prescaled into the exp2 domain; padded
     // heads (g >= G) are zeros and never written
-    const TQ* qb = static_cast<const TQ*>(p.q) + b * p.q_sb + (int64_t)kvh * G * p.q_sh;
+    const TQ* qb = static_cast<const TQ*>(p.q) + b * p.q_sb + ((int64_t)kvh * p.G + g0) * p.q_sh;
     float qr[GT][VPL];
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
-        if (g < G) {
+        if (g < G && has) {
             load_vals<VPL>(qb + g * p.q_sh + part * VPL, qr[g]);
 #pragma unroll
             for (int i = 0; i < VPL; ++i) qr[g][i] *= p.scale_log2;
@@ -193,7 +214,7 @@ decode_partial_kernel(const DecodeParams p) {
 #pragma unroll
             for (int j = 0; j < KB; ++j) {
                 float kv[VPL];
-                load_vals<VPL>(ks + (slot + (j0 + j) * NSLOT) * D + part * VPL, kv);
+                load_vals<VPL>(ks + (slot + (j0 + j) * NSLOT) * D + pc * VPL, kv);
 #pragma unroll
                 for (int g = 0; g < GT; ++g) {
                     float a = 0.f;
@@ -235,7 +256,7 @@ decode_partial_kernel(const DecodeParams p) {
 #pragma unroll
             for (int j = 0; j < KB; ++j) {
                 float vv[VPL];
-                load_vals<VPL>(vs + (slot + (j0 + j) * NSLOT) * D + part * VPL, vv);
+                load_vals<VPL>(vs + (slot + (j0 + j) * NSLOT) * D + pc * VPL, vv);
 #pragma unroll
                 for (int g = 0; g < GT; ++g)
 #pragma unroll
@@ -266,7 +287,7 @@ decode_partial_kernel(const DecodeParams p) {
     float* cm = reinterpret_cast<float*>(dec_smem);  // (WARPS, GT)
     float* cl = cm + DEC_WARPS * GT;                  // (WARPS, GT)
     float* ca = cl + DEC_WARPS * GT;                  // (WARPS, GT, D)
-    if (lane < LPR) {
+    if (lane < LPRV) {
 #pragma unroll
         for (int g = 0; g < GT; ++g) {
             if (lane == 0) {
@@ -278,7 +299,7 @@ decode_partial_kernel(const DecodeParams p) {
         }
     }
     __syncthreads();
-    const int64_t pbase = (((int64_t)b * p.KVH + kvh) * p.n_splits + split) * G;
+    const int64_t pbase = (((int64_t)b * p.KVH + kvh) * p.n_splits + split) * p.G + g0;
     for (int e = tid; e < G * D; e += DEC_THREADS) {
         const int g = e / D, d = e % D;
         float mm = RT_NEG_INF;
@@ -366,12 +387,15 @@ decode_merge_kernel(const DecodeParams p) {
 }
 
 template <typename TQ, typename TK, int D, int GT>
-static int launch_decode(const DecodeParams& p, int B, cudaStream_t stream) {
+static int launch_decode(const DecodeParams& p_in, int B, cudaStream_t stream) {
     constexpr int smem = DecShape<TK, D, GT>::SMEM;
+    DecodeParams p = p_in;
+    p.n_hg = (p.G + GT - 1) / GT;                   // 1 but for GT 8
     cudaError_t err = cudaFuncSetAttribute(
         decode_partial_kernel<TQ, TK, D, GT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    decode_partial_kernel<TQ, TK, D, GT><<<dim3(p.n_splits, p.KVH, B), DEC_THREADS, smem, stream>>>(p);
+    decode_partial_kernel<TQ, TK, D, GT><<<dim3(p.n_splits, p.KVH * p.n_hg, B), DEC_THREADS,
+                                           smem, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = launch_after(decode_merge_kernel<TQ, TK, D>, dim3(p.KVH, B), dim3(DEC_THREADS),
@@ -380,15 +404,20 @@ static int launch_decode(const DecodeParams& p, int B, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
+// The group size GT of a block: 2, 8, or 16 where a lane has room for 16
+// heads' slices (head_dim up to 128, but not 80, whose slots stay at 16
+// lanes). More heads than that run in head groups of 8. An f32 cache at
+// head_dim 80 takes GT 8 for G <= 2 too (its GT 2 body spilled 8 bytes).
 template <typename TQ, typename TK, int D>
 static int dispatch_group(const DecodeParams& p, int B, cudaStream_t stream) {
-    if (p.G <= 2) return launch_decode<TQ, TK, D, 2>(p, B, stream);
-    if (p.G <= 8) return launch_decode<TQ, TK, D, 8>(p, B, stream);
-    if constexpr (D > 128) {
-        return -1;                                  // 16 heads a KV head at D 256: not built
-    } else {
-        return launch_decode<TQ, TK, D, 16>(p, B, stream);
+    constexpr int MAXG = (D > 128 || D == 80) ? 8 : 16;
+    if constexpr (!(D == 80 && sizeof(TK) == 4)) {
+        if (p.G <= 2) return launch_decode<TQ, TK, D, 2>(p, B, stream);
     }
+    if constexpr (MAXG > 8) {
+        if (p.G > 8 && p.G <= MAXG) return launch_decode<TQ, TK, D, 16>(p, B, stream);
+    }
+    return launch_decode<TQ, TK, D, 8>(p, B, stream);
 }
 
 template <typename TQ, typename TK>
@@ -397,6 +426,7 @@ static int dispatch_decode(const DecodeParams& p, int B, int D, cudaStream_t str
         case 16: return dispatch_group<TQ, TK, 16>(p, B, stream);
         case 32: return dispatch_group<TQ, TK, 32>(p, B, stream);
         case 64: return dispatch_group<TQ, TK, 64>(p, B, stream);
+        case 80: return dispatch_group<TQ, TK, 80>(p, B, stream);
         case 128: return dispatch_group<TQ, TK, 128>(p, B, stream);
         case 256: return dispatch_group<TQ, TK, 256>(p, B, stream);
         default: return -1;
@@ -408,8 +438,9 @@ static int dispatch_decode(const DecodeParams& p, int B, int D, cudaStream_t str
 // along D, every q, k and v row 16-byte aligned. kv_len: (B,) on the device,
 // int32 (len_is_64 = 0) or int64 (1). The keys are cut into n_splits pieces
 // of `chunk` keys (a multiple of 64); part_* are scratch the caller
-// allocates. Returns cudaGetLastError(), or -1 for a shape the kernels do
-// not take (among them more than 8 query heads a KV head at D 256).
+// allocates. Any number of query heads a KV head. Returns
+// cudaGetLastError(), or -1 for a shape the kernels do not take (a head_dim
+// other than 16, 32, 64, 80, 128 and 256).
 extern "C" int rt_flash_decode(
         const void* q, const void* k, const void* v, const void* kv_len, void* o,
         void* part_m, void* part_l, void* part_acc,
@@ -419,7 +450,7 @@ extern "C" int rt_flash_decode(
         long long v_sb, long long v_st, long long v_sh,
         long long o_sb, long long o_sh,
         int q_dtype, int kv_dtype, int len_is_64, void* stream) {
-    if (KVH <= 0 || H % KVH != 0 || H / KVH > DEC_MAXG) return -1;
+    if (KVH <= 0 || H <= 0 || H % KVH != 0) return -1;
     if (chunk <= 0 || chunk % 64 != 0 || n_splits <= 0 || (long long)chunk * n_splits < T)
         return -1;
     DecodeParams p;
@@ -427,7 +458,7 @@ extern "C" int rt_flash_decode(
     p.part_m = static_cast<float*>(part_m);
     p.part_l = static_cast<float*>(part_l);
     p.part_acc = static_cast<float*>(part_acc);
-    p.T = T; p.KVH = KVH; p.G = H / KVH; p.chunk = chunk; p.n_splits = n_splits;
+    p.T = T; p.KVH = KVH; p.G = H / KVH; p.chunk = chunk; p.n_splits = n_splits; p.n_hg = 1;
     p.q_sb = q_sb; p.q_sh = q_sh;
     p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
     p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;

@@ -279,18 +279,20 @@ extern "C" int rt_stress_mxu(const void* a, const void* b, void* out, int n_tile
 // element. With eight warps on an SM (two per scheduler) and a 4-cycle
 // FFMA latency, ilp = 1 fills half of each scheduler's FFMA slots and
 // ilp >= 2 fills them all. The element loop is not unrolled, so chains of
-// two elements are never interleaved into more ILP than asked for.
+// two elements are never interleaved into more ILP than asked for. x and
+// out are f32 or bf16 (T), the chains f32 whatever T is, as the Pallas
+// kernel casts x to f32 and the result back to x's type.
 constexpr int VPU_THREADS = 256;
 
-template <int ILP>
+template <typename T, int ILP>
 __global__ void __launch_bounds__(VPU_THREADS)
-stress_vpu_kernel(const float* __restrict__ x, float* __restrict__ out,
+stress_vpu_kernel(const T* __restrict__ x, T* __restrict__ out,
                   int64_t n, int64_t block_elems, int iters) {
     const int64_t begin = (int64_t)blockIdx.x * block_elems;
     const int64_t end = min(begin + block_elems, n);
 #pragma unroll 1
     for (int64_t e = begin + threadIdx.x; e < end; e += VPU_THREADS) {
-        const float xv = x[e];
+        const float xv = to_f32(x[e]);
         float acc[ILP];
 #pragma unroll
         for (int i = 0; i < ILP; ++i) acc[i] = xv + (float)i;
@@ -302,20 +304,17 @@ stress_vpu_kernel(const float* __restrict__ x, float* __restrict__ out,
         float s = acc[0];
 #pragma unroll
         for (int i = 1; i < ILP; ++i) s += acc[i];
-        out[e] = s / (float)(ILP * 4);
+        from_f32(s / (float)(ILP * 4), out + e);
     }
 }
 
-// x, out: n contiguous f32; block b takes elements [b * block_elems, ...).
-extern "C" int rt_stress_vpu(const void* x, void* out, long long n,
-                             long long block_elems, int n_blocks, int iters,
-                             int ilp, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (n <= 0 || block_elems <= 0 || n_blocks <= 0 || iters < 0) return -1;
-    const float* xp = static_cast<const float*>(x);
-    float* op = static_cast<float*>(out);
+template <typename T>
+static int launch_vpu(const void* x, void* out, long long n, long long block_elems,
+                      int n_blocks, int iters, int ilp, cudaStream_t s) {
+    const T* xp = static_cast<const T*>(x);
+    T* op = static_cast<T*>(out);
 #define VPU_LAUNCH(L) \
-    stress_vpu_kernel<L><<<n_blocks, VPU_THREADS, 0, s>>>(xp, op, n, block_elems, iters)
+    stress_vpu_kernel<T, L><<<n_blocks, VPU_THREADS, 0, s>>>(xp, op, n, block_elems, iters)
     switch (ilp) {
         case 1: VPU_LAUNCH(1); break;
         case 2: VPU_LAUNCH(2); break;
@@ -329,6 +328,18 @@ extern "C" int rt_stress_vpu(const void* x, void* out, long long n,
     }
 #undef VPU_LAUNCH
     return (int)cudaGetLastError();
+}
+
+// x, out: n contiguous elements of `dtype` (RT_F32 or RT_BF16); block b
+// takes elements [b * block_elems, ...).
+extern "C" int rt_stress_vpu(const void* x, void* out, long long n,
+                             long long block_elems, int n_blocks, int iters,
+                             int ilp, int dtype, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (n <= 0 || block_elems <= 0 || n_blocks <= 0 || iters < 0) return -1;
+    if (dtype == RT_F32) return launch_vpu<float>(x, out, n, block_elems, n_blocks, iters, ilp, s);
+    if (dtype == RT_BF16) return launch_vpu<bf16>(x, out, n, block_elems, n_blocks, iters, ilp, s);
+    return -1;
 }
 
 // --------------------------------------------------------------------- //
@@ -411,13 +422,16 @@ extern "C" int rt_stress_hbm(const void* x, void* out, long long nbytes,
 // The kernel halves y on every iteration instead of dividing by 2^iters at
 // the end: scaling by a power of two commutes with rounding, so the result
 // is bit for bit the reference's wherever the reference stays finite
-// (iters < 128 for inputs of order one), and it stays finite beyond.
+// (iters < 128 for inputs of order one), and it stays finite beyond. x and
+// out are f32 or bf16 (T); y is f32 in shared memory whatever T is, as the
+// Pallas kernel computes in f32, so the bank conflicts are the same.
 constexpr int VMEM_W = 32;
 constexpr int VMEM_MAX_ROWS = 512;
 constexpr int VMEM_THREADS = VMEM_MAX_ROWS;    // one thread per row of the block
 
+template <typename T>
 __global__ void __launch_bounds__(VMEM_THREADS)
-stress_vmem_kernel(const float* __restrict__ x, float* __restrict__ out, int C,
+stress_vmem_kernel(const T* __restrict__ x, T* __restrict__ out, int C,
                    int br, int iters, int shift, int permute) {
     extern __shared__ float vmem_smem[];
     const int ld = br + 1;
@@ -428,7 +442,7 @@ stress_vmem_kernel(const float* __restrict__ x, float* __restrict__ out, int C,
     const int n = br * VMEM_W;
     for (int e = threadIdx.x; e < n; e += VMEM_THREADS) {     // coalesced rows
         const int r = e / VMEM_W, c = e % VMEM_W;
-        vmem_smem[c * ld + r] = x[(row0 + r) * C + col0 + c];
+        vmem_smem[c * ld + r] = to_f32(x[(row0 + r) * C + col0 + c]);
     }
     __syncthreads();
     // one row slot per thread (br <= 512 threads), the same for every
@@ -453,26 +467,34 @@ stress_vmem_kernel(const float* __restrict__ x, float* __restrict__ out, int C,
     }
     for (int e = threadIdx.x; e < n; e += VMEM_THREADS) {
         const int r = e / VMEM_W, c = e % VMEM_W;
-        out[(row0 + r) * C + col0 + c] = vmem_smem[cur * buf_floats + c * ld + r];
+        from_f32(vmem_smem[cur * buf_floats + c * ld + r], out + (row0 + r) * C + col0 + c);
     }
 }
 
-// x, out: (R, C) contiguous f32; br divides R, C a multiple of 32.
+template <typename T>
+static int launch_vmem(const void* x, void* out, int R, int C, int br, int iters,
+                       int shift, int permute, cudaStream_t s) {
+    const int smem = 2 * VMEM_W * (br + 1) * 4;
+    const cudaError_t err = cudaFuncSetAttribute(
+        stress_vmem_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (R / br) * (C / VMEM_W);
+    stress_vmem_kernel<T><<<blocks, VMEM_THREADS, smem, s>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), C, br, iters, shift, permute);
+    return (int)cudaGetLastError();
+}
+
+// x, out: (R, C) contiguous, of `dtype` (RT_F32 or RT_BF16); br divides R,
+// C a multiple of 32.
 extern "C" int rt_stress_vmem(const void* x, void* out, int R, int C, int br,
-                              int iters, int stride, void* stream) {
+                              int iters, int stride, int dtype, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (R <= 0 || br <= 0 || br > VMEM_MAX_ROWS || R % br || C <= 0 || C % VMEM_W
         || iters < 0)
         return -1;
     const int shift = ((stride % br) + br) % br;
     const int permute = shift > 0 && br % shift == 0;
-    const int smem = 2 * VMEM_W * (br + 1) * 4;
-    const cudaError_t err = cudaFuncSetAttribute(
-        stress_vmem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    const int blocks = (R / br) * (C / VMEM_W);
-    stress_vmem_kernel<<<blocks, VMEM_THREADS, smem, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), C, br, iters,
-        shift, permute);
-    return (int)cudaGetLastError();
+    if (dtype == RT_F32) return launch_vmem<float>(x, out, R, C, br, iters, shift, permute, s);
+    if (dtype == RT_BF16) return launch_vmem<bf16>(x, out, R, C, br, iters, shift, permute, s);
+    return -1;
 }

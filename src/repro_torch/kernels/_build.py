@@ -37,9 +37,9 @@ _SIGNATURES = {
     "rt_flash_decode": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_I] * 3 + [_P],
     "rt_flash_attention": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_I] * 8 + [_P],
     "rt_stress_mxu": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "rt_stress_vpu": [_P, _P, _L, _L, _I, _I, _I, _P],
+    "rt_stress_vpu": [_P, _P, _L, _L, _I, _I, _I, _I, _P],
     "rt_stress_hbm": [_P, _P, _L, _I, _I, _P],
-    "rt_stress_vmem": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "rt_stress_vmem": [_P, _P] + [_I] * 6 + [_P],
     "rt_cache_share": [_P, _P, _D, _P, _I, _I, _P],
     "rt_ssm_scan": [_P] * 8 + [_I] * 5 + [_P],
     "rt_empty": [_P],

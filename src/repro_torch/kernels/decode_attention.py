@@ -9,10 +9,15 @@ SMs, and a second small kernel merges the partial ``(m, l, acc)`` of the
 splits (two passes, always); ``merge_partials_plain`` is that merge in
 PyTorch. The cache is read in the model's layout ``(B, T, KVH, D)``
 through strides: nothing is transposed or copied. The lengths are read as
-the caller has them, int32 or int64. At head_dim 256 the kernels take at
-most 8 query heads a KV head (no config has more there). Where a gradient
-is wanted the wrapper runs the kernels inside ``_grad.KernelFunction``: the
-backward is the plain version's.
+the caller has them, int32 or int64. The kernels take every head_dim of
+``HEAD_DIMS`` (80 in slots of 16 lanes, 6 of them idle: a 160-byte row is
+ten 16-byte slices) and any number of query heads a KV head, as the Pallas
+kernel does: a block takes at most 16 of them (8 at head_dims 80 and 256),
+and more run as head groups of 8, a grid axis that reads the cache once a
+group.
+``admit`` is what the wrapper takes, checked before any launch. Where a
+gradient is wanted the wrapper runs the kernels inside
+``_grad.KernelFunction``: the backward is the plain version's.
 
 Over DTensors (``_mesh``) each rank decodes with its own shard: the batch
 and the heads may be split across ranks (KV heads left whole are sliced as
@@ -33,9 +38,7 @@ import torch
 from repro_torch.kernels import _build, _grad, _mesh
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)   # head sizes the kernels are built for
-MAX_GROUP = 16                   # most query heads per KV head (DEC_MAXG) ...
-MAX_GROUP_256 = 8                # ... and at head_dim 256
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # head sizes the kernels are built for
 _TILE = 64                       # a split is whole tiles of every stage size (32, 64)
 _SPLIT_KEYS = 128                # keys a split, the serial work of one block
 _MAX_BLOCKS = 8 * 132            # eight blocks for each of the card's 132 SMs
@@ -201,11 +204,9 @@ def _sharded(q, k, v, kv_len):
     return _mesh.local(run, mesh, (q, k, v, kv_len), list(qp))
 
 
-def _forward(q, k, v, kv_len, keep_partials: bool = False):
-    if q.device.type in ("cpu", "meta"):
-        return flash_decode_plain(q, k, v, kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode: unsupported device {q.device}")
+def admit(q, k, v, kv_len) -> None:
+    """The shapes and types the kernels take, as the wrapper checks them
+    before any launch: raises ValueError or TypeError naming the wrapper."""
     B, one, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
     if one != 1 or k.shape != (B, T, KVH, D) or v.shape != k.shape:
@@ -214,17 +215,25 @@ def _forward(q, k, v, kv_len, keep_partials: bool = False):
     _build.check_dtypes("flash_decode", q, k, v)
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_decode: head_dim {D} not in {HEAD_DIMS}")
-    most = MAX_GROUP_256 if D > 128 else MAX_GROUP
-    if H % KVH or H // KVH > most:
-        raise ValueError(f"flash_decode: {H} heads over {KVH} KV heads "
-                         f"(at most {most} per KV head at head_dim {D})")
-    if not (k.device == v.device == kv_len.device == q.device):
-        raise ValueError("flash_decode: all tensors must be on one device")
+    if H % KVH:
+        raise ValueError(f"flash_decode: {H} heads over {KVH} KV heads")
     if kv_len.shape != (B,):
         raise ValueError(f"flash_decode: kv_len must be ({B},), got "
                          f"{tuple(kv_len.shape)}")
     if kv_len.dtype not in LEN_DTYPES:
         raise TypeError(f"flash_decode: kv_len must be int32 or int64, got {kv_len.dtype}")
+
+
+def _forward(q, k, v, kv_len, keep_partials: bool = False):
+    if q.device.type in ("cpu", "meta"):
+        return flash_decode_plain(q, k, v, kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: unsupported device {q.device}")
+    admit(q, k, v, kv_len)
+    if not (k.device == v.device == kv_len.device == q.device):
+        raise ValueError("flash_decode: all tensors must be on one device")
+    B, _, H, D = q.shape
+    T, KVH = k.shape[1], k.shape[2]
     kv_len = kv_len.contiguous()
     q = q.contiguous()
     _build.check_rows_aligned("flash_decode: k", k, *k.stride()[:3])

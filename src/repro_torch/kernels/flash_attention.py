@@ -12,11 +12,12 @@ TF32 products). ``split_plan`` decides from the shapes alone which body
 runs, its query tile, and whether the keys are split over blocks, whose
 partial ``(m, l, acc)`` a second kernel merges as ``flash_decode`` does.
 At head_dim 256 the bf16 body walks 32-key tiles and reads Q from shared
-memory at each k-step (its output tile takes 128 registers a thread); the
-f32 body is not built there (ptxas spills it) and f32 queries at head_dim
-256 are refused. Head_dim 80 (hubert-xlarge) runs as it is, in both
-bodies: its 160-byte rows have a shared-memory swizzle of their own, and
-nothing is padded to 128.
+memory at each k-step (its output tile takes 128 registers a thread), and
+the f32 body takes 16 queries and 32 keys a tile (at 32 queries ptxas
+spilled it). Head_dim 80 (hubert-xlarge) runs as it is, in both bodies:
+its 160-byte rows have a shared-memory swizzle of their own, and nothing
+is padded to 128. ``admit`` is what the wrapper takes, checked before any
+launch.
 
 ``q_offset`` is added to the query position in the causal / local mask
 (``k_pos <= q_pos + q_offset``). At 0 this is the reference kernel; at
@@ -66,7 +67,7 @@ BLOCKS_PER_SM = 2
 
 
 def split_plan(B: int, S: int, H: int, T: int, q_dtype: torch.dtype,
-               n_sm: int = N_SM, kv_splits: int = 0) -> dict:
+               n_sm: int = N_SM, kv_splits: int = 0, D: int = 128) -> dict:
     """Which body runs and on what grid, from the shapes alone.
 
     bf16: the tensor-core body, 64 queries a block. When B x H x S/64
@@ -76,13 +77,13 @@ def split_plan(B: int, S: int, H: int, T: int, q_dtype: torch.dtype,
     blocks x splits fill them and no block walks all the keys; the partials
     are merged by a second kernel. ``kv_splits`` > 0 asks for that many pieces
     instead (fewer come back where the keys run out). f32 queries: the FMA
-    body, 64 queries a block, or 32 when that leaves SMs idle, never
-    split (built up to head_dim 128). Returns ``{"body", "bm", "kv_splits",
-    "chunk"}``: the keys ``[s * chunk, (s + 1) * chunk)`` of split s cover
-    ``[0, T)`` once."""
+    body, 64 queries a block, or 32 when that leaves SMs idle, and 16 at
+    head_dim ``D`` above 128; never split. Returns ``{"body", "bm",
+    "kv_splits", "chunk"}``: the keys ``[s * chunk, (s + 1) * chunk)`` of
+    split s cover ``[0, T)`` once."""
     n_tiles = max(1, -(-T // TILE))
     if q_dtype == torch.float32:
-        bm = TILE if -(-S // TILE) * H * B >= n_sm else 32
+        bm = 16 if D > 128 else TILE if -(-S // TILE) * H * B >= n_sm else 32
         return {"body": "fma_f32", "bm": bm, "kv_splits": 1, "chunk": n_tiles * TILE}
     blocks = max(1, -(-S // TILE) * H * B)
     places = BLOCKS_PER_SM * n_sm
@@ -203,21 +204,17 @@ def _sharded(q, k, v, kind, window, q_offset, kv_splits, offsets):
     return _mesh.local(run, mesh, (q, k, v), list(qp))
 
 
-def _forward(q, k, v, kind, window, q_offset, kv_splits, offsets=None):
-    if q.device.type in ("cpu", "meta"):
-        return flash_attention_plain(q, k, v, kind, window, q_offset, offsets)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def admit(q, k, v, kind="causal", window=0, q_offset=0, offsets=None) -> None:
+    """The shapes and types the kernel takes, as the wrapper checks them
+    before any launch: raises ValueError or TypeError naming the wrapper."""
     if kind not in KINDS:
-        raise ValueError(f"unknown attention kind {kind!r}")
+        raise ValueError(f"flash_attention: unknown attention kind {kind!r}")
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
     if offsets is not None:
-        if (offsets.shape != (3,) or offsets.dtype != torch.int64
-                or offsets.device != q.device or q_offset != 0):
+        if offsets.shape != (3,) or offsets.dtype != torch.int64 or q_offset != 0:
             raise ValueError("flash_attention: offsets must be a (3,) int64 tensor "
                              "[slot, pos0, c] on q's device, with q_offset 0")
-        offsets = offsets.contiguous()
     elif k.shape[0] != B:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} do not fit")
@@ -227,22 +224,32 @@ def _forward(q, k, v, kind, window, q_offset, kv_splits, offsets=None):
     _build.check_dtypes("flash_attention", q, k, v)
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
-    if D > 128 and q.dtype == torch.float32:
-        raise ValueError(f"flash_attention: f32 queries at head_dim {D} are not built "
-                         "(the f32 body spills registers there); pass bf16")
     if H % KVH:
         raise ValueError(f"flash_attention: {H} heads over {KVH} KV heads")
     if q_offset < 0 or window < 0 or (kind == "local" and window < 1):
         raise ValueError(f"flash_attention: q_offset {q_offset} / window {window}")
-    if not (k.device == v.device == q.device):
+
+
+def _forward(q, k, v, kind, window, q_offset, kv_splits, offsets=None):
+    if q.device.type in ("cpu", "meta"):
+        return flash_attention_plain(q, k, v, kind, window, q_offset, offsets)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    admit(q, k, v, kind, window, q_offset, offsets)
+    if not (k.device == v.device == q.device) or (
+            offsets is not None and offsets.device != q.device):
         raise ValueError("flash_attention: all tensors must be on one device")
+    if offsets is not None:
+        offsets = offsets.contiguous()
+    B, S, H, D = q.shape
+    T, KVH = k.shape[1], k.shape[2]
     _build.check_rows_aligned("flash_attention: q", q, *q.stride()[:3])
     _build.check_rows_aligned("flash_attention: k", k, *k.stride()[:3])
     _build.check_rows_aligned("flash_attention: v", v, *v.stride()[:3])
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     if B * S == 0:
         return o
-    plan = split_plan(B, S, H, T, q.dtype, _sm_count(q.device), kv_splits)
+    plan = split_plan(B, S, H, T, q.dtype, _sm_count(q.device), kv_splits, D)
     n_splits = plan["kv_splits"]
     part_ml = part_acc = None
     if n_splits > 1:

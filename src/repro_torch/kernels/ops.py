@@ -20,7 +20,7 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     (``kernels/flash_attention.py``). (softcap is not in the kernel and is
     refused.)"""
     if softcap:
-        raise NotImplementedError("softcap is not implemented in the kernel")
+        raise NotImplementedError("flash_attention: softcap is not implemented in the kernel")
     return _fa.flash_attention(q, k, v, kind, window, q_offset, offsets=offsets)
 
 

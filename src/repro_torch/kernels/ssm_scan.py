@@ -6,12 +6,17 @@ Replaces the TPU kernel ``src/repro/kernels/ssm_scan.py``
 ``h_t = exp(dt_t * A[d]) * h_{t-1} + (dt_t * x_t) * B_t`` and
 ``y_t = <h_t, C_t>`` over the N states, with h in f32. On the card the state
 stays in registers (four lanes share two channels of a batch row, each lane
-a quarter of their states) and the time loop runs inside the kernel; bound
-by its exps (one per (b, t, d, n), ``ex2.approx`` on the multi-function
-units) at falcon-mamba's prefill. Beyond the Pallas kernel it takes an initial state and returns the
-final one, as the model's scan does, and returns y in f32 (the model's
-scan's type; ``kernels/ops.py:ssm_scan`` casts to ``x.dtype`` as the Pallas
-kernel does). Where a gradient is wanted the wrapper runs the kernel inside
+a quarter of their states, up to N 16; above, N is rounded up to 32, 64,
+128 or 256 and 4 to 32 lanes share the two channels, 8 states a lane, the
+rounding's states held at 0) and the time loop runs inside the kernel;
+bound by its exps (one per (b, t, d, n), ``ex2.approx`` on the
+multi-function units) at falcon-mamba's prefill. ``MAX_STATE`` is the most
+states it is built for (the Pallas kernel takes any N); ``admit`` is what
+the wrapper takes, checked before any launch. Beyond the Pallas kernel it
+takes an initial state and returns the final one, as the model's scan
+does, and returns y in f32 (the model's scan's type;
+``kernels/ops.py:ssm_scan`` casts to ``x.dtype`` as the Pallas kernel
+does). Where a gradient is wanted the wrapper runs the kernel inside
 ``_grad.KernelFunction``: the backward is the plain version's. Over
 DTensors (``_mesh``) each rank scans its own batch rows and channels (the
 reference's constraint: batch over the data axes, channels over the model
@@ -26,7 +31,7 @@ import torch
 from repro_torch._loops import steps
 from repro_torch.kernels import _build, _grad, _mesh
 
-MAX_STATE = 16        # most states per channel the kernel is built for
+MAX_STATE = 256       # most states per channel the kernel is built for
 
 
 def ssm_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -105,11 +110,9 @@ def _sharded(x, dt, A, B, C, h0, out_state):
     return _mesh.local(ssm_scan, mesh, args, (list(xp), hp))
 
 
-def _forward(x, dt, A, B, C, h0=None, out_state=None):
-    if x.device.type in ("cpu", "meta"):
-        return ssm_scan_plain(x, dt, A, B, C, h0, out_state)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssm_scan: unsupported device {x.device}")
+def admit(x, dt, A, B, C, h0=None, out_state=None) -> None:
+    """The shapes and types the kernel takes, as the wrapper checks them
+    before any launch: raises ValueError or TypeError naming the wrapper."""
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"ssm_scan: unsupported x dtype {x.dtype}")
     Bb, S, di = x.shape
@@ -129,6 +132,17 @@ def _forward(x, dt, A, B, C, h0=None, out_state=None):
         raise ValueError(f"ssm_scan: d_state {N} is not in 1..{MAX_STATE}")
     if out_state is not None and not out_state.is_contiguous():
         raise ValueError("ssm_scan: out_state must be contiguous")
+
+
+def _forward(x, dt, A, B, C, h0=None, out_state=None):
+    if x.device.type in ("cpu", "meta"):
+        return ssm_scan_plain(x, dt, A, B, C, h0, out_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan: unsupported device {x.device}")
+    admit(x, dt, A, B, C, h0, out_state)
+    Bb, S, di = x.shape
+    N = A.shape[-1]
+    f32 = torch.float32
     x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
     h0 = None if h0 is None else h0.contiguous()
     y = torch.empty((Bb, S, di), dtype=f32, device=x.device)

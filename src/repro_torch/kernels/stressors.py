@@ -11,7 +11,10 @@ as it has blocks: the grid is the reference's grid (one block per tile, per
 256-row block, per copy share, per 512-row block and 32-column strip).
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises. ``stress_vpu`` and ``stress_vmem`` take f32 or bf16 x,
+loop in f32 and return ``x.dtype``, as the Pallas kernels cast; their
+``admit_*`` functions are what the wrappers take, checked before any
+launch.
 """
 from __future__ import annotations
 
@@ -117,20 +120,29 @@ def stress_vpu_plain(x: torch.Tensor, iters: int = 256, ilp: int = 4) -> torch.T
     return (out / (ilp * 4.0)).to(x.dtype)
 
 
-def stress_vpu(x: torch.Tensor, iters: int = 256, ilp: int = 4) -> torch.Tensor:
-    """x: (R, C) f32, R a multiple of min(256, R). VPU-flops = R * C * iters
-    * ilp * 2."""
+def admit_vpu(x: torch.Tensor, ilp: int = 4) -> tuple:
+    """What the kernel of ``stress_vpu`` takes, as the wrapper checks it
+    before any launch: raises ValueError or TypeError naming the wrapper.
+    Returns (R, C, br)."""
     R, C, br = _rows_blocked("stress_vpu", x, 256)
-    if _device("stress_vpu", x) == "cpu":
-        return stress_vpu_plain(x, iters, ilp)
-    if x.dtype != torch.float32:
-        raise TypeError(f"stress_vpu: the kernel takes float32, got {x.dtype}")
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"stress_vpu: the kernel takes float32 or bfloat16, got {x.dtype}")
     if not 1 <= ilp <= MAX_ILP:
         raise ValueError(f"stress_vpu: ilp must be 1..{MAX_ILP}, got {ilp}")
+    return R, C, br
+
+
+def stress_vpu(x: torch.Tensor, iters: int = 256, ilp: int = 4) -> torch.Tensor:
+    """x: (R, C) f32 or bf16, R a multiple of min(256, R). VPU-flops = R *
+    C * iters * ilp * 2."""
+    if _device("stress_vpu", x) == "cpu":
+        return stress_vpu_plain(x, iters, ilp)
+    R, C, br = admit_vpu(x, ilp)
     x = x.contiguous()
     out = torch.empty_like(x)
     rc = _build.load().rt_stress_vpu(x.data_ptr(), out.data_ptr(), x.numel(), br * C,
-                                     R // br, int(iters), int(ilp), _build.stream_ptr())
+                                     R // br, int(iters), int(ilp),
+                                     _build.DTYPE_CODES[x.dtype], _build.stream_ptr())
     _build.check_launch(rc, f"stress_vpu{tuple(x.shape)}")
     stress_vpu.launches += 1
     return out
@@ -189,22 +201,32 @@ def stress_vmem_plain(x: torch.Tensor, iters: int = 64, stride: int = 8) -> torc
     return y.reshape(R, C).to(x.dtype)
 
 
-def stress_vmem(x: torch.Tensor, iters: int = 64, stride: int = 8) -> torch.Tensor:
-    """x: (R, C) f32, R a multiple of min(512, R), and on the card C a
-    multiple of 32. Shared-memory traffic = iters * 3 * 4 bytes per element
-    (two reads, one write)."""
+def admit_vmem(x: torch.Tensor) -> tuple:
+    """What the kernel of ``stress_vmem`` takes, as the wrapper checks it
+    before any launch: raises ValueError or TypeError naming the wrapper.
+    Returns (R, C, br)."""
     R, C, br = _rows_blocked("stress_vmem", x, 512)
-    if _device("stress_vmem", x) == "cpu":
-        return stress_vmem_plain(x, iters, stride)
-    if x.dtype != torch.float32:
-        raise TypeError(f"stress_vmem: the kernel takes float32, got {x.dtype}")
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"stress_vmem: the kernel takes float32 or bfloat16, got {x.dtype}")
     if C % VMEM_STRIP:
         raise ValueError(f"stress_vmem: the kernel takes C a multiple of "
                          f"{VMEM_STRIP}, got {C}")
+    return R, C, br
+
+
+def stress_vmem(x: torch.Tensor, iters: int = 64, stride: int = 8) -> torch.Tensor:
+    """x: (R, C) f32 or bf16, R a multiple of min(512, R), and on the card C
+    a multiple of 32; y is kept in f32 in shared memory whatever x's type.
+    Shared-memory traffic = iters * 3 * 4 bytes per element (two reads, one
+    write)."""
+    if _device("stress_vmem", x) == "cpu":
+        return stress_vmem_plain(x, iters, stride)
+    R, C, br = admit_vmem(x)
     x = x.contiguous()
     out = torch.empty_like(x)
     rc = _build.load().rt_stress_vmem(x.data_ptr(), out.data_ptr(), R, C, br,
-                                      int(iters), int(stride), _build.stream_ptr())
+                                      int(iters), int(stride),
+                                      _build.DTYPE_CODES[x.dtype], _build.stream_ptr())
     _build.check_launch(rc, f"stress_vmem{tuple(x.shape)}")
     stress_vmem.launches += 1
     return out

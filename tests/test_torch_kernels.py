@@ -52,6 +52,7 @@ def close(got: torch.Tensor, want, tol):
     (256, 256, 64, 1, "local", "float32"),
     (128, 128, 256, 4, "causal", "bfloat16"),       # head_dim 256: gemma3-1b's group
     (128, 128, 256, 1, "local", "float32"),
+    (64, 64, 256, 4, "causal", "float32"),          # the f32 body at head_dim 256
 ])
 def test_flash_attention_matches_pallas(S, T, D, g, kind, dtype):
     BKV = 2
@@ -127,6 +128,8 @@ def test_flash_attention_split_plan_covers_the_keys(B, S, H, T):
     plan = fa_mod.split_plan(B, S, H, T, torch.float32)
     assert plan["body"] == "fma_f32" and plan["kv_splits"] == 1
     assert plan["bm"] in (32, 64) and plan["chunk"] >= T
+    plan = fa_mod.split_plan(B, S, H, T, torch.float32, D=256)   # 16 queries a tile there
+    assert plan["bm"] == 16 and plan["kv_splits"] == 1 and plan["chunk"] >= T
 
 
 def _partials(s, v, ok, chunk, n_splits):
@@ -210,7 +213,10 @@ def test_flash_attention_refuses_softcap():
                                            (384, 1, 128, 256),
                                            (1024, 8, 64, 512),
                                            (256, 4, 256, 128),   # gemma3-1b's group
-                                           (256, 8, 256, 128)])  # gemma-2b's
+                                           (256, 8, 256, 128),   # gemma-2b's
+                                           (256, 2, 80, 128),    # head_dim 80
+                                           (128, 16, 256, 128),  # two head groups at 256
+                                           (256, 32, 64, 128)])  # two head groups of 16
 def test_flash_decode_matches_pallas(T, G, D, block_k):
     BKV = 3
     rng = np.random.default_rng(3)
@@ -307,6 +313,70 @@ def test_wrappers_refuse_other_devices():
             ops.flash_attention(q, q, q)
         with pytest.raises(ValueError):
             dec_mod.flash_decode(q, q, q, torch.ones(1, dtype=torch.int32, device="xpu"))
+
+
+# ------------------------- what the wrappers take --------------------- #
+def test_wrappers_admit_what_the_pallas_kernels_take():
+    """Each wrapper's admission (``admit``, what a CUDA tensor must be
+    before any launch; shapes and types only, so ``meta`` tensors serve)
+    takes what its Pallas kernel takes on the registry's configs and
+    beyond: every config's attention (head_dim, group) and d_state under
+    both parameter types (an f32 model keeps a bf16 cache), head_dim 80 in
+    decode, groups up to 64, d_state 1..256, bf16 stressors. What stays
+    refused names the wrapper: softcap, a head_dim outside ``HEAD_DIMS``,
+    d_state 257."""
+    from repro_torch.configs.registry import get_config, list_archs
+    from repro_torch.kernels import ssm_scan as ssm_mod
+    from repro_torch.kernels import stressors as st_mod
+
+    def t(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    lens = t((2,), torch.int64)
+
+    def attention(H, KVH, D, q_dtype, kv_dtype):
+        fa_mod.admit(t((2, 64, H, D), q_dtype), t((2, 64, KVH, D), kv_dtype),
+                     t((2, 64, KVH, D), kv_dtype), "local", 16)
+        dec_mod.admit(t((2, 1, H, D), q_dtype), t((2, 64, KVH, D), kv_dtype),
+                      t((2, 64, KVH, D), kv_dtype), lens)
+
+    def scan(N, x_dtype):
+        ssm_mod.admit(t((2, 8, 32), x_dtype), t((2, 8, 32)), t((32, N)),
+                      t((2, 8, N)), t((2, 8, N)), t((2, 32, N)), t((2, 32, N)))
+
+    seen = set()
+    for name in list_archs():
+        cfg = get_config(name)
+        a = cfg.attn
+        for param_dtype in (f32, bf16):
+            if a.n_heads:
+                for kv_dtype in {param_dtype, bf16}:
+                    attention(a.n_heads, a.n_kv_heads, a.head_dim, param_dtype, kv_dtype)
+                seen.add((a.head_dim, a.n_heads // a.n_kv_heads))
+            if cfg.family in ("ssm", "hybrid"):
+                scan(cfg.ssm.d_state, param_dtype)
+    assert {(80, 1), (256, 8), (128, 16)} <= seen       # hubert, gemma-2b, llama3-405b
+    for D in dec_mod.HEAD_DIMS:
+        for G in range(1, 65):
+            attention(G * 2, 2, D, bf16, bf16)
+    for N in range(1, 257):
+        scan(N, bf16)
+    for dtype in (f32, bf16):
+        st_mod.admit_vpu(t((512, 128), dtype), ilp=4)
+        st_mod.admit_vmem(t((1024, 128), dtype))
+
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        ops.flash_attention(*(torch.zeros(1, 4, 2, 16) for _ in range(3)), softcap=30.0)
+    for D in (48, 96, 512):
+        with pytest.raises(ValueError, match="flash_attention"):
+            fa_mod.admit(t((1, 4, 2, D)), t((1, 4, 1, D)), t((1, 4, 1, D)))
+        with pytest.raises(ValueError, match="flash_decode"):
+            dec_mod.admit(t((2, 1, 2, D)), t((2, 8, 1, D)), t((2, 8, 1, D)), lens)
+    with pytest.raises(ValueError, match="ssm_scan"):
+        scan(257, f32)
+    with pytest.raises(TypeError, match="stress_vpu"):
+        st_mod.admit_vpu(t((256, 128), torch.float16))
 
 
 # ------------------------------ the build ----------------------------- #

@@ -81,7 +81,9 @@ def falcon_scan_inputs(Bb, S, di, N, seed=0):
 # the reference kernel test's draw, and falcon-mamba's decays (seeded by S)
 # at its ragged widths and N
 SCAN_CASES = [pytest.param(scan_inputs, 0, *c, id="-".join(map(str, c))) for c in [
-    (128, 64, 8, 32, 32), (64, 128, 16, 64, 128), (96, 32, 4, 16, 32)]] + [
+    (128, 64, 8, 32, 32), (64, 128, 16, 64, 128), (96, 32, 4, 16, 32),
+    # above 16 states: the kernel's rounded instantiations (32, 64)
+    (32, 64, 20, 32, 64), (32, 32, 32, 32, 32), (16, 32, 64, 16, 32)]] + [
     pytest.param(falcon_scan_inputs, c[0], *c, id="falcon-" + "-".join(map(str, c)))
     for c in [(64, 64, 16, 32, 32), (32, 200, 16, 32, 200), (40, 130, 3, 40, 130)]]
 

@@ -77,6 +77,19 @@ def test_stress_vmem_matches_pallas(stride):
     close(st.stress_vmem(tx, iters=8, stride=stride), want, 1e-5)
 
 
+@pytest.mark.parametrize("kernel", ["stress_vpu", "stress_vmem"])
+def test_bf16_stressors_match_pallas(kernel):
+    """bf16 x: the Pallas kernels loop in f32 and cast back to x's type, as
+    the plain versions (and the CUDA kernels) do; the reference's bf16
+    tolerance, 2e-2 (a bf16 ulp is 2^-8 of a value)."""
+    jx, tx = draw(np.random.default_rng(6), (512, 128), "bfloat16")
+    kw = {"iters": 16, "ilp": 4} if kernel == "stress_vpu" else {"iters": 8, "stride": 8}
+    want = getattr(jst, kernel)(jx, **kw, interpret=True)
+    got = getattr(st, kernel)(tx, **kw)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    close(got, want, 2e-2)
+
+
 @pytest.mark.parametrize("R,stride", [(1024, 8), (256, 3), (128, 0)])
 def test_stress_vmem_keeps_the_block_semantics(R, stride):
     """Two 512-row blocks roll separately; a short matrix is one block; a
