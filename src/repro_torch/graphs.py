@@ -64,12 +64,19 @@ def launch_counts() -> Dict[str, int]:
             for name, mod in wrappers.items()}
 
 
+TAP = None
+"""Told ``before()`` and ``after()`` every captured step's replay is
+enqueued, where set: the trace of the engine that is stepping
+(``repro_torch.serve.spans.Recorder``, set by ``Engine.step``)."""
+
+
 class Step:
     """A step body over static buffers, run by calling the step: a graph
     replay when it was captured, the body itself when not. ``launches``:
     the kernels one call launches, by wrapper, as the capture counted them;
     ``capture_launches``: what the warm-up and the capture launched;
-    ``capture_s``: the seconds both took."""
+    ``capture_s``: the seconds both took. Where ``TAP`` is set, it is told
+    ``before()`` and ``after()`` each replay is enqueued."""
 
     def __init__(self, body: Callable, name: str):
         self.body = body
@@ -85,7 +92,13 @@ class Step:
         self.calls += 1
         if self.graph is None:
             return self.body()
-        self.graph.replay()
+        tap = TAP
+        if tap is None:
+            self.graph.replay()
+        else:
+            tap.before()
+            self.graph.replay()
+            tap.after()
         return self.out
 
 

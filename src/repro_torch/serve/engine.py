@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import functools
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -53,6 +53,7 @@ from repro_torch.models.layers import embed, rmsnorm, unembed
 from repro_torch.models.model import mesh_scope
 from repro_torch.models.moe import LOCAL_CTX, ParallelContext
 from repro_torch.parallel import sharding as shd
+from repro_torch.serve import spans
 from repro_torch.serve.kvcache import Sequence, SlotAllocator
 from repro_torch.tree import map_leaves
 
@@ -122,12 +123,20 @@ class EngineConfig:
     seed: int = 0
 
 
-@dataclass
+@dataclass(init=False)
 class StepEvent:
     kind: str                  # "decode" | "prefill_chunk" | "admit" |
-                               # "finish" | "degraded" | "recovered"
-    t: float
-    detail: dict = field(default_factory=dict)
+                               # "finish" | "degraded" | "recovered", or
+                               # a span's, ``spans.SPAN`` + its name
+    t: float                   # the end; an instant's only time
+    detail: dict
+    start: float               # a span's start; an instant's is t
+
+    def __init__(self, kind: str, t: float, detail: Optional[dict] = None,
+                 start: Optional[float] = None):
+        self.kind, self.t = kind, t
+        self.detail = {} if detail is None else detail
+        self.start = t if start is None else start
 
 
 class Engine:
@@ -172,6 +181,9 @@ class Engine:
         self.metrics: Dict[int, dict] = {}
         self._next_id = 0
         self.degraded = False
+        self._rec: Optional[spans.Recorder] = None     # the trace, while it is on
+        self._last_rec: Optional[spans.Recorder] = None
+        self._pool: Optional[spans.EventPool] = None
         self._build_steps()
         # the chunk pricing's solve (one scenario per candidate, 2 members)
         # is captured ahead of time where the solver runs on the card
@@ -212,6 +224,42 @@ class Engine:
                 functools.partial(extend_body, self.cfg, self.params, self.cache, b,
                                   self._extend_in.tensor, self.ctx), self.device,
                 f"extend_{b}")
+
+    # ------------------------------------------------------------ tracing
+    def trace(self, on: bool) -> None:
+        """Switch the step's spans on or off (``repro_torch.serve.spans``).
+        While off, ``step`` records only its instant events. Switching on
+        waits for the card and anchors the device's clock to the host's;
+        the engine's first trace makes its pool of timing events. While on,
+        each step makes the trace ``graphs.TAP``, so that every captured
+        step it replays, the solver's too, records device events on the
+        stream current when the trace started (the one the steps run on)
+        into the innermost open span."""
+        if on == (self._rec is not None):
+            return
+        if not on:
+            if graphs.TAP is self._rec:
+                graphs.TAP = None
+            self._rec.stop()
+            self._rec, self._last_rec = None, self._rec
+            return
+        pool, sync, stream = None, lambda: None, None
+        if self.device.type == "cuda":
+            if self._last_rec is not None:
+                self._last_rec.resolve()        # its events go back to the pool
+            if self._pool is None:
+                self._pool = spans.EventPool(lambda: torch.cuda.Event(enable_timing=True))
+            pool, sync, stream = self._pool, torch.cuda.synchronize, torch.cuda.current_stream()
+        self._rec = spans.Recorder(self.events, pool, sync, stream=stream)
+
+    def spans(self) -> List[dict]:
+        """Every span in ``events`` (``spans.export``), the device intervals
+        of the last two traces read first: this waits for the card, so call
+        it outside any timed part."""
+        for rec in (self._last_rec, self._rec):
+            if rec is not None:
+                rec.resolve()
+        return spans.export(self.events)
 
     def _decode(self, tokens, pos) -> torch.Tensor:
         """tokens (B,) or (B,1) and positions (B,), host integers -> logits
@@ -291,8 +339,13 @@ class Engine:
         cands.append(max(chunk, _MIN_CHUNK))   # the floor chunk is priced too
         decode = self._phase_profile("decode", max(n_active_decodes, 1))
         chunks = [self._phase_profile(f"prefill{c}", c) for c in cands]
+        rec = self._rec
+        if rec:
+            rec.open("solve")
         br = solve_scenarios([Scenario((decode,), (ch,)) for ch in chunks],
                              self.dev)
+        if rec:
+            rec.close()
         tbt_iso = decode.isolated_time(self.dev)
         t_chunk = np.asarray([ch.isolated_time(self.dev) for ch in chunks])
         tbt_pred = tbt_iso * br.slowdowns[:, 0] + t_chunk
@@ -309,30 +362,59 @@ class Engine:
 
     # ----------------------------- loop --------------------------- #
     def step(self) -> bool:
-        """One scheduler iteration. Returns False when idle."""
+        """One scheduler iteration. Returns False when idle. While tracing
+        is on (``trace``), each phase is also a span: ``step`` (counter
+        ``left``, the requests still in the engine), ``admit`` (``n``),
+        ``pick_chunk`` with ``solve``, ``extend`` (``c`` tokens in ``rows``),
+        ``first_token``, ``decode`` (``rows`` active of ``slots``),
+        ``sample`` and ``bookkeep``."""
         now = time.perf_counter
+        rec = self._rec
+        if rec:
+            graphs.TAP = rec
+            rec.root("step")
+            rec.open("admit")
         # 1) admit waiting sequences into free slots
         while self.waiting and self.alloc.can_admit(self.waiting[0]):
             seq = self.waiting.pop(0)
             self.alloc.admit(seq)
             self.events.append(StepEvent("admit", now(),
                                          {"seq": seq.seq_id, "slot": seq.slot}))
+        if rec:
+            rec.close(n=rec.since())
         active = list(self.alloc.active.values())
         prefilling = [s for s in active if s.pos < s.prompt_len]
         decoding = [s for s in active if s.pos >= s.prompt_len and not s.done]
         if not active:
+            if rec:
+                rec.close(left=len(self.waiting))
             return False
 
         # 2) one prefill chunk for the oldest prefilling sequence
         if prefilling:
             seq = prefilling[0]
+            if rec:
+                rec.open("pick_chunk", seq=seq.seq_id)
             chunk = self._pick_chunk(seq, len(decoding))
             tok = seq.tokens[seq.pos:seq.pos + chunk]
+            if rec:
+                rec.close()
+                rec.open("extend", seq=seq.seq_id, c=len(tok), rows=chunk_bucket(len(tok)))
             logits = self._extend(tok, seq.slot, seq.pos)
+            if rec:
+                rec.close()
             last_chunk = seq.pos + len(tok) >= seq.prompt_len
             # the host waits for the device only where it needs a value:
             # the first generated token, after the prompt's last chunk
-            nxt = self._sample(logits[:, -1])[0] if last_chunk else None
+            nxt = None
+            if last_chunk:
+                if rec:
+                    rec.open("first_token", seq=seq.seq_id)
+                    rec.before()
+                nxt = self._sample(logits[:, -1])[0]
+                if rec:
+                    rec.after()
+                    rec.close()
             self.events.append(StepEvent(
                 "prefill_chunk", now(),
                 {"seq": seq.seq_id, "chunk": len(tok),
@@ -346,24 +428,39 @@ class Engine:
         # 3) one decode step for the whole decode batch
         if decoding:
             B = self.ecfg.max_slots
+            if rec:
+                rec.open("decode", rows=len(decoding), slots=B)
             tokens = np.zeros((B, 1), np.int64)
             pos = np.full((B,), self.ecfg.max_len, np.int64)   # trash slot
             for s in decoding:
                 tokens[s.slot, 0] = s.tokens[-1]
                 pos[s.slot] = s.pos - 1   # position of the token being fed
             logits = self._decode(tokens, pos)
+            if rec:
+                rec.close()
+                rec.open("sample")
+                rec.before()
             # the sampled ids reach the host before the event is stamped, so
             # the gap between decode events measures the device's work and
             # not the enqueueing of its launches
             sampled = self._sample(logits[:, 0])
+            if rec:
+                rec.after()
+                rec.close()
             self.events.append(StepEvent("decode", now(),
                                          {"batch": len(decoding)}))
+            if rec:
+                rec.open("bookkeep")
             for s in decoding:
                 s.tokens.append(sampled[s.slot])
                 s.pos += 1
                 if s.pos - s.prompt_len >= s.max_new:
                     s.done = True
                     self._finish(s)
+            if rec:
+                rec.close()
+        if rec:
+            rec.close(left=len(self.alloc.active) + len(self.waiting))
         return True
 
     def _sample(self, logits: torch.Tensor) -> List[int]:
