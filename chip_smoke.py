@@ -8,7 +8,8 @@ its plain PyTorch version on the card, times them at the shapes their paths
 give them, and drives twenty paths, counting the kernels' launches on each:
 
   * serving: qwen3-1.7b at full width and depth through the
-    continuous-batching engine (rmsnorm, flash_attention, flash_decode),
+    continuous-batching engine (rmsnorm, flash_attention, flash_decode,
+    rope_write),
     whose decode and extend steps replay CUDA graphs captured when the
     engine is built (``repro_torch.graphs``), against the same serve on the
     steps' bodies run uncaptured;
@@ -180,6 +181,7 @@ from repro_torch.kernels import cache_share as cs_mod  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
+from repro_torch.kernels import rope_write as rw_mod  # noqa: E402
 from repro_torch.kernels import ssm_scan as ssm_mod  # noqa: E402
 from repro_torch.kernels import stressors as st_mod  # noqa: E402
 from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
@@ -187,6 +189,7 @@ from repro_torch.launch import gpu_native  # noqa: E402
 from repro_torch.launch import profile as profile_mod  # noqa: E402
 from repro_torch.launch.mesh import forget_meshes, make_mesh  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import LOCAL_CTX, ParallelContext  # noqa: E402
@@ -281,8 +284,9 @@ def sass_opcode_counts(kernel: str, opcode: str) -> dict:
 WRAPPERS = [(rms_mod, "rmsnorm"), (fa_mod, "flash_attention"),
             (dec_mod, "flash_decode"), (st_mod, "stress_mxu"),
             (st_mod, "stress_vpu"), (st_mod, "stress_hbm"), (st_mod, "stress_vmem"),
-            (cs_mod, "cache_share"), (ssm_mod, "ssm_scan")]
+            (cs_mod, "cache_share"), (ssm_mod, "ssm_scan"), (rw_mod, "rope_write")]
 SERVING = ("rmsnorm", "flash_attention", "flash_decode")
+SERVED = SERVING + ("rope_write",)      # what a serve through the engine launches
 SCAN_TOL = 1e-4                                   # the reference's, tests/test_kernels.py
 STRESSORS = ("stress_mxu", "stress_vpu", "stress_hbm", "stress_vmem")
 
@@ -299,6 +303,19 @@ def plain_versions():
     finally:
         for (mod, name), fn in zip(WRAPPERS, saved):
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def eager_prologue():
+    """Route ``rope_write`` alone to its plain version: the eager attention
+    prologue, which ``Engine(ctx=)`` runs over its DTensors. Only this
+    script does so."""
+    saved = rw_mod.rope_write
+    rw_mod.rope_write = rw_mod.rope_write_plain
+    try:
+        yield
+    finally:
+        rw_mod.rope_write = saved
 
 
 def reset_counts() -> None:
@@ -694,6 +711,111 @@ def time_flash_attention_offsets(rng, pos0, KVH=8, H=16, D=128, q_dtype=BF) -> d
             "bound_ms": b_ms, "bound_by": by}
 
 
+def rope_write_case(rng, rows, H=16, KVH=8, D=128, step="decode", qk_norm=True, dtype=BF,
+                    kind="causal", smax=2049) -> tuple:
+    """One layer's attention prologue at qwen3-1.7b's heads by default:
+    the projections' heads of ``rows`` tokens in ``dtype`` (a decode step
+    of ``rows`` slots, each at its own position, or one slot's chunk of
+    ``rows`` rows from position 512, the last 37 padding) over bf16 caches
+    of ``smax`` positions. Returns (arguments, keywords) of ``rope_write``."""
+    B, S = (rows, 1) if step == "decode" else (1, rows)
+    q, k, v = (randn(rng, (B, S, h, D), dtype) for h in (H, KVH, KVH))
+    slots = rows if step == "decode" else 8
+    ck, cv = randn(rng, (slots, smax, KVH, D), BF), randn(rng, (slots, smax, KVH, D), BF)
+    kw = {"theta": 1e6, "ring": kind == "local"}
+    if qk_norm:
+        kw.update(q_norm=1 + 0.3 * randn(rng, (D,), F32), k_norm=1 + 0.3 * randn(rng, (D,), F32))
+    if step == "decode":
+        top = 3 * smax if kind == "local" else smax - 1
+        positions = torch.from_numpy(rng.integers(0, top, (B, 1))).to(DEV)
+        return (q, k, v, ck, cv, positions, None), kw
+    off = torch.tensor([3, 512, rows - 37], device=DEV)
+    return (q, k, v, ck, cv, *attn_mod.chunk_rows(off, rows, smax)), kw
+
+
+ROPE_MAX_SHARE = 1e-3      # of the bf16 elements of q or k rows that may differ
+
+
+def hold_rope_write(label, args, kw) -> dict:
+    """``rope_write`` against its plain version on copies of the caches:
+    the lengths and the v rows equal; q and the k rows equal, or differing
+    on at most ``ROPE_MAX_SHARE`` of their elements by at most one bf16 ulp
+    of their head's largest value (the kernel sums the norm's squares in
+    another order than PyTorch's reduction, so a normed value may round
+    the other way; the rotation carries that ulp into its pair); in f32,
+    where no bf16 rounding absorbs that, any element within 1e-6 of its
+    head's largest value; every row the step does not write left as it was. The
+    padding's rows of a chunk all go to the trash row, in no set order:
+    that row is not compared. Returns the count of differing elements."""
+    q, k, v, ck, cv, positions, rows = args
+    before_k, before_v = ck.clone(), cv.clone()
+    pk, pv = ck.clone(), cv.clone()
+    q_k, len_k = rw_mod.rope_write(q, k, v, ck, cv, positions, rows, **kw)
+    q_p, len_p = rw_mod.rope_write_plain(q, k, v, pk, pv, positions, rows, **kw)
+    torch.cuda.synchronize()
+    smax = ck.shape[1]
+    written = torch.zeros(ck.shape[:2], dtype=torch.bool, device=DEV)
+    if rows is None:
+        at = positions[:, 0] % smax if kw["ring"] else positions[:, 0]
+        written[torch.arange(at.numel(), device=DEV), at] = True
+    else:
+        written.view(-1)[rows] = True
+    compare = written.clone()
+    if rows is not None:
+        compare.view(-1)[rows[-1]] = False          # the trash row
+    untouched = all(torch.equal(a[~written], b[~written])
+                    for a, b in ((ck, before_k), (cv, before_v), (pk, before_k), (pv, before_v)))
+    if not untouched or not torch.equal(cv[compare], pv[compare]) or (
+            rows is None and not torch.equal(len_k, len_p)):
+        raise AssertionError(f"{label}: rows it should not write changed, or v rows or the "
+                             "lengths differ from the plain version")
+    out = {"label": label, "max_abs_err": 0.0}
+    for name, got, want in (("q", q_k, q_p), ("cache_k", ck[compare], pk[compare])):
+        diff = (got.float() - want.float()).abs()
+        scale = want.float().abs().amax(dim=-1, keepdim=True)
+        room = scale * (2.0 ** -7 if got.dtype == BF else 1e-6)
+        n = int((diff > 0).sum())
+        out[f"differ_{name}"], out[f"elements_{name}"] = n, got.numel()
+        out["max_abs_err"] = max(out["max_abs_err"], float(diff.max()))
+        if not bool((diff <= room).all()) or (
+                got.dtype == BF and n > ROPE_MAX_SHARE * got.numel()) or (
+                n and "q_norm" not in kw):
+            raise AssertionError(f"{label}: {name} differs from the plain version on {n} of "
+                                 f"{got.numel()} elements, at most {float(diff.max())}")
+    return out
+
+
+def check_rope_write(rng) -> float:
+    """Phase 3's ``rope_write`` cases: qwen3-1.7b's decode (64 slots) and
+    extend (512 rows) shapes, llama3.1-8b's and gemma-2b's heads (no
+    qk-norm), a gemma3 ring, f32 activations."""
+    cases = [("qwen3 decode", dict(rows=64)), ("qwen3 extend", dict(rows=512, step="extend")),
+             ("llama3.1 decode", dict(rows=64, H=32, qk_norm=False)),
+             ("gemma-2b decode", dict(rows=64, H=8, KVH=1, D=256, qk_norm=False)),
+             ("gemma3 ring decode", dict(rows=32, H=4, KVH=1, D=256, kind="local", smax=512)),
+             ("qwen3 decode f32", dict(rows=64, dtype=F32))]
+    held = [hold_rope_write(f"rope_write {label}", *rope_write_case(rng, **kw))
+            for label, kw in cases]
+    emit(phase="rope_write_checked", cases=held)
+    return max(h["max_abs_err"] for h in held)
+
+
+def time_rope_write(rng, rows, step) -> dict:
+    """One layer's prologue at qwen3-1.7b's heads, ``rows`` tokens: the
+    kernel, and its plain version (the eager chain the steps replayed
+    before the kernel), each timed from a CUDA graph, beside the bytes'
+    bound (q, k and v read, q and the cache rows written; warm in the L2
+    cache, as the projections leave them) and the empty kernel."""
+    args, kw = rope_write_case(rng, rows, step=step)
+    q, k = args[:2]
+    b_ms, by = bound(2 * (q.numel() + 2 * k.numel()) * q.element_size(), 0.0, BF)
+    return {"shape": f"{step} {rows} rows H=16 KVH=8 D=128 qk-norm", "dtype": "bfloat16",
+            **time_ms(lambda i: rw_mod.rope_write(*args, **kw)),
+            "plain_ms": time_ms(lambda i: rw_mod.rope_write_plain(*args, **kw))["ms"],
+            "library_ms": None, "floor_ms": launch_floor_ms(),
+            "bound_ms": b_ms, "bound_by": by}
+
+
 def launch_floor_ms() -> float:
     """The empty kernel ``rt_empty`` through ``time_ms``: what one launch
     costs in a CUDA-graph replay, whatever the kernel does."""
@@ -852,10 +974,13 @@ def phase_kernels() -> dict:
     rng = np.random.default_rng(0)
     errs = {"rmsnorm": check_rmsnorm(rng), "flash_decode": check_flash_decode(rng),
             "flash_attention": check_flash_attention(rng),
-            "cache_share": check_cache_share(rng), "ssm_scan": check_ssm_scan(rng)}
+            "cache_share": check_cache_share(rng), "ssm_scan": check_ssm_scan(rng),
+            "rope_write": check_rope_write(rng)}
     emit(phase="kernels_checked", max_abs_err=errs,
          tolerance={"float32": TOL[F32], "bfloat16": TOL[BF], "cache_share": "bit-exact",
-                    "ssm_scan": SCAN_TOL})
+                    "ssm_scan": SCAN_TOL,
+                    "rope_write": f"equal, or one bf16 ulp at the head's scale on at most "
+                                  f"{ROPE_MAX_SHARE} of the elements (hold_rope_write)"})
     times = {
         "rmsnorm": [time_rmsnorm(rng, (1, 128, 2048)), time_rmsnorm(rng, (8, 1, 2048))],
         "flash_decode": [time_flash_decode(rng, MIXED_LENS, "B=8 H=16 KVH=8 D=128 T=1025 mixed"),
@@ -867,6 +992,7 @@ def phase_kernels() -> dict:
                                            time_flash_attention_offsets(rng, 512)],
         "cache_share": [time_cache_share(rng, 8, 2), time_cache_share(rng, 4096, 6)],
         "ssm_scan": [time_ssm_scan(rng, 4, 1024, False), time_ssm_scan(rng, 4, 1, True)],
+        "rope_write": [time_rope_write(rng, 64, "decode"), time_rope_write(rng, 512, "extend")],
     }
     emit(phase="kernel_times", times=times)
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:27"),
@@ -877,7 +1003,9 @@ def phase_kernels() -> dict:
                "cache_share": ("src/repro_torch/csrc/cache_share.cu",
                                "src/repro/kernels/cache_share.py:59"),
                "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
-                            "src/repro/kernels/ssm_scan.py:66")}
+                            "src/repro/kernels/ssm_scan.py:66"),
+               "rope_write": ("src/repro_torch/csrc/rope_write.cu",
+                              "none: the chain XLA fuses (src/repro/models/attention.py)")}
     records = {}
     for name, (source, replaces) in sources.items():
         first = times[name][0]                 # the main path's first shape
@@ -1135,9 +1263,9 @@ def phase_serve_small() -> None:
     steps = list(eng.steps.values())
     captured = at_capture(steps)
     if (not all(step.graph is not None for step in steps)
-            or counts(SERVING) != {name: captured.get(name, 0) for name in SERVING}):
-        raise AssertionError(f"small serve: a step ran uncaptured: {counts(SERVING)}")
-    used = {name: replayed(steps).get(name, 0) for name in SERVING}
+            or counts(SERVED) != {name: captured.get(name, 0) for name in SERVED}):
+        raise AssertionError(f"small serve: a step ran uncaptured: {counts(SERVED)}")
+    used = {name: replayed(steps).get(name, 0) for name in SERVED}
     if not all(used.values()):
         raise AssertionError(f"small serve skipped a kernel: {used}")
     with plain_versions(), torch.no_grad():
@@ -1208,11 +1336,11 @@ def serve_graphed(cfg, ecfg, prompts, max_new, params, ctx=LOCAL_CTX) -> tuple:
     steps = list(eng.steps.values())
     if not all(step.graph is not None for step in steps):
         raise AssertionError("serve: a step of the engine was not captured")
-    raw, captured = counts(SERVING), at_capture(steps)
-    if raw != {name: captured.get(name, 0) for name in SERVING}:
+    raw, captured = counts(SERVED), at_capture(steps)
+    if raw != {name: captured.get(name, 0) for name in SERVED}:
         raise AssertionError(f"serve: the wrappers launched {raw}, the captures {captured}")
     used = replayed(steps)
-    return eng, metrics, seconds, {name: used.get(name, 0) for name in SERVING}
+    return eng, metrics, seconds, {name: used.get(name, 0) for name in SERVED}
 
 
 def padding(eng) -> dict:
@@ -1253,6 +1381,7 @@ def phase_serve_full(records: dict) -> tuple:
             records["rmsnorm"]["launches_per_step"] = 2 * L + 1
             records["flash_attention"]["launches_per_prefill_chunk"] = L
             records["flash_decode"]["launches_per_decode_step"] = L
+            records["rope_write"]["launches_per_step"] = L
     eng = Engine(cfg, params=params, ecfg=EngineConfig(max_slots=8, max_len=1024),
                  device=DEV)
     errs, profiles, _ = step_logits_and_profiles(eng, rng)
@@ -1265,8 +1394,9 @@ def phase_serve_full(records: dict) -> tuple:
 def serve_checked(cfg, ecfg, prompts, max_new, params) -> dict:
     """One serve on the captured steps and its gates: every request's
     tokens in range, the launches those of the steps run (``2 L + 1``
-    ``rmsnorm`` a step, ``L`` ``flash_attention`` a chunk and ``L``
-    ``flash_decode`` a decode step, from captures x replays), and the same
+    ``rmsnorm`` and ``L`` ``rope_write`` a step, ``L`` ``flash_attention`` a
+    chunk and ``L`` ``flash_decode`` a decode step, from captures x
+    replays), and the same
     serve on the steps' bodies run uncaptured giving the same tokens and
     chunks with the same launches from Python. Returns the serve's record,
     its peak memory that of the captured serve."""
@@ -1281,7 +1411,8 @@ def serve_checked(cfg, ecfg, prompts, max_new, params) -> dict:
     del eng
     n_dec, n_ext = stats["decode_steps"], stats["prefill_chunks"]
     want = {"rmsnorm": (2 * L + 1) * (n_dec + n_ext),
-            "flash_attention": L * n_ext, "flash_decode": L * n_dec}
+            "flash_attention": L * n_ext, "flash_decode": L * n_dec,
+            "rope_write": L * (n_dec + n_ext)}
     mode = f"{cfg.name} {ecfg.mode}"
     if used != want or not all(used.values()):
         raise AssertionError(f"serve {mode}: launches {used}, the steps imply {want}")
@@ -1291,8 +1422,8 @@ def serve_checked(cfg, ecfg, prompts, max_new, params) -> dict:
     with uncaptured():
         eng_u, metrics_u, seconds_u = serve(cfg, ecfg, prompts, max_new, device=DEV,
                                             params=params)
-    if counts(SERVING) != want:
-        raise AssertionError(f"serve {mode} uncaptured: launches {counts(SERVING)}, "
+    if counts(SERVED) != want:
+        raise AssertionError(f"serve {mode} uncaptured: launches {counts(SERVED)}, "
                              f"the steps imply {want}")
     plain = serve_stats(eng_u, metrics_u, seconds_u, max_new)
     del eng_u
@@ -1434,7 +1565,7 @@ def routing_agreement(tally: np.ndarray, what: str) -> dict:
 
 # the first kernel each serving wrapper launches, by the name the trace gives it
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_attention_mma_kernel",
-                  "flash_decode": "decode_partial_kernel"}
+                  "flash_decode": "decode_partial_kernel", "rope_write": "rope_write_kernel"}
 
 
 # empty launches that open every profile, for the trace to drop in place of
@@ -1643,6 +1774,10 @@ def check_served_kernels(rng, cfg) -> dict:
     errs["flash_decode"] = check_attention(
         f"flash_decode {name} G {H // KVH}", dec_mod.flash_decode(q, ck[0], cv[0], lens),
         dec_mod.flash_decode_plain(q, ck[0], cv[0], lens), BF)
+    heads = dict(H=H, KVH=KVH, D=D, qk_norm=a.qk_norm, smax=1025)
+    errs["rope_write"] = max(
+        hold_rope_write(f"rope_write {name} {step}", *rope_write_case(rng, n, step=step, **heads))
+        ["max_abs_err"] for n, step in ((8, "decode"), (128, "extend")))
     return errs
 
 
@@ -1667,7 +1802,7 @@ def serve_at_full_size(cfg, key: str, label: str, records: dict, backend: str) -
     stats, solver = fleet_run(f"{label}_serve", backend,
                               lambda: serve_checked(cfg, ecfg, prompts, 32, params))
     emit(phase=f"{label}_serve", config=cfg.name, solver=solver, **stats)
-    for name in SERVING:
+    for name in SERVED:
         records[name][f"launches_{key}"] = stats["launches"][name]
     records["rmsnorm"][f"launches_{key}_per_step"] = 2 * L + 1
     if backend == "torch":
@@ -1696,6 +1831,7 @@ def serve_at_full_size(cfg, key: str, label: str, records: dict, backend: str) -
     for t, n in zip(times["rmsnorm"] + times["flash_attention"] + times["flash_decode"],
                     ((2 * L + 1) * n_ext, (2 * L + 1) * n_dec, 0, L * n_ext, L * n_dec)):
         t["launches"] = n
+    records["rope_write"][f"max_abs_err_{key}"] = kerr["rope_write"]
     emit(phase=f"{label}_kernels", max_abs_err=kerr, tolerance={"bfloat16": TOL[BF]}, times=times)
     for name in SERVING:
         records[name][f"max_abs_err_{key}"] = kerr[name]
@@ -2114,7 +2250,9 @@ def phase_sharded_engine(records: dict) -> None:
     ``tp_serve`` and its cache by ``cache_specs`` over the (1, 1) CUDA mesh
     of an NCCL world of one rank, serving ``phase_serve_full``'s 8 prompts
     (32 new tokens each) with every chunk priced on the torch solver on the
-    card, beside the same serve on the unsharded engine. Gates: the kernels
+    card, beside the same serve on the unsharded engine, captured on the
+    eager attention prologue that ``Engine(ctx=)`` runs over its DTensors
+    (``eager_prologue``). Gates: the kernels
     against their plain versions at the engine's shapes (the one-slot rows
     of the sharded extend too) before any capture; every step of both
     engines a CUDA graph, with no launch outside the captures
@@ -2134,9 +2272,10 @@ def phase_sharded_engine(records: dict) -> None:
     m, params, weights = facade_weights(cfg)
     prompts = serve_prompts(cfg, np.random.default_rng(0))
     ecfg = EngineConfig(max_slots=8, max_len=1024, prefill_chunk=128)
-    (plain, plain_metrics, plain_s, plain_used), plain_solver = fleet_run(
-        "sharded_engine_unsharded", "torch",
-        lambda: serve_graphed(cfg, ecfg, prompts, 32, params))
+    with eager_prologue():
+        (plain, plain_metrics, plain_s, plain_used), plain_solver = fleet_run(
+            "sharded_engine_unsharded", "torch",
+            lambda: serve_graphed(cfg, ecfg, prompts, 32, params))
     dtok = rng.integers(1, cfg.vocab_size, size=8)
     tok = rng.integers(1, cfg.vocab_size, size=128)
     pos = np.full(8, 1024)
@@ -2970,7 +3109,7 @@ def phase_fleet(records: dict) -> None:
 # each twin of the reference's examples and the kernels its run launches
 EXAMPLES = {"quickstart": ("cache_share",), "fleet_failover": ("cache_share",),
             "trace_serving": ("cache_share",), "calibrate_profiles": ("cache_share",),
-            "serve_colocation": SERVING + ("cache_share",),
+            "serve_colocation": SERVED + ("cache_share",),
             "profile_interference": ("cache_share",),
             "train_tiny_lm": ("rmsnorm", "flash_attention")}
 TRAIN_TWIN_STEPS = 60          # of the example's 300
@@ -3121,7 +3260,7 @@ def phase_examples(records: dict) -> None:
             out[name] = rec
     finally:
         profile_mod.RESULTS = saved
-    for name in SERVING + ("cache_share",):
+    for name in SERVED + ("cache_share",):
         records[name]["launches_examples"] = sum(r["launches"][name] for r in out.values())
     emit(phase="examples", seconds={n: r["seconds"] for n, r in out.items()},
          numpy_seconds={n: r["numpy_seconds"] for n, r in out.items() if "numpy_seconds" in r},
@@ -3333,7 +3472,8 @@ def phase_zamba2(records: dict) -> None:
     run, used, prompt, tok, cache = facade_generate(m, params, B, S, n_dec)
     norms = 2 * cfg.n_layers + 2 * g + 1          # ln and gated norm, ln1 and ln2, final
     want = {name: 0 for name in used}
-    want.update(rmsnorm=norms * (1 + n_dec), flash_attention=g, flash_decode=g * n_dec)
+    want.update(rmsnorm=norms * (1 + n_dec), flash_attention=g, flash_decode=g * n_dec,
+                rope_write=g * n_dec)
     if used != want:
         raise AssertionError(f"zamba2: launches {used}, the steps imply {want}")
     emit(phase="zamba2", **run)
@@ -3480,7 +3620,8 @@ def phase_gemma3(records: dict) -> None:
     run, used, prompt, tok, cache = facade_generate(m, params, B, S, n_dec)
     norms = 2 * L + 1                              # ln1 and ln2 of every layer, final
     want = {name: 0 for name in used}
-    want.update(rmsnorm=norms * (1 + n_dec), flash_attention=L, flash_decode=L * n_dec)
+    want.update(rmsnorm=norms * (1 + n_dec), flash_attention=L, flash_decode=L * n_dec,
+                rope_write=L * n_dec)
     if used != want:
         raise AssertionError(f"gemma3: launches {used}, the stack implies {want}")
     emit(phase="gemma3", ring_rows=a.local_window,
@@ -3567,7 +3708,8 @@ def phase_gemma3_4b(records: dict) -> None:
          n_params_by_config=cfg.n_params(), **weights)
     run, used, prompt, tok, cache = facade_generate(m, params, B, S, n_dec)
     want = {name: 0 for name in used}
-    want.update(rmsnorm=(2 * L + 1) * (1 + n_dec), flash_attention=L, flash_decode=L * n_dec)
+    want.update(rmsnorm=(2 * L + 1) * (1 + n_dec), flash_attention=L, flash_decode=L * n_dec,
+                rope_write=L * n_dec)
     if used != want:
         raise AssertionError(f"gemma3-4b: launches {used}, the stack implies {want}")
     emit(phase="gemma3_4b", ring_rows=a.local_window,
@@ -3835,7 +3977,8 @@ def phase_llama_vision(records: dict) -> None:
     run, used, prompt, tok, cache = facade_generate(m, params, B, S, n_dec, extra)
     norms = 2 * L + 1                              # ln1 / ln2, ln / ln2 of every layer, final
     want = {name: 0 for name in used}
-    want.update(rmsnorm=norms * (1 + n_dec), flash_attention=L, flash_decode=L * n_dec)
+    want.update(rmsnorm=norms * (1 + n_dec), flash_attention=L, flash_decode=L * n_dec,
+                rope_write=g * n_self * n_dec)       # the self layers' decode
     if used != want:
         raise AssertionError(f"llama_vision: launches {used}, the stack implies {want}")
     emit(phase="llama_vision", vision_tokens=cfg.n_vision_tokens,

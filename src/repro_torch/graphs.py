@@ -55,11 +55,11 @@ def _shared_pool(idx: int) -> tuple:
 def launch_counts() -> Dict[str, int]:
     """The launch counters of the kernels' wrappers, by wrapper name."""
     from repro_torch.kernels import cache_share, decode_attention, flash_attention
-    from repro_torch.kernels import rmsnorm, ssm_scan, stressors
+    from repro_torch.kernels import rmsnorm, rope_write, ssm_scan, stressors
     wrappers = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-                "flash_decode": decode_attention, "cache_share": cache_share,
-                "ssm_scan": ssm_scan, "stress_mxu": stressors, "stress_vpu": stressors,
-                "stress_hbm": stressors, "stress_vmem": stressors}
+                "flash_decode": decode_attention, "rope_write": rope_write,
+                "cache_share": cache_share, "ssm_scan": ssm_scan, "stress_mxu": stressors,
+                "stress_vpu": stressors, "stress_hbm": stressors, "stress_vmem": stressors}
     return {name: getattr(getattr(mod, name), "launches", 0)
             for name, mod in wrappers.items()}
 

@@ -31,8 +31,8 @@ import torch
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels import _mesh, ops
-from repro_torch.models.layers import (Params, _summed, dense_init, l2norm, linear,
-                                       rope_tables, rotate)
+from repro_torch.kernels import rope_write as rw
+from repro_torch.models.layers import Params, _summed, dense_init, linear, qk_norm_rope
 
 NEG_INF = -1e30
 
@@ -152,33 +152,43 @@ def _kv_linear(x: torch.Tensor, w: torch.Tensor, wq: torch.Tensor,
     return _columns(_summed(linear(x, _columns(w, dims, split=True))), dims, split=False)
 
 
+def _project(p: Params, a: AttentionConfig, x: torch.Tensor,
+             kv_x: Optional[torch.Tensor] = None,
+             kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The projections' heads: q (B, S, H, D) from x (B, S, d); k and v
+    (B, T, KVH, D) from ``kv_x`` (B, T, d_kv_in), x itself when None, or
+    ``kv``, those projections already made."""
+    kv_x = x if kv_x is None else kv_x
+    # under a mesh a projection whose contraction the ranks split (the
+    # feature-split stream of tp2d_serve) is summed before its heads are read
+    q = _heads(_summed(linear(x, p["wq"])), a.n_heads, a.head_dim)
+    if kv is not None:
+        return (q, *kv)
+    k = _heads(_summed(_kv_linear(kv_x, p["wk"], p["wq"], a)), a.n_kv_heads, a.head_dim)
+    v = _heads(_summed(_kv_linear(kv_x, p["wv"], p["wq"], a)), a.n_kv_heads, a.head_dim)
+    return q, k, v
+
+
+def _qk_norms(p: Params, a: AttentionConfig) -> dict:
+    """The qk-norm's scales as keywords, None where the model has none."""
+    return {"q_norm": p["q_norm"] if a.qk_norm else None,
+            "k_norm": p["k_norm"] if a.qk_norm else None}
+
+
 def project_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
                 kv_x: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None, rope: bool = True,
                 kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q from x (B, S, d); k and v from ``kv_x`` (B, T, d_kv_in), x itself
-    when None, or ``kv``, those projections already made (B, T, KVH, D)."""
-    kv_x = x if kv_x is None else kv_x
-    B, S, _ = x.shape
-    T = kv_x.shape[1]
-    # under a mesh a projection whose contraction the ranks split (the
-    # feature-split stream of tp2d_serve) is summed before its heads are read
-    q = _heads(_summed(linear(x, p["wq"])), a.n_heads, a.head_dim)
-    if kv is None:
-        k = _heads(_summed(_kv_linear(kv_x, p["wk"], p["wq"], a)), a.n_kv_heads, a.head_dim)
-        v = _heads(_summed(_kv_linear(kv_x, p["wv"], p["wq"], a)), a.n_kv_heads, a.head_dim)
-    else:
-        k, v = kv
-    if a.qk_norm:
-        q = l2norm(q) * p["q_norm"].to(q.dtype)
-        k = l2norm(k) * p["k_norm"].to(k.dtype)
-    if rope:
-        if positions is None:
-            positions = torch.arange(S, device=x.device)[None, :]
-        # q and k share positions and head size: one table serves both
-        cos, sin = rope_tables(positions, a.head_dim, a.rope_theta)
-        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+    when None, or ``kv``, those projections already made (B, T, KVH, D);
+    q and k normed where the model has qk-norm, and rotated at
+    ``positions`` (0.. S - 1 where None) unless ``rope`` is False."""
+    q, k, v = _project(p, a, x, kv_x, kv)
+    if rope and positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k = qk_norm_rope(q, k, positions if rope else None, a.rope_theta, **_qk_norms(p, a))
     return q, k, v
 
 
@@ -454,18 +464,13 @@ def extend_self_attention(p: Params, a: AttentionConfig, x: torch.Tensor,
     rows (x (1, C, d)), write their k/v into the cache rows ``rows`` in
     place, attend over the valid prefix of the slot. cache_{k,v}: (B_slots,
     Smax, KVH, D), a layer's cache; offsets, positions and rows as
-    ``chunk_rows`` gives them. A DTensor cache is written rank by rank
-    (``_write_chunk_sharded``) and read through the slot's rows
-    (``chunk_attention``)."""
+    ``chunk_rows`` gives them. The norm, RoPE and the writes are one
+    ``rope_write`` launch on the card. A DTensor cache takes the eager
+    chain, written rank by rank at ``offsets`` (``_write_chunk_sharded``)
+    and read through the slot's rows (``chunk_attention``)."""
     B, C = x.shape[:2]
-    q, k, v = project_qkv(p, a, x, positions=positions)
-    if _mesh.is_dtensor(cache_k):
-        _write_chunk_sharded(cache_k, k, offsets)
-        _write_chunk_sharded(cache_v, v, offsets)
-    else:
-        KVH, D = cache_k.shape[-2:]
-        cache_k.view(-1, KVH, D).index_copy_(0, rows, k[0].to(cache_k.dtype))
-        cache_v.view(-1, KVH, D).index_copy_(0, rows, v[0].to(cache_v.dtype))
+    q, _ = rw.rope_write(*_project(p, a, x), cache_k, cache_v, positions, rows,
+                         offsets=offsets, theta=a.rope_theta, **_qk_norms(p, a))
     o = chunk_attention(q, cache_k, cache_v, offsets, softcap=a.softcap)
     return linear(o.reshape(B, C, -1), p["wo"])
 
@@ -520,15 +525,13 @@ def decode_self_attention(p: Params, a: AttentionConfig, x: torch.Tensor,
     () or (B,) — absolute position of the new token. A ``"local"`` layer's
     cache is a ring of Smax rows (its window): the new row goes to slot
     ``pos % Smax``, and every warm slot is valid, so the causal decode over
-    ``min(pos + 1, Smax)`` rows is the window's attention. Returns the
-    block's output."""
+    ``min(pos + 1, Smax)`` rows is the window's attention. The norm, RoPE,
+    the writes and those lengths are one ``rope_write`` launch on the card;
+    a DTensor cache takes the eager chain, written rank by rank
+    (``write_kv``). Returns the block's output."""
     B = x.shape[0]
-    smax = cache_k.shape[1]
     pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
-    q, k, v = project_qkv(p, a, x, positions=pos[:, None])
-    slot = pos % smax if kind == "local" else pos
-    write_kv(cache_k, k, slot)
-    write_kv(cache_v, v, slot)
-    kv_len = torch.clamp(pos + 1, max=smax)
+    q, kv_len = rw.rope_write(*_project(p, a, x), cache_k, cache_v, pos[:, None],
+                              theta=a.rope_theta, ring=kind == "local", **_qk_norms(p, a))
     o = decode_attention(q, cache_k, cache_v, kv_len)
     return linear(o.reshape(B, 1, -1), p["wo"])

@@ -100,6 +100,22 @@ def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tenso
     return out.to(x.dtype)
 
 
+def qk_norm_rope(q: torch.Tensor, k: torch.Tensor, positions: Optional[torch.Tensor],
+                 theta: float, q_norm: Optional[torch.Tensor] = None,
+                 k_norm: Optional[torch.Tensor] = None):
+    """The attention prologue of q (..., S, H, D) and k (..., S, KVH, D):
+    the per-head qk-norm where its scales are given (cast to the
+    activations' type), then RoPE at ``positions`` (none where None). q and
+    k share positions and head size: one table serves both."""
+    if q_norm is not None:
+        q = l2norm(q) * q_norm.to(q.dtype)
+        k = l2norm(k) * k_norm.to(k.dtype)
+    if positions is not None:
+        cos, sin = rope_tables(positions, q.shape[-1], theta)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+    return q, k
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: (..., S, H, D); positions: broadcastable to (..., S)."""
