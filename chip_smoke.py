@@ -180,6 +180,7 @@ from repro_torch.kernels import _mesh  # noqa: E402
 from repro_torch.kernels import cache_share as cs_mod  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import moe_experts as me_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.kernels import rope_write as rw_mod  # noqa: E402
 from repro_torch.kernels import ssm_scan as ssm_mod  # noqa: E402
@@ -284,9 +285,11 @@ def sass_opcode_counts(kernel: str, opcode: str) -> dict:
 WRAPPERS = [(rms_mod, "rmsnorm"), (fa_mod, "flash_attention"),
             (dec_mod, "flash_decode"), (st_mod, "stress_mxu"),
             (st_mod, "stress_vpu"), (st_mod, "stress_hbm"), (st_mod, "stress_vmem"),
-            (cs_mod, "cache_share"), (ssm_mod, "ssm_scan"), (rw_mod, "rope_write")]
+            (cs_mod, "cache_share"), (ssm_mod, "ssm_scan"), (rw_mod, "rope_write"),
+            (me_mod, "moe_experts")]
 SERVING = ("rmsnorm", "flash_attention", "flash_decode")
-SERVED = SERVING + ("rope_write",)      # what a serve through the engine launches
+SERVED = SERVING + ("rope_write", "moe_experts")   # what a serve through the engine launches
+DENSE = SERVING + ("rope_write",)                 # what a dense model's serve launches
 SCAN_TOL = 1e-4                                   # the reference's, tests/test_kernels.py
 STRESSORS = ("stress_mxu", "stress_vpu", "stress_hbm", "stress_vmem")
 
@@ -816,6 +819,65 @@ def time_rope_write(rng, rows, step) -> dict:
             "bound_ms": b_ms, "bound_by": by}
 
 
+def moe_experts_case(rng, rows: int, E: int = 16, k: int = 2, d: int = 4096, f: int = 6400):
+    """Phi-3.5-MoE's expert layer for ``rows`` tokens at a capacity that
+    drops nothing (cap = rows): the kept counts of a top-k routing of
+    seeded router logits, the (E, cap, d) buffer with the dispatch's zeros
+    past each count, and the experts' weights (1 / sqrt(fan-in))."""
+    top = np.argsort(-rng.standard_normal((rows, E)), axis=1)[:, :k]
+    counts = np.bincount(top.ravel(), minlength=E)
+    x = randn(rng, (E, rows, d), BF)
+    count = torch.from_numpy(counts.astype(np.int32)).to(DEV)
+    x = torch.where(torch.arange(rows, device=DEV)[None, :, None] < count[:, None, None], x, 0)
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(1 << 31)))
+    w = [(torch.randn(shape, generator=gen, device=DEV) * fan ** -0.5).to(BF)
+         for shape, fan in (((E, d, f), d), ((E, d, f), d), ((E, f, d), f))]
+    return (x, count, *w)
+
+
+def check_moe_experts(rng) -> float:
+    """``moe_experts`` against its plain version (three bmm over the whole
+    buffer) on each expert's kept rows, at Phi-3.5-MoE's 64-row decode
+    (cap 64) and a 512-row chunk (cap 512), silu, and gelu at the decode."""
+    worst = 0.0
+    for rows, act in ((64, "silu"), (512, "silu"), (64, "gelu")):
+        args = moe_experts_case(rng, rows)
+        count = args[1]
+        keep = torch.arange(rows, device=DEV)[None, :] < count[:, None].long()
+        got = me_mod.moe_experts(*args, act)[keep]
+        want = me_mod.moe_experts_plain(*args, act)[keep]
+        worst = max(worst, check_close(f"moe_experts {rows} rows {act}", got, want, BF))
+        del args, got, want
+    return worst
+
+
+def time_moe_experts(rng, rows: int) -> dict:
+    """One layer's experts of Phi-3.5-MoE for ``rows`` tokens (cap = rows):
+    the kernel, its plain version, the library's three ``torch.bmm`` over
+    the capacity buffer, beside the bound: every hit expert's three
+    matrices read once, the kept rows' inputs, intermediate and outputs,
+    and 6 d f operations a kept row."""
+    x, count, wg, wu, wd = args = moe_experts_case(rng, rows)
+    E, cap, d = x.shape
+    f = wg.shape[2]
+    n = int(count.sum())
+    hit = int((count > 0).sum())
+    b_ms, by = bound(2 * (3 * hit * d * f + n * (2 * d + f)), 6.0 * n * d * f, BF)
+    h = torch.randn(E, cap, f, device=DEV, dtype=BF)
+
+    def library(i):
+        torch.bmm(x, wg)
+        torch.bmm(x, wu)
+        torch.bmm(h, wd)
+    return {"shape": f"{rows} rows, cap {cap}, E=16 top-2 d=4096 f=6400, kept {n}, "
+                     f"experts hit {hit}", "dtype": "bfloat16",
+            **time_ms(lambda i: me_mod.moe_experts(*args), iters=10, reps=5),
+            "plain_ms": time_ms(lambda i: me_mod.moe_experts_plain(*args), iters=10,
+                                reps=5)["ms"],
+            "library_ms": time_ms(library, iters=10, reps=5)["ms"],
+            "floor_ms": launch_floor_ms(), "bound_ms": b_ms, "bound_by": by}
+
+
 def launch_floor_ms() -> float:
     """The empty kernel ``rt_empty`` through ``time_ms``: what one launch
     costs in a CUDA-graph replay, whatever the kernel does."""
@@ -975,7 +1037,7 @@ def phase_kernels() -> dict:
     errs = {"rmsnorm": check_rmsnorm(rng), "flash_decode": check_flash_decode(rng),
             "flash_attention": check_flash_attention(rng),
             "cache_share": check_cache_share(rng), "ssm_scan": check_ssm_scan(rng),
-            "rope_write": check_rope_write(rng)}
+            "rope_write": check_rope_write(rng), "moe_experts": check_moe_experts(rng)}
     emit(phase="kernels_checked", max_abs_err=errs,
          tolerance={"float32": TOL[F32], "bfloat16": TOL[BF], "cache_share": "bit-exact",
                     "ssm_scan": SCAN_TOL,
@@ -993,6 +1055,7 @@ def phase_kernels() -> dict:
         "cache_share": [time_cache_share(rng, 8, 2), time_cache_share(rng, 4096, 6)],
         "ssm_scan": [time_ssm_scan(rng, 4, 1024, False), time_ssm_scan(rng, 4, 1, True)],
         "rope_write": [time_rope_write(rng, 64, "decode"), time_rope_write(rng, 512, "extend")],
+        "moe_experts": [time_moe_experts(rng, 64), time_moe_experts(rng, 512)],
     }
     emit(phase="kernel_times", times=times)
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:27"),
@@ -1005,7 +1068,10 @@ def phase_kernels() -> dict:
                "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                             "src/repro/kernels/ssm_scan.py:66"),
                "rope_write": ("src/repro_torch/csrc/rope_write.cu",
-                              "none: the chain XLA fuses (src/repro/models/attention.py)")}
+                              "none: the chain XLA fuses (src/repro/models/attention.py)"),
+               "moe_experts": ("src/repro_torch/csrc/moe_experts.cu",
+                               "none: the batched expert products XLA runs "
+                               "(src/repro/models/moe.py)")}
     records = {}
     for name, (source, replaces) in sources.items():
         first = times[name][0]                 # the main path's first shape
@@ -1266,8 +1332,8 @@ def phase_serve_small() -> None:
             or counts(SERVED) != {name: captured.get(name, 0) for name in SERVED}):
         raise AssertionError(f"small serve: a step ran uncaptured: {counts(SERVED)}")
     used = {name: replayed(steps).get(name, 0) for name in SERVED}
-    if not all(used.values()):
-        raise AssertionError(f"small serve skipped a kernel: {used}")
+    if not all(used[name] for name in DENSE) or used["moe_experts"]:
+        raise AssertionError(f"small serve skipped a kernel or ran an expert one: {used}")
     with plain_versions(), torch.no_grad():
         for i, prompt in zip(ids, prompts):
             toks = list(prompt)
@@ -1394,7 +1460,8 @@ def phase_serve_full(records: dict) -> tuple:
 def serve_checked(cfg, ecfg, prompts, max_new, params) -> dict:
     """One serve on the captured steps and its gates: every request's
     tokens in range, the launches those of the steps run (``2 L + 1``
-    ``rmsnorm`` and ``L`` ``rope_write`` a step, ``L`` ``flash_attention`` a
+    ``rmsnorm`` and ``L`` ``rope_write`` a step, ``L`` ``moe_experts`` a step
+    of a moe model and none of a dense one, ``L`` ``flash_attention`` a
     chunk and ``L`` ``flash_decode`` a decode step, from captures x
     replays), and the same
     serve on the steps' bodies run uncaptured giving the same tokens and
@@ -1407,14 +1474,16 @@ def serve_checked(cfg, ecfg, prompts, max_new, params) -> dict:
     stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     stats["launches"] = used
     stats["capture_s"] = sum(step.capture_s for step in eng.steps.values())
+    stats["decode_step_launches"] = dict(eng.steps["decode"].launches)
     stats.update(padding(eng))
     del eng
     n_dec, n_ext = stats["decode_steps"], stats["prefill_chunks"]
     want = {"rmsnorm": (2 * L + 1) * (n_dec + n_ext),
             "flash_attention": L * n_ext, "flash_decode": L * n_dec,
-            "rope_write": L * (n_dec + n_ext)}
+            "rope_write": L * (n_dec + n_ext),
+            "moe_experts": L * (n_dec + n_ext) if cfg.family == "moe" else 0}
     mode = f"{cfg.name} {ecfg.mode}"
-    if used != want or not all(used.values()):
+    if used != want or not all(used[name] for name in DENSE):
         raise AssertionError(f"serve {mode}: launches {used}, the steps imply {want}")
     # the same serve on the steps' bodies, uncaptured: the same tokens
     # and chunks, each kernel launched from Python once a call
@@ -1565,7 +1634,8 @@ def routing_agreement(tally: np.ndarray, what: str) -> dict:
 
 # the first kernel each serving wrapper launches, by the name the trace gives it
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_attention_mma_kernel",
-                  "flash_decode": "decode_partial_kernel", "rope_write": "rope_write_kernel"}
+                  "flash_decode": "decode_partial_kernel", "rope_write": "rope_write_kernel",
+                  "moe_experts": "moe_experts_gate_up_kernel"}
 
 
 # empty launches that open every profile, for the trace to drop in place of
@@ -3109,7 +3179,7 @@ def phase_fleet(records: dict) -> None:
 # each twin of the reference's examples and the kernels its run launches
 EXAMPLES = {"quickstart": ("cache_share",), "fleet_failover": ("cache_share",),
             "trace_serving": ("cache_share",), "calibrate_profiles": ("cache_share",),
-            "serve_colocation": SERVED + ("cache_share",),
+            "serve_colocation": DENSE + ("cache_share",),
             "profile_interference": ("cache_share",),
             "train_tiny_lm": ("rmsnorm", "flash_attention")}
 TRAIN_TWIN_STEPS = 60          # of the example's 300
@@ -3858,9 +3928,11 @@ def phase_moonshot(records: dict) -> None:
                           prompts, 32, params)
     stats["capacity_decode"] = moe_mod.capacity(8, cfg)
     emit(phase="moonshot_serve", config=cfg.name, **stats)
-    for name in SERVING:
+    for name in SERVING + ("moe_experts",):
         records[name]["launches_moonshot"] = stats["launches"][name]
     records["rmsnorm"]["launches_moonshot_per_step"] = 2 * L + 1
+    records["moe_experts"]["launches_moonshot_per_step"] = (
+        stats["decode_step_launches"]["moe_experts"])
     eng = Engine(cfg, params=params, ecfg=EngineConfig(max_slots=8, max_len=1024), device=DEV)
     decode, chunk = eng._phase_profile("decode", 8), eng._phase_profile("prefill128", 128)
     emit(phase="moonshot_price", device_model=eng.dev.name,

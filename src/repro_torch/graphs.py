@@ -55,9 +55,10 @@ def _shared_pool(idx: int) -> tuple:
 def launch_counts() -> Dict[str, int]:
     """The launch counters of the kernels' wrappers, by wrapper name."""
     from repro_torch.kernels import cache_share, decode_attention, flash_attention
-    from repro_torch.kernels import rmsnorm, rope_write, ssm_scan, stressors
+    from repro_torch.kernels import moe_experts, rmsnorm, rope_write, ssm_scan, stressors
     wrappers = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
                 "flash_decode": decode_attention, "rope_write": rope_write,
+                "moe_experts": moe_experts,
                 "cache_share": cache_share, "ssm_scan": ssm_scan, "stress_mxu": stressors,
                 "stress_vpu": stressors, "stress_hbm": stressors, "stress_vmem": stressors}
     return {name: getattr(getattr(mod, name), "launches", 0)

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "rt_cache_share": [_P, _P, _D, _P, _I, _I, _P],
     "rt_ssm_scan": [_P] * 8 + [_I] * 5 + [_P],
     "rt_rope_write": [_P] * 12 + [_I] * 6 + [_L] * 15 + [_F] + [_I] * 5 + [_P],
+    "rt_moe_experts": [_P] * 7 + [_I] * 4 + [_L] * 10 + [_I] + [_P],
     "rt_empty": [_P],
 }
 

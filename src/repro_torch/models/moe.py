@@ -5,8 +5,10 @@ Each token is routed to its top-k experts by an f32 router. The (token,
 expert) assignments are sorted by expert with a stable sort, as
 ``jnp.argsort`` sorts; each expert keeps its first ``cap`` tokens in a
 capacity buffer ``(E, cap, d)`` with one trash row beyond it for the
-dropped ones; the expert FFNs run as three batched products over the
-buffer; and each token sums its kept contributions, weighted by its gates.
+dropped ones; the expert FFNs run over each expert's kept rows of the
+buffer (``kernels/moe_experts.py``: a CUDA kernel on the card, three
+batched products over every row on the CPU); and each token sums its kept
+contributions, weighted by its gates.
 
 Two entry points share that math, as in the reference:
   ``moe_ffn_local``  — single-device path (E_local = E);
@@ -35,6 +37,7 @@ layout by the inverse of the sort and added in that same fixed order.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import NamedTuple, Optional, Tuple
@@ -43,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import _mesh
+from repro_torch.kernels import _mesh, moe_experts
 from repro_torch.models.layers import Params, _normal, dense_init, mlp
 
 
@@ -114,6 +117,27 @@ def capacity_table(n_rows: int, cfg: ModelConfig, device: torch.device) -> torch
 # --------------------------------------------------------------------- #
 #  Routing, dispatch, expert products, combine                           #
 # --------------------------------------------------------------------- #
+LOADS: Optional[list] = None
+"""Where set (``loads_kept``), each dispatch appends its experts' routed and
+kept row counts, a pair of (E,) tensors on the device."""
+
+
+@contextlib.contextmanager
+def loads_kept():
+    """A list that receives each dispatch's ``(routed, kept)`` while the
+    block runs: per expert, the rows routed to it (a padded chunk's padding
+    goes to none; a decode step's idle slots, which take capacity, do) and
+    the first ``cap`` of them, which it keeps. They are the
+    dispatch's own tensors, so inside a CUDA graph's capture the list holds
+    the graph's buffers, which each replay rewrites, at no cost to it."""
+    global LOADS
+    saved, LOADS = LOADS, []
+    try:
+        yield LOADS
+    finally:
+        LOADS = saved
+
+
 def _route(router: torch.Tensor, x_flat: torch.Tensor, cfg: ModelConfig
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x_flat (T, d) -> gates (T, k) f32 renormalised over the top k, ids
@@ -139,10 +163,11 @@ def _dispatch_compute_combine(x_flat, gates, ids, wg, wu, wd, cap: int,
     """x_flat (T, d); gates / ids (T, k); expert weights (E, d, f) and (E,
     f, d). Returns (T, d): each token's kept contributions, gate-weighted.
 
-    ``cap`` sizes the buffer. Where only the first ``n_real`` rows are
-    tokens (a chunk padded to its bucket; ``n_real`` a (1,) tensor on the
-    device), the other rows' assignments go to the drop bucket, and an
-    expert keeps ``cap_real`` <= ``cap`` tokens, the capacity of
+    ``cap`` sizes the buffer; the expert products run over each expert's
+    kept rows (``kernels/moe_experts.py``). Where only the first ``n_real``
+    rows are tokens (a chunk padded to its bucket; ``n_real`` a (1,) tensor
+    on the device), the other rows' assignments go to the drop bucket, and
+    an expert keeps ``cap_real`` <= ``cap`` tokens, the capacity of
     ``n_real``: what the reference's dispatch of exactly ``n_real`` tokens
     keeps."""
     T, d = x_flat.shape
@@ -163,14 +188,21 @@ def _dispatch_compute_combine(x_flat, gates, ids, wg, wu, wd, cap: int,
     # the dropped rows all write zeros to the trash row E * cap
     buf = x_flat.new_zeros((E * cap + 1, d))
     buf.index_copy_(0, slot, torch.where(keep[:, None], x_flat.index_select(0, tok), 0))
-    h_in = buf[:-1].view(E, cap, d)
-    g = torch.bmm(h_in, wg)
-    u = torch.bmm(h_in, wu)
-    h = (F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")) * u
-    out_e = torch.bmm(h, wd).view(E * cap, d)
-    contrib = out_e.index_select(0, torch.where(keep, slot, E * cap - 1))
+    # each expert's kept rows, on the device: the expert products compute
+    # only those (``kernels/moe_experts.py``; on the CPU all cap rows)
+    routed = starts[1:] - starts[:-1]
+    count = torch.clamp(routed, max=cap) if cap_real is None else torch.minimum(routed, cap_real)
+    if LOADS is not None:
+        LOADS.append((routed, count))
+    out_e = moe_experts.moe_experts(buf[:-1].view(E, cap, d), count.to(torch.int32),
+                                    wg, wu, wd, act).view(E * cap, d)
+    # a dropped assignment reads a row the kernel left unwritten: masked
+    # before the gate multiplies it, so neither its value nor the gate's
+    # gradient (0 x that row) can carry a NaN
+    contrib = torch.where(keep[:, None],
+                          out_e.index_select(0, torch.where(keep, slot, E * cap - 1)), 0)
     gate = gates.reshape(-1).index_select(0, order)[:, None].to(contrib.dtype)
-    return _combine(torch.where(keep[:, None], contrib * gate, 0), order, ids)
+    return _combine(contrib * gate, order, ids)
 
 
 def _combine(contrib: torch.Tensor, order: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,12 @@ run, on a CUDA device, on the RMSNorm, flash-decode and flash-attention
 kernels. The extend step routes only the chunk's real rows through the
 MoE, with the capacity of the chunk's length (``moe.moe_ffn_local``); the
 decode step routes every slot of its static batch, idle ones too, with the
-capacity of ``max_slots`` tokens, as the reference's does. As the reference
+capacity of ``max_slots`` tokens, as the reference's does. Under a capacity
+that drops tokens, idle rows then take capacity that live rows would have
+had, so a live row's output can depend on the others. Under one that drops
+nothing (``capacity_factor`` >= n_experts / top_k: every expert may keep all
+``max_slots`` rows) no row is dropped, and each live row's output is its own
+whatever the other rows, idle ones included, hold. As the reference
 jits them, the port captures them (``repro_torch.graphs``): on a CUDA
 device the decode step and one extend step for each chunk bucket are CUDA
 graphs over static buffers, captured when the engine is built and replayed
@@ -46,7 +51,7 @@ from repro_torch.core import (H100, DeviceModel, KernelProfile, Scenario,
                               solve_scenarios, warmup_solver)
 from repro_torch.core.resources import RESOURCE_AXES
 from repro_torch.kernels import _mesh
-from repro_torch.models import build_model
+from repro_torch.models import build_model, moe
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import _shard, _sharded, unshard_data
 from repro_torch.models.layers import embed, rmsnorm, unembed
@@ -110,6 +115,18 @@ def extend_body(cfg: ModelConfig, params, cache, bucket: int,
         x = _mesh.whole(x)                  # the chunk's rows, whole on every rank
         x = rmsnorm(params["final_ln"], x.index_select(1, offsets[2:] - 1), cfg.norm_eps)
         return _mesh.whole(unembed(unshard_data(params["embed"], ctx), x))
+
+
+def _keep_loads(loads: dict, key, body):
+    """``body`` that leaves its moe layers' routed and kept rows per expert
+    in ``loads[key]`` (``moe.loads_kept``): on the card, the captured
+    graph's buffers, which every replay rewrites."""
+    def run():
+        with moe.loads_kept() as kept:
+            out = body()
+        loads[key] = kept
+        return out
+    return run
 
 
 @dataclass
@@ -209,21 +226,25 @@ class Engine:
         each is captured here, before any request is admitted; the warm-up
         before each capture writes only the trash position."""
         B, n = self.ecfg.max_slots, self.ecfg.max_len
+        # a moe step keeps its dispatches' loads (``moe.loads_kept``): the
+        # trace's counters read them after a replay
+        self._loads: Dict[object, list] = {}
+        keep = (functools.partial(_keep_loads, self._loads) if self.cfg.family == "moe"
+                else lambda key, body: body)
         self._decode_in = graphs.StaticInput(2 * B, torch.int64, self.device)
         self._decode_in.write(np.r_[np.zeros(B, np.int64), np.full(B, n, np.int64)])
-        self.steps = {"decode": graphs.capture(
-            functools.partial(decode_body, self.model, self.params, self.cache,
-                              self._decode_in.tensor, self.ctx), self.device, "decode")}
+        self.steps = {"decode": graphs.capture(keep("decode", functools.partial(
+            decode_body, self.model, self.params, self.cache, self._decode_in.tensor,
+            self.ctx)), self.device, "decode")}
         buckets = [chunk_bucket(n)]
         while buckets[0] > _MIN_CHUNK:
             buckets.insert(0, buckets[0] // 2)
         self._extend_in = graphs.StaticInput(3 + buckets[-1], torch.int64, self.device)
         self._extend_in.write([0, n, 1])             # one token at the trash position
         for b in buckets:
-            self.steps[b] = graphs.capture(
-                functools.partial(extend_body, self.cfg, self.params, self.cache, b,
-                                  self._extend_in.tensor, self.ctx), self.device,
-                f"extend_{b}")
+            self.steps[b] = graphs.capture(keep(b, functools.partial(
+                extend_body, self.cfg, self.params, self.cache, b, self._extend_in.tensor,
+                self.ctx)), self.device, f"extend_{b}")
 
     # ------------------------------------------------------------ tracing
     def trace(self, on: bool) -> None:
@@ -367,7 +388,9 @@ class Engine:
         ``left``, the requests still in the engine), ``admit`` (``n``),
         ``pick_chunk`` with ``solve``, ``extend`` (``c`` tokens in ``rows``),
         ``first_token``, ``decode`` (``rows`` active of ``slots``),
-        ``sample`` and ``bookkeep``."""
+        ``sample`` and ``bookkeep``. A moe engine's ``extend`` and ``decode``
+        also carry ``moe_assigned``, ``moe_dropped`` and ``moe_max_load``
+        (``_moe_counters``), read from the card when the trace resolves."""
         now = time.perf_counter
         rec = self._rec
         if rec:
@@ -402,6 +425,7 @@ class Engine:
                 rec.open("extend", seq=seq.seq_id, c=len(tok), rows=chunk_bucket(len(tok)))
             logits = self._extend(tok, seq.slot, seq.pos)
             if rec:
+                self._moe_counters(rec, chunk_bucket(len(tok)))
                 rec.close()
             last_chunk = seq.pos + len(tok) >= seq.prompt_len
             # the host waits for the device only where it needs a value:
@@ -437,6 +461,7 @@ class Engine:
                 pos[s.slot] = s.pos - 1   # position of the token being fed
             logits = self._decode(tokens, pos)
             if rec:
+                self._moe_counters(rec, "decode")
                 rec.close()
                 rec.open("sample")
                 rec.before()
@@ -462,6 +487,27 @@ class Engine:
         if rec:
             rec.close(left=len(self.alloc.active) + len(self.waiting))
         return True
+
+    def _moe_counters(self, rec, key) -> None:
+        """The moe counters of the step ``key`` just run, on the open span,
+        summed over its layers' dispatches (``moe.loads_kept``):
+        ``moe_assigned``, the (row, expert) pairs routed, of the chunk's
+        tokens in an extend and of every slot in a decode step, idle ones
+        included, since they take capacity; ``moe_dropped``, those past an
+        expert's capacity; ``moe_max_load``, the most rows an expert was
+        routed in a layer. The loads are copied on the device before the
+        next replay rewrites them, and read when the trace resolves."""
+        loads = self._loads.get(key)
+        if not loads:
+            return
+        held = torch.stack([torch.stack(pair) for pair in loads])     # (L, 2, E)
+
+        def counters():
+            routed, kept = held.cpu().unbind(1)
+            assigned = int(routed.sum())
+            return {"moe_assigned": assigned, "moe_dropped": assigned - int(kept.sum()),
+                    "moe_max_load": int(routed.max())}
+        rec.later(counters)
 
     def _sample(self, logits: torch.Tensor) -> List[int]:
         """logits (n, V) f32 on the device -> n token ids on the host.

@@ -73,6 +73,7 @@ class Recorder:
         self.stream = stream
         self.open_: List[tuple] = []        # (index in events, record), innermost last
         self.pending: list = []             # records whose device events are unread
+        self.deferred: list = []            # (record, counters read from the device)
         self.anchor = self.closing = None
         if pool is not None:
             pool.used = 0
@@ -132,6 +133,19 @@ class Recorder:
                 pair[1] = self.pool.take()
             pair[1].record(self.stream)
 
+    def later(self, counters: Callable[[], dict]) -> None:
+        """Counters of the innermost open span that read what the device
+        computed: ``counters()`` returns them. On the CPU it runs now; on
+        the card at ``resolve``, once the card has run the work (the step
+        never waits for it)."""
+        if not self.open_:
+            return
+        rec = self.open_[-1][1]
+        if self.pool is None:
+            rec.detail.update(counters())
+        else:
+            self.deferred.append((rec, counters))
+
     def stop(self) -> None:
         """The closing anchor (the trace stops; no span opens after it)."""
         if self.pool is not None:
@@ -148,7 +162,13 @@ class Recorder:
 
     def resolve(self) -> None:
         """Put each pending span's device interval, ``(start, end)`` on the
-        host clock, into its ``detail["device"]``. Waits for the card."""
+        host clock, into its ``detail["device"]``, and its deferred counters
+        (``later``) into its detail. Waits for the card."""
+        if self.deferred:
+            self.sync()
+            for rec, counters in self.deferred:
+                rec.detail.update(counters())
+            self.deferred = []
         if not self.pending:
             return
         scale = self.scale()

@@ -401,7 +401,7 @@ def test_ctypes_signatures_match_the_c_prototypes():
                 types.append(kinds[t.replace(" *", "*")])
             found[name] = types
     assert found == _build._SIGNATURES
-    assert len(_build.sources()) == 8
+    assert len(_build.sources()) == 9
 
 
 def test_library_is_keyed_by_its_sources(tmp_path, monkeypatch):
