@@ -24,7 +24,8 @@ here one solve of each (bucket, K, DeviceModel) is a step
 (``repro_torch.graphs``): its seven inputs packed into one static f64
 buffer, its five outputs into one, the device model's capacities baked in.
 On a CUDA device the step is captured into a CUDA graph at its first use
-(or by ``warmup``) and replayed; on the CPU the same body runs directly.
+(or by ``warmup``), in a pool apart from the serving steps' (a solve may
+replay beside them), and replayed; on the CPU the same body runs directly.
 """
 from __future__ import annotations
 
@@ -235,7 +236,8 @@ def _step(S: int, K: int, dev: DeviceModel, device: torch.device) -> tuple:
             torch.from_numpy(dev.capacity_vector()).to(device),
             float(dev.cache_capacity), float(dev.n_slots),
             torch.from_numpy(_PER_SLOT_MASK).to(device))
-        _steps[key] = (inp, graphs.capture(body, device, f"solve_{S}x{K}_{dev.name}"))
+        _steps[key] = (inp, graphs.capture(body, device, f"solve_{S}x{K}_{dev.name}",
+                                           graphs.SOLVER))
     return _steps[key]
 
 

@@ -6,15 +6,19 @@ the batched solver (``src/repro/core/estimator_jax.py:215``). Here a step is
 a body over static buffers. On a CUDA device ``capture`` runs it once on a
 side stream (the warm-up: kernels built, library code loaded, scratch
 allocated), captures it into a ``torch.cuda.CUDAGraph`` in a memory pool
-that the device's live graphs share, and every call replays the graph:
-the host enqueues one graph where it enqueued a launch for every kernel. On
-the CPU the same body runs directly on every call, so the CPU tests run
-what the card replays. A capture that fails raises; nothing falls back to
+that the device's live graphs of its group share, and every call replays
+the graph: the host enqueues one graph where it enqueued a launch for
+every kernel. On the CPU the same body runs directly on every call, so the
+CPU tests run what the card replays. A capture that fails raises; nothing falls back to
 running the body eagerly on the card.
 
 A step writes its outputs into the same buffers on every replay, and graphs
-that share the pool may reuse each other's scratch memory: read a step's
-outputs before the next call of any step.
+that share a pool may reuse each other's scratch memory: read a step's
+outputs (on the host, or by work enqueued after it on its stream) before
+the next call of any step of its pool. Graphs that may replay at the same
+time on two streams belong to two pools: the serving steps to ``STEPS``,
+the solver's to ``SOLVER`` (the engine prices a chunk beside a decode
+replay in flight).
 
 The kernels' wrappers count their launches when they are called: for a
 captured step, at the warm-up and at the capture, never at a replay. A
@@ -32,23 +36,25 @@ import numpy as np
 import torch
 
 WARMUPS = 1          # runs of a body on a side stream before its capture
+STEPS, SOLVER = "steps", "solver"     # the groups of graphs that share a pool
 
-# CUDA device index -> (the graph pool its graphs share, those graphs)
-_pools: Dict[int, tuple] = {}
+# (CUDA device index, group) -> (the graph pool its graphs share, those graphs)
+_pools: Dict[tuple, tuple] = {}
 
 
-def _shared_pool(idx: int) -> tuple:
-    """The pool that new graphs on device ``idx`` share, and the set of
-    the graphs in it. PyTorch releases a pool with the last graph captured
-    into it, and a released pool takes no further capture (the caching
-    allocator asserts), so once every graph of the pool has been dropped
-    (an engine freed before the next is built) a new pool takes its place;
+def _shared_pool(idx: int, group: str = STEPS) -> tuple:
+    """The pool that new graphs of ``group`` on device ``idx`` share, and
+    the set of the graphs in it. PyTorch releases a pool with the last
+    graph captured into it, and a released pool takes no further capture
+    (the caching allocator asserts), so once every graph of the pool has
+    been dropped (an engine freed before the next is built) a new pool
+    takes its place;
     the old one's memory goes back to the card at the allocator's next
     release of cached blocks."""
-    pool, graphs = _pools.get(idx, (None, None))
+    pool, graphs = _pools.get((idx, group), (None, None))
     if not graphs:
         pool, graphs = torch.cuda.graph_pool_handle(), weakref.WeakSet()
-        _pools[idx] = (pool, graphs)
+        _pools[idx, group] = (pool, graphs)
     return pool, graphs
 
 
@@ -107,11 +113,12 @@ def _delta(after: dict, before: dict) -> dict:
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
-def capture(body: Callable, device, name: str) -> Step:
-    """``body`` as a step on ``device``: captured into a CUDA graph on a
-    CUDA device (after ``WARMUPS`` runs on a side stream), run directly on
-    the CPU. The body must read its inputs from static buffers and do no
-    host synchronisation; whatever it returns is the step's output."""
+def capture(body: Callable, device, name: str, group: str = STEPS) -> Step:
+    """``body`` as a step on ``device``: captured into a CUDA graph in the
+    pool of ``group`` on a CUDA device (after ``WARMUPS`` runs on a side
+    stream), run directly on the CPU. The body must read its inputs from
+    static buffers and do no host synchronisation; whatever it returns is
+    the step's output."""
     device = torch.device(device)
     step = Step(body, name)
     if device.type == "cpu":
@@ -128,7 +135,7 @@ def capture(body: Callable, device, name: str) -> Step:
                 body()
         torch.cuda.current_stream().wait_stream(side)
         warm = launch_counts()
-        pool, pooled = _shared_pool(torch.cuda.current_device())
+        pool, pooled = _shared_pool(torch.cuda.current_device(), group)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=pool):
             out = body()
@@ -143,28 +150,30 @@ def capture(body: Callable, device, name: str) -> Step:
 
 class StaticInput:
     """A device buffer that a step reads, written from the host before each
-    call. On the card the values go through a pinned staging tensor and an
-    asynchronous copy; the staging tensor is rewritten only once the last
-    copy out of it has run, so a host that runs ahead of the card never
-    changes what a queued copy reads. On the CPU the buffer is written
-    directly."""
+    call. On the card the values go through one of two pinned staging
+    tensors, in turn, and an asynchronous copy; a staging tensor is
+    rewritten only once the copy out of it two writes back has run, so a
+    host that runs ahead of the card never changes what a queued copy reads
+    and seldom waits. On the CPU the buffer is written directly."""
 
     def __init__(self, n: int, dtype: torch.dtype, device):
         device = torch.device(device)
         self.tensor = torch.zeros(n, dtype=dtype, device=device)
-        self._host = self._copied = None
+        self._host, self._copied, self._turn = [], [], 0
         if device.type == "cuda":
-            self._host = torch.zeros(n, dtype=dtype, pin_memory=True)
-            self._copied = torch.cuda.Event()
+            self._host = [torch.zeros(n, dtype=dtype, pin_memory=True) for _ in range(2)]
+            self._copied = [torch.cuda.Event() for _ in range(2)]
 
-    def write(self, values: np.ndarray) -> None:
-        """The first ``values.size`` elements of the buffer become ``values``."""
+    def write(self, values: np.ndarray, at: int = 0) -> None:
+        """Elements ``at`` to ``at + values.size`` of the buffer become ``values``."""
         values = np.asarray(values).reshape(-1)
-        n = values.size
-        if self._host is None:
-            self.tensor[:n].copy_(torch.from_numpy(values))
+        end = at + values.size
+        if not self._host:
+            self.tensor[at:end].copy_(torch.from_numpy(values))
             return
-        self._copied.synchronize()
-        self._host[:n].numpy()[...] = values
-        self.tensor[:n].copy_(self._host[:n], non_blocking=True)
-        self._copied.record()
+        host, copied = self._host[self._turn], self._copied[self._turn]
+        self._turn ^= 1
+        copied.synchronize()
+        host[at:end].numpy()[...] = values
+        self.tensor[at:end].copy_(host[at:end], non_blocking=True)
+        copied.record()

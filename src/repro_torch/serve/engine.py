@@ -34,9 +34,17 @@ tensors: inside a body the ids become DTensors through
 ``DTensor.from_local`` (no device work), and the logits are made whole
 there, so a step's output is a plain tensor that greedy sampling reads
 whole. The steps are captured as the unsharded ones are.
+
+Greedy decoding runs one step ahead of the host (``Engine.step``): the
+argmax of a step stays on the device and is the next decode's input, so a
+step enqueues its extend and decode before it waits for the previous
+step's ids, and the host's own work lies under the replay in flight. The
+chunk's price is solved on a CUDA stream of the engine's own, beside that
+replay.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from dataclasses import dataclass
@@ -48,7 +56,8 @@ import torch
 from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (H100, DeviceModel, KernelProfile, Scenario,
-                              solve_scenarios, warmup_solver)
+                              get_solver_backend, get_solver_device, solve_scenarios,
+                              warmup_solver)
 from repro_torch.core.resources import RESOURCE_AXES
 from repro_torch.kernels import _mesh
 from repro_torch.models import build_model, moe
@@ -117,6 +126,12 @@ def extend_body(cfg: ModelConfig, params, cache, bucket: int,
         return _mesh.whole(unembed(unshard_data(params["embed"], ctx), x))
 
 
+def _listed(ids) -> List[int]:
+    """Sampled ids as host integers (``Engine._sample`` leaves greedy ones
+    on the device)."""
+    return ids.tolist() if isinstance(ids, torch.Tensor) else ids
+
+
 def _keep_loads(loads: dict, key, body):
     """``body`` that leaves its moe layers' routed and kept rows per expert
     in ``loads[key]`` (``moe.loads_kept``): on the card, the captured
@@ -154,6 +169,18 @@ class StepEvent:
         self.kind, self.t = kind, t
         self.detail = {} if detail is None else detail
         self.start = t if start is None else start
+
+
+@dataclass
+class _Flight:
+    """A step's ids on their way to the host: the copy of the slots' next
+    input ids (``host``; ``sent`` has passed once it is there, None on the
+    CPU), and whose tokens they are."""
+    host: torch.Tensor
+    sent: Optional[object]
+    first: List[tuple]          # (sequence, slot): its first token, from the extend
+    decoded: List[tuple]        # (sequence, slot): its next token, from the decode
+    last: List[Sequence]        # those of ``decoded`` whose last token it is
 
 
 class Engine:
@@ -201,6 +228,8 @@ class Engine:
         self._rec: Optional[spans.Recorder] = None     # the trace, while it is on
         self._last_rec: Optional[spans.Recorder] = None
         self._pool: Optional[spans.EventPool] = None
+        self._flight: Optional[_Flight] = None          # the last step's ids, unread
+        self._solve_streams: Dict[int, object] = {}     # device index -> the solve's stream
         self._build_steps()
         # the chunk pricing's solve (one scenario per candidate, 2 members)
         # is captured ahead of time where the solver runs on the card
@@ -233,6 +262,14 @@ class Engine:
                 else lambda key, body: body)
         self._decode_in = graphs.StaticInput(2 * B, torch.int64, self.device)
         self._decode_in.write(np.r_[np.zeros(B, np.int64), np.full(B, n, np.int64)])
+        # a greedy step leaves each slot's next input id on the device
+        # (``_next``); two host copies of them take turns on their way back
+        self._fed_ids, self._fed_pos = self._decode_in.tensor[:B], self._decode_in.tensor[B:]
+        self._next = torch.zeros(B, dtype=torch.int64, device=self.device)
+        card = self.device.type == "cuda"
+        self._ids_host = [torch.zeros(B, dtype=torch.int64, pin_memory=card) for _ in range(2)]
+        self._ids_sent = [torch.cuda.Event() if card else None for _ in range(2)]
+        self._sends = 0
         self.steps = {"decode": graphs.capture(keep("decode", functools.partial(
             decode_body, self.model, self.params, self.cache, self._decode_in.tensor,
             self.ctx)), self.device, "decode")}
@@ -285,9 +322,17 @@ class Engine:
     def _decode(self, tokens, pos) -> torch.Tensor:
         """tokens (B,) or (B,1) and positions (B,), host integers -> logits
         (B,1,V) f32 on the device: the decode step's output buffer, which
-        the next step overwrites (``step`` samples from it first)."""
-        self._decode_in.write(np.r_[np.asarray(tokens, np.int64).reshape(-1),
-                                    np.asarray(pos, np.int64).reshape(-1)])
+        the next step overwrites (``step`` samples from it first). With
+        ``tokens`` None only the positions are written, and a live slot is
+        fed the id the device holds for it (``_next``: its last greedy
+        argmax, or the first token an extend put there), an idle one (at
+        the trash position) 0, as the host would feed it."""
+        pos = np.asarray(pos, np.int64).reshape(-1)
+        if tokens is None:
+            self._decode_in.write(pos, at=self.ecfg.max_slots)
+            self._fed_ids.copy_(torch.where(self._fed_pos < self.ecfg.max_len, self._next, 0))
+        else:
+            self._decode_in.write(np.r_[np.asarray(tokens, np.int64).reshape(-1), pos])
         return self.steps["decode"]()
 
     def _extend(self, tokens, slot: int, pos0: int) -> torch.Tensor:
@@ -363,8 +408,9 @@ class Engine:
         rec = self._rec
         if rec:
             rec.open("solve")
-        br = solve_scenarios([Scenario((decode,), (ch,)) for ch in chunks],
-                             self.dev)
+        with self._beside():
+            br = solve_scenarios([Scenario((decode,), (ch,)) for ch in chunks],
+                                 self.dev)
         if rec:
             rec.close()
         tbt_iso = decode.isolated_time(self.dev)
@@ -381,18 +427,68 @@ class Engine:
         # (the old fallback returned an unpriced cands[-1] // 2)
         return cands[int(np.argmin(tbt_pred))]
 
+    @contextlib.contextmanager
+    def _beside(self):
+        """Where the solver runs on a CUDA device: on a stream of the
+        engine's own (its graphs in a pool of their own, ``graphs.SOLVER``),
+        so that the host waits for the solve alone while the steps' stream
+        holds a replay in flight; the trace's events follow the solve there.
+        Elsewhere, as it is."""
+        dev = get_solver_device()
+        if get_solver_backend() != "torch" or dev.type != "cuda":
+            yield
+            return
+        idx = torch.cuda.current_device() if dev.index is None else dev.index
+        stream = self._solve_streams.get(idx)
+        if stream is None:
+            stream = self._solve_streams[idx] = torch.cuda.Stream(idx, priority=-1)
+        rec = self._rec
+        was = rec.stream if rec else None
+        with torch.cuda.stream(stream):
+            if rec:
+                rec.stream = stream
+            try:
+                yield
+            finally:
+                if rec:
+                    rec.stream = was
+
     # ----------------------------- loop --------------------------- #
+    def _runs_ahead(self) -> bool:
+        """Whether ``step`` runs one step ahead of the host: in greedy
+        decoding, whose next inputs are argmaxes the device already holds.
+        With a temperature the logits go to the host, and each step waits
+        for its own ids."""
+        return self.ecfg.temperature <= 0
+
     def step(self) -> bool:
-        """One scheduler iteration. Returns False when idle. While tracing
-        is on (``trace``), each phase is also a span: ``step`` (counter
-        ``left``, the requests still in the engine), ``admit`` (``n``),
-        ``pick_chunk`` with ``solve``, ``extend`` (``c`` tokens in ``rows``),
-        ``first_token``, ``decode`` (``rows`` active of ``slots``),
-        ``sample`` and ``bookkeep``. A moe engine's ``extend`` and ``decode``
-        also carry ``moe_assigned``, ``moe_dropped`` and ``moe_max_load``
-        (``_moe_counters``), read from the card when the trace resolves."""
+        """One scheduler iteration. Returns False when idle, with no ids in
+        flight.
+
+        Greedy decoding (``_runs_ahead``) runs one step ahead: a step
+        admits, prices and enqueues its extend and decode, whose argmaxes
+        stay on the device as the next decode's inputs, and only then waits
+        for the previous step's ids and appends them to their sequences; a
+        step after which no sequence is left, active or waiting, reads its
+        own too. The schedule is the in-order one's: positions advance, and
+        a sequence's slot is freed, in the step that enqueues its last
+        decode; its ``done`` is set, with its last token, in the step that
+        reads it. With a temperature each step waits for its own ids.
+
+        While tracing is on (``trace``), each phase is also a span: ``step``
+        (counter ``left``, the requests still in the engine), ``admit``
+        (``n``), ``pick_chunk`` (``beside``: 1 where the price ran with a
+        step's ids in flight) with ``solve``, ``extend`` (``c`` tokens in
+        ``rows``), ``first_token``, ``decode`` (``rows`` active of
+        ``slots``; ``ahead``: 1 where it was enqueued with the previous
+        step's ids unread), ``sample`` (the ids' copy to the host and the
+        wait for them) and ``bookkeep``. A moe engine's ``extend`` and
+        ``decode`` also carry ``moe_assigned``, ``moe_dropped`` and
+        ``moe_max_load`` (``_moe_counters``), read from the card when the
+        trace resolves."""
         now = time.perf_counter
         rec = self._rec
+        ahead = self._runs_ahead()
         if rec:
             graphs.TAP = rec
             rec.root("step")
@@ -408,16 +504,19 @@ class Engine:
         active = list(self.alloc.active.values())
         prefilling = [s for s in active if s.pos < s.prompt_len]
         decoding = [s for s in active if s.pos >= s.prompt_len and not s.done]
+        if not (active and ahead):
+            self._land()
         if not active:
             if rec:
                 rec.close(left=len(self.waiting))
             return False
+        first, decoded, last = [], [], []
 
         # 2) one prefill chunk for the oldest prefilling sequence
         if prefilling:
             seq = prefilling[0]
             if rec:
-                rec.open("pick_chunk", seq=seq.seq_id)
+                rec.open("pick_chunk", seq=seq.seq_id, beside=int(self._flight is not None))
             chunk = self._pick_chunk(seq, len(decoding))
             tok = seq.tokens[seq.pos:seq.pos + chunk]
             if rec:
@@ -428,14 +527,20 @@ class Engine:
                 self._moe_counters(rec, chunk_bucket(len(tok)))
                 rec.close()
             last_chunk = seq.pos + len(tok) >= seq.prompt_len
-            # the host waits for the device only where it needs a value:
-            # the first generated token, after the prompt's last chunk
+            # the first generated token, after the prompt's last chunk: in
+            # order the host waits for it; ahead it goes into the slot's
+            # next input id on the device (the slot is idle in this step's decode)
             nxt = None
             if last_chunk:
                 if rec:
                     rec.open("first_token", seq=seq.seq_id)
                     rec.before()
-                nxt = self._sample(logits[:, -1])[0]
+                ids = self._sample(logits[:, -1])
+                if ahead:
+                    self._next.index_copy_(0, self._extend_in.tensor[:1], ids)
+                    first.append((seq, seq.slot))
+                else:
+                    nxt = _listed(ids)[0]
                 if rec:
                     rec.after()
                     rec.close()
@@ -445,48 +550,126 @@ class Engine:
                  "colocated_decodes": len(decoding)}))
             seq.pos += len(tok)
             if last_chunk:
-                seq.tokens.append(nxt)
-                seq.first_token_time = now()
+                if not ahead:
+                    seq.tokens.append(nxt)
+                    seq.first_token_time = now()
                 seq.pos += 1
 
         # 3) one decode step for the whole decode batch
         if decoding:
             B = self.ecfg.max_slots
             if rec:
-                rec.open("decode", rows=len(decoding), slots=B)
-            tokens = np.zeros((B, 1), np.int64)
+                rec.open("decode", rows=len(decoding), slots=B,
+                         ahead=int(self._flight is not None))
+            tokens = None if ahead else np.zeros((B, 1), np.int64)
             pos = np.full((B,), self.ecfg.max_len, np.int64)   # trash slot
             for s in decoding:
-                tokens[s.slot, 0] = s.tokens[-1]
+                if not ahead:
+                    tokens[s.slot, 0] = s.tokens[-1]
                 pos[s.slot] = s.pos - 1   # position of the token being fed
             logits = self._decode(tokens, pos)
-            if rec:
-                self._moe_counters(rec, "decode")
-                rec.close()
-                rec.open("sample")
-                rec.before()
-            # the sampled ids reach the host before the event is stamped, so
-            # the gap between decode events measures the device's work and
-            # not the enqueueing of its launches
-            sampled = self._sample(logits[:, 0])
+            if ahead:
+                # a live row's argmax is its next input; an idle row's slot
+                # (fed the trash position) keeps its id, which an extend may
+                # have written in this step
+                ids = self._sample(logits[:, 0])
+                self._next.copy_(torch.where(self._fed_pos < self.ecfg.max_len, ids, self._next))
             if rec:
                 rec.after()
+                self._moe_counters(rec, "decode")
                 rec.close()
-            self.events.append(StepEvent("decode", now(),
-                                         {"batch": len(decoding)}))
-            if rec:
+            if not ahead:
+                if rec:
+                    rec.open("sample")
+                    rec.before()
+                # the sampled ids reach the host before the event is
+                # stamped, so the gap between decode events measures the
+                # device's work and not the enqueueing of its launches
+                sampled = _listed(self._sample(logits[:, 0]))
+                if rec:
+                    rec.after()
+                    rec.close()
+            self.events.append(StepEvent("decode", now(), {"batch": len(decoding)}))
+            if rec and not ahead:
                 rec.open("bookkeep")
             for s in decoding:
-                s.tokens.append(sampled[s.slot])
+                if ahead:
+                    decoded.append((s, s.slot))
+                else:
+                    s.tokens.append(sampled[s.slot])
                 s.pos += 1
                 if s.pos - s.prompt_len >= s.max_new:
-                    s.done = True
-                    self._finish(s)
+                    if ahead:
+                        last.append(s)          # done when its last token lands
+                    else:
+                        s.done = True
+                        self._finish(s)
+                    self._release(s)
+            if rec and not ahead:
+                rec.close()
+
+        # 4) ahead: this step's ids start for the host, the last step's are
+        # read; where nothing follows, this step's too
+        if ahead:
+            if rec:
+                rec.open("sample")
+                rec.before()
+            landing = [self._flight]
+            self._flight = self._send(first, decoded, last)
+            if rec:
+                rec.after()
+            if not (self.alloc.active or self.waiting):
+                landing.append(self._flight)
+                self._flight = None
+            landing = [(f, self._wait(f)) for f in landing if f is not None]
+            if rec:
+                rec.close()
+                rec.open("bookkeep")
+            for f, ids in landing:
+                self._publish(f, ids)
             if rec:
                 rec.close()
         if rec:
             rec.close(left=len(self.alloc.active) + len(self.waiting))
         return True
+
+    def _send(self, first, decoded, last) -> Optional[_Flight]:
+        """Start the copy of the slots' next input ids, where this step's
+        tokens now are, to the host (None if the step made no token)."""
+        if not (first or decoded):
+            return None
+        turn = self._sends % 2
+        self._sends += 1
+        host, sent = self._ids_host[turn], self._ids_sent[turn]
+        host.copy_(self._next, non_blocking=sent is not None)
+        if sent is not None:
+            sent.record()
+        return _Flight(host, sent, first, decoded, last)
+
+    @staticmethod
+    def _wait(flight: _Flight) -> List[int]:
+        if flight.sent is not None:
+            flight.sent.synchronize()
+        return flight.host.tolist()
+
+    def _publish(self, flight: _Flight, ids: List[int]) -> None:
+        """A landed step's tokens into their sequences; those that made
+        their last token are done."""
+        t = time.perf_counter()
+        for seq, slot in flight.first:
+            seq.tokens.append(ids[slot])
+            seq.first_token_time = t
+        for seq, slot in flight.decoded:
+            seq.tokens.append(ids[slot])
+        for seq in flight.last:
+            seq.done = True
+            self._finish(seq)
+
+    def _land(self) -> None:
+        """Read the last step's ids, if any are in flight."""
+        flight, self._flight = self._flight, None
+        if flight is not None:
+            self._publish(flight, self._wait(flight))
 
     def _moe_counters(self, rec, key) -> None:
         """The moe counters of the step ``key`` just run, on the open span,
@@ -509,15 +692,17 @@ class Engine:
                     "moe_max_load": int(routed.max())}
         rec.later(counters)
 
-    def _sample(self, logits: torch.Tensor) -> List[int]:
-        """logits (n, V) f32 on the device -> n token ids on the host.
-        Greedy sampling takes the argmax on the device and moves n
-        integers, the same function as an argmax on the host over n x V
-        floats. With a temperature the logits go to the host and every row
+    def _sample(self, logits: torch.Tensor):
+        """logits (n, V) f32 on the device -> n token ids. Greedy sampling
+        takes the argmax on the device and leaves the ids there, an (n,)
+        int64 tensor, with nothing waiting for the card (``_listed`` moves
+        them; the same function as an argmax on the host over n x V
+        floats). With a temperature the logits go to the host and every row
         is drawn from a fresh ``default_rng(seed)``, as the reference
-        engine does (so every draw uses the same variate)."""
+        engine does (so every draw uses the same variate): a list of host
+        integers."""
         if self.ecfg.temperature <= 0:
-            return torch.argmax(logits, dim=-1).tolist()
+            return torch.argmax(logits, dim=-1)
         out = []
         for row in logits.cpu().numpy():
             p = np.exp((row - row.max()) / self.ecfg.temperature)
@@ -527,12 +712,17 @@ class Engine:
         return out
 
     def _finish(self, seq: Sequence):
+        """The metrics of a sequence whose last token is in."""
         self.metrics[seq.seq_id] = {
             "prompt_len": seq.prompt_len,
             "new_tokens": len(seq.tokens) - seq.prompt_len,
             "ttft_s": (seq.first_token_time or 0) - seq.arrival,
             "output": seq.tokens[seq.prompt_len:],
         }
+
+    def _release(self, seq: Sequence):
+        """The slot of a sequence whose last decode is enqueued goes back
+        to the allocator: its ``finish`` event."""
         self.alloc.release(seq.seq_id)
         self.events.append(StepEvent("finish", time.perf_counter(),
                                      {"seq": seq.seq_id}))

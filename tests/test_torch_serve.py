@@ -287,8 +287,8 @@ def test_temperature_sampling_keeps_the_reference_s_behaviour():
     p = np.exp((logits[0].numpy() - logits[0].numpy().max()) / 0.7)
     p /= p.sum()
     assert got[0] == got[2] == int(np.random.default_rng(3).choice(256, p=p))
-    eng.ecfg.temperature = 0.0
-    assert eng._sample(logits) == logits.argmax(-1).tolist()
+    eng.ecfg.temperature = 0.0          # greedy: the ids stay on the device
+    assert eng._sample(logits).tolist() == logits.argmax(-1).tolist()
 
 
 # ----------------------------- cross-package --------------------------- #
